@@ -1,0 +1,157 @@
+"""Imputation serving: a bucketed, fixed-shape inference path and a stdlib
+HTTP endpoint (port of the JAX package's `engine/serve.py`).
+
+- `ImputationServer.impute(x, mask)` pads each request up to one of a fixed
+  set of batch sizes, runs the model's `eval_step` on the server's device,
+  and returns the imputation (observed cells kept verbatim) and a per-row
+  score: the negative evidence bound (lower = better fit).
+- `make_http_server` / `serve_http`: POST /impute with JSON
+  {"x": [[...]], "mask": [[...]]}.
+
+The posterior sample's noise comes from a `torch.Generator` on the server's
+device seeded with `cfg.seed + 9`, as the JAX server seeds its key. A caller
+may pass its own noise source instead: `noise(ctr, shape)` returns the
+standard-normal eps, a float32 tensor of `shape`, for request number `ctr`
+(1, 2, ...).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+
+import numpy as np
+import torch
+
+from vae_posterior_consistency_tpu_torch.config import RunConfig
+from vae_posterior_consistency_tpu_torch.models import get_model
+
+DEFAULT_BUCKETS = (1, 8, 64, 512)
+
+
+class GeneratorNoise:
+    """Standard-normal eps from a seeded `torch.Generator` on `device`."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    def __call__(self, ctr: int, shape):
+        del ctr  # the generator's own state advances request by request
+        return torch.randn(shape, generator=self.generator, device=self.device)
+
+
+class ImputationServer:
+    def __init__(self, params, cfg: RunConfig, obs_dim: int,
+                 buckets=DEFAULT_BUCKETS, device="cuda", noise=None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ImputationServer: CUDA is not available; "
+                               "pass device='cpu' to serve on the CPU")
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        self.obs_dim = obs_dim
+        self.buckets = tuple(sorted(buckets))
+        self.params = _to(params, self.device)
+        self._noise = (GeneratorNoise(cfg.seed + 9, self.device)
+                       if noise is None else noise)
+        # itertools counters are atomic under the GIL, so concurrent
+        # impute() callers never share a request number
+        self._ctr = itertools.count(1)
+
+    def warmup(self):
+        """Run every bucket shape once."""
+        for b in self.buckets:
+            self.impute(np.zeros((b, self.obs_dim), np.float32),
+                        np.ones((b, self.obs_dim), np.float32))
+        return self
+
+    def impute(self, x, mask):
+        """Impute missing cells; returns (filled [n,D], row_score [n]) as
+        numpy arrays, where row_score is the per-row negative evidence bound.
+        """
+        x = np.asarray(x, np.float32)
+        mask = np.asarray(mask, np.float32)
+        if x.ndim != 2 or x.shape != mask.shape or x.shape[1] != self.obs_dim:
+            raise ValueError(f"impute: want x and mask [n, {self.obs_dim}], "
+                             f"got {x.shape} and {mask.shape}")
+        n = x.shape[0]
+        bucket = next((b for b in self.buckets if b >= n), None)
+        if bucket is None:
+            bucket = ((n + self.buckets[-1] - 1) // self.buckets[-1]
+                      ) * self.buckets[-1]
+        pad = bucket - n
+        if pad:
+            x = np.concatenate([x, np.zeros((pad, x.shape[1]), np.float32)])
+            mask = np.concatenate(
+                [mask, np.ones((pad, mask.shape[1]), np.float32)])
+        shape = (bucket, self.cfg.latent_dim)
+        eps = self._noise(next(self._ctr), shape)
+        if tuple(eps.shape) != shape or eps.dtype != torch.float32:
+            raise ValueError(f"noise source gave {eps.dtype} "
+                             f"{tuple(eps.shape)}, want float32 {shape}")
+        with torch.inference_mode():
+            x_t = torch.from_numpy(x).to(self.device)
+            m_t = torch.from_numpy(mask).to(self.device)
+            eps = eps.to(self.device)
+            out = self.model.eval_step(self.params, x_t, m_t,
+                                       torch.ones_like(m_t), eps, self.cfg)
+            # fill only the missing cells; keep observed values verbatim
+            filled = x_t * m_t + out["x_imputed"] * (1.0 - m_t)
+            # quality score: the per-row negative evidence bound
+            both = torch.cat([filled, out["row_loss"][:, None]], dim=1)
+            both = both[:n].cpu().numpy()  # one device->host copy
+        return both[:, :-1], both[:, -1]
+
+
+def _to(params, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
+
+
+def make_http_server(server: ImputationServer, host: str = "127.0.0.1",
+                     port: int = 8787):
+    """Build (but don't run) the HTTP endpoint; returns the bound
+    ThreadingHTTPServer. `port=0` binds a free port chosen by the OS (read
+    it back from `httpd.server_address[1]`)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    impute_lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            if self.path != "/impute":
+                self.send_error(404)
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                payload = json.loads(self.rfile.read(length))
+                with impute_lock:
+                    filled, negll = server.impute(payload["x"],
+                                                  payload["mask"])
+                body = json.dumps(
+                    {"imputed": filled.tolist(), "row_score": negll.tolist()}
+                ).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.end_headers()
+                self.wfile.write(body)
+            except (KeyError, ValueError, json.JSONDecodeError) as e:
+                self.send_error(400, str(e))
+
+        def log_message(self, *a):
+            pass
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve_http(server: ImputationServer, host: str = "127.0.0.1",
+               port: int = 8787):
+    """Minimal HTTP endpoint: POST /impute {"x": ..., "mask": ...}. Threaded
+    accept loop; device work is serialized through a lock."""
+    httpd = make_http_server(server, host, port)
+    print(f"imputation server on http://{host}:{httpd.server_address[1]}"
+          "/impute")
+    httpd.serve_forever()
