@@ -1,9 +1,11 @@
-"""Fused embed+pool (kernel B2f) in the port: its plain version against the
-JAX package's Pallas kernel (interpret mode off-TPU) and the JAX reference,
-and the wrapper's routing. The CUDA kernel itself is tested on the card by
+"""Fused embed+pool (kernels B2f and B2b) in the port: its plain forward and
+backward against the JAX package's Pallas kernels (interpret mode off-TPU)
+and the JAX reference, the autograd Function's gradients, and the wrapper's
+routing. The CUDA kernels themselves are tested on the card by
 tests/test_torch_kernels_cuda.py."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -39,12 +41,54 @@ def test_plain_matches_jax_kernel_and_reference(D, K, S):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("K", [4, 10])
+@pytest.mark.parametrize("D", [13, 130])
+def test_backward_and_function_gradients_match_jax_kernel_vjp(D, K, S):
+    arrays = _case(D * 100 + K * 10 + S + 5, 7, D, K, S)
+    g = np.random.default_rng(D + K + S).standard_normal(
+        (S, 7, K)).astype(np.float32)
+    _, vjp = jax.vjp(jfep.embed_pool, *map(jnp.asarray, arrays))
+    want = jax.jit(vjp)(jnp.asarray(g))  # the Pallas _bwd_call, interpreted
+    names = ("dx", "dmasks", "dA", "dC")
+
+    # the plain backward, directly and through the wrapper
+    plain_bwd = tfep.embed_pool_bwd_reference(*map(torch.from_numpy, arrays),
+                                              torch.from_numpy(g))
+    wrapped = tfep.embed_pool_bwd(*map(torch.from_numpy, arrays),
+                                  torch.from_numpy(g))
+    for name, a, b, c in zip(names, plain_bwd, want, wrapped):
+        assert a.shape == np.shape(b), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+        np.testing.assert_array_equal(c.numpy(), a.numpy(), err_msg=name)
+    assert tfep.embed_pool_bwd(*map(torch.from_numpy, arrays),
+                               torch.from_numpy(g), dmasks=False)[1] is None
+
+    # the autograd Function, against JAX and autograd of the plain forward
+    inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    got = torch.autograd.grad(tfep.embed_pool(*inputs), inputs,
+                              torch.from_numpy(g))
+    plain_inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    autograd = torch.autograd.grad(
+        tfep.embed_pool_reference(*plain_inputs), plain_inputs,
+        torch.from_numpy(g))
+    for name, a, b, c in zip(names, got, want, autograd):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), err_msg=name, **TOL)
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     arrays = [torch.from_numpy(a) for a in _case(0, 5, 9, 3, 1)]
-    before = tfep.embed_pool.launches
+    before = (tfep.embed_pool.launches, tfep.embed_pool_bwd.launches)
     np.testing.assert_array_equal(tfep.embed_pool(*arrays).numpy(),
                                   tfep.embed_pool_reference(*arrays).numpy())
-    assert tfep.embed_pool.launches == before
+    g = torch.ones(1, 5, 3)
+    for a, b in zip(tfep.embed_pool_bwd(*arrays, g),
+                    tfep.embed_pool_bwd_reference(*arrays, g)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (tfep.embed_pool.launches, tfep.embed_pool_bwd.launches) == before
 
 
 def test_non_cpu_tensors_are_never_routed_to_the_plain_version():
@@ -55,6 +99,8 @@ def test_non_cpu_tensors_are_never_routed_to_the_plain_version():
     mixed[2] = mixed[2].to("meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         tfep.embed_pool(*mixed)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfep.embed_pool_bwd(*arrays, torch.ones(1, 5, 3, device="meta"))
 
 
 def test_kernel_build_without_nvcc_raises():

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
+from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
 
 
 @pytest.fixture
@@ -60,5 +61,82 @@ def test_embed_pool_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fep.embed_pool(x.t().contiguous().t(), masks, A, C)
     with pytest.raises(ValueError, match="one CUDA device"):
         fep.embed_pool(x.cpu(), masks, A, C)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        fep.embed_pool(x, masks, A.requires_grad_(), C)
+    with pytest.raises(ValueError, match="g lies on"):
+        fep.embed_pool_bwd(x, masks, A, C, torch.ones(1, 4, 5))
+    # inputs that need a gradient go through the backward kernel
+    A.requires_grad_()
+    before = fep.embed_pool_bwd.launches
+    fep.embed_pool(x, masks, A, C).sum().backward()
+    assert fep.embed_pool_bwd.launches == before + 1 and A.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("B", [1, 7, 64, 179])
+@pytest.mark.parametrize("dmasks", [True, False])
+def test_embed_pool_bwd_kernel_matches_plain(cuda, S, B, dmasks):
+    D, K = 784, 10
+    x, masks, A, C = _case(S * 1000 + B, S, B, D, K, cuda)
+    g = torch.randn(S, B, K, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(B))
+    before = fep.embed_pool_bwd.launches
+    got = fep.embed_pool_bwd(x, masks, A, C, g, dmasks=dmasks)
+    torch.cuda.synchronize()
+    assert fep.embed_pool_bwd.launches == before + 1
+    want = fep.embed_pool_bwd_reference(x, masks, A, C, g)
+    # dx sums K terms; dmasks K terms; dA and dC sum B terms, in another
+    # order in the kernel (tiles of rows, then tiles in order)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    if dmasks:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    else:
+        assert got[1] is None
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5 * B)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-5 * B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(64, 10), (7, 3), (4096, 10), (1, 1)])
+def test_fused_posterior_kernel_matches_plain(cuda, B, L):
+    gen = torch.Generator(device=cuda).manual_seed(B + L)
+    mq, mp, eq, ep = torch.randn(4, B, L, device=cuda, generator=gen)
+    lq, lp = torch.rand(2, B, L, device=cuda, generator=gen) * 3.0 - 2.0
+    before = fp.fused_posterior.launches
+    got = fp.fused_posterior(mq, lq, mp, lp, eq, ep)
+    torch.cuda.synchronize()
+    assert fp.fused_posterior.launches == before + 1
+    want = fp.fused_posterior_reference(mq, lq, mp, lp, eq, ep)
+    # z elementwise; the three KL sums over B*L cells in another order
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    # strided statistics (column halves of the encoder output)
+    h = torch.cat([mq, lq], dim=1)
+    again = fp.fused_posterior(*h.chunk(2, dim=1), mp, lp, eq, ep)
+    for g, w in zip(again, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_functions_gradients_match_autograd_of_plain(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    stats = [torch.randn(64, 10, device=cuda, generator=gen)
+             for _ in range(6)]
+    cts = [torch.randn(64, 10, device=cuda, generator=gen),
+           torch.randn(64, 10, device=cuda, generator=gen),
+           *torch.randn(3, device=cuda, generator=gen)]
+    a = [t.clone().requires_grad_() for t in stats]
+    b = [t.clone().requires_grad_() for t in stats]
+    got = torch.autograd.grad(fp.fused_posterior(*a), a, cts)
+    want = torch.autograd.grad(fp.fused_posterior_reference(*b), b, cts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+    x, masks, A, C = _case(5, 2, 64, 784, 10, cuda)
+    g = torch.randn(2, 64, 10, device=cuda, generator=gen)
+    a = [t.clone().requires_grad_() for t in (x, masks, A, C)]
+    b = [t.clone().requires_grad_() for t in (x, masks, A, C)]
+    got = torch.autograd.grad(fep.embed_pool(*a), a, g)
+    want = torch.autograd.grad(fep.embed_pool_reference(*b), b, g)
+    for i, (u, v) in enumerate(zip(got, want)):
+        torch.testing.assert_close(u, v, rtol=1e-5,
+                                   atol=1e-5 * (64 if i >= 2 else 1))

@@ -1,4 +1,5 @@
-"""Run configuration: the `vae_type` master switch and the fields serving reads.
+"""Run configuration: the `vae_type` master switch and the fields serving and
+training read.
 
 A copy of the JAX package's `config.py` contract (`parse_vae_type`,
 `FAMILY_PRECEDENCE`, `VaeTypeInfo`, `RunConfig`) cut to what the port uses
@@ -68,7 +69,7 @@ def parse_vae_type(vae_type: str) -> VaeTypeInfo:
 class RunConfig:
     """One run. Names and defaults follow the JAX package's `RunConfig` (the
     reference JSONL schema, Data/imputation_args.json line 1); only the
-    fields that serving and checkpoint naming read are here."""
+    fields that serving, training and checkpoint naming read are here."""
 
     missing_rate: int = 50
     vae_type: str = "reg_vae1"
@@ -76,6 +77,8 @@ class RunConfig:
     reg_type: str = "kl_reg"  # 'kl_reg' | 'ml_reg'
     data_type: str = "wine"
     epoch: int = 3000
+    batch_size: int = 64
+    data_path: str = "Data"
     K: int = 10  # PointNet feature-map dim
     latent_dim: int = 10
     beta_annealing: bool = False
@@ -83,6 +86,7 @@ class RunConfig:
     p_missingness: int = 30
     beta: float = 1.0
     seed: int = 0
+    data_transform: str = "minmax"  # 'minmax' | 'stand'
     #: 'float32' only in the port so far; 'bfloat16' comes with the
     #: mixed-precision slice (models/registry.get_model raises)
     compute_dtype: str = "float32"

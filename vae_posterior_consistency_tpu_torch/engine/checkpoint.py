@@ -1,5 +1,5 @@
 """Checkpoints: reference-mangled paths, the JAX package's flat-key `.pt`
-format, and trained reference state_dicts (gauss family).
+format (save and load), and trained reference state_dicts (gauss family).
 
 The JAX package saves a flat dict {"encoder/pnp1/layer0/w": ndarray, ...}
 with torch.save (its `engine/checkpoint.py`); weights are [fan_in, fan_out],
@@ -77,6 +77,18 @@ def params_from_jax(flat: dict, device) -> dict:
     `device`. Same keys, same layouts, same values."""
     return unflatten({k: torch.tensor(np.asarray(v), device=device)
                       for k, v in flat.items()})
+
+
+def save(params: dict, path: str) -> None:
+    """Write `params` in the JAX package's flat-key format: `torch.save` of
+    {"encoder/layer0/w": float32 ndarray, ...}, weights [fan_in, fan_out]
+    (its engine/checkpoint.save), so the JAX `load`/`load_trained` reads
+    it. Parent directories are made."""
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    torch.save({k: np.asarray(v.detach().cpu().numpy(), dtype=np.float32)
+                for k, v in flatten(params).items()}, path)
 
 
 def load(template_params: dict, path: str) -> dict:

@@ -88,6 +88,19 @@ def _pointnet_pool(params, x, mask):
     return _pointnet_pool_multi(params, x, mask[None])[0]  # [B, K]
 
 
+def pointnet_encoder_apply_2masks(params, x, mask_q, mask_p):
+    """Both posterior branches of a regularized EDDI model in one pass: the
+    embed does not depend on the mask, so it is pooled under
+    stack([mask_q, mask_p]) in one call (the fused kernel at S=2 on CUDA
+    tensors, its backward in training), and the trunk runs on the stacked
+    [2, B, K] aggregate. Returns (mean, logvar) shaped [2, B, L], row 0 the
+    q branch and row 1 the p branch."""
+    agg = _pointnet_pool_multi(params, x, torch.stack([mask_q, mask_p]))
+    h = core.mlp_apply(params["pnp2"], agg, hidden_act="relu")
+    mean, logvar = h.chunk(2, dim=-1)
+    return mean, logvar
+
+
 def sigmoid_decoder_init(generator, obs_dim, latent_dim, widths=(50, 100),
                          device="cuda"):
     """`widths=(200,500,500)` for the MNIST variant (reference: VAE.py:41-44)."""

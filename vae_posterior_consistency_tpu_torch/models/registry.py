@@ -18,6 +18,8 @@ class ModelDef:
 
     name: str
     init: Callable  # (generator, cfg, obs_dim, device) -> params
+    #: (params, x, mask, mask_p, eps, epoch, cfg, eps_z=None) -> (loss, aux)
+    train_loss: Callable
     eval_step: Callable  # (params, x, mask, mask_p, eps, cfg) -> dict
     uses_p_branch: bool
 
@@ -25,6 +27,7 @@ class ModelDef:
 _GAUSS = ModelDef(
     name="gauss",
     init=gauss.init,
+    train_loss=gauss.train_loss,
     eval_step=gauss.eval_step,
     uses_p_branch=True,  # refined per vae_type in get_model
 )

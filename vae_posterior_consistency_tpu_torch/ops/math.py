@@ -28,6 +28,16 @@ def normal_logpdf(x, mean, logvar):
             - _LOG_SQRT_2PI)
 
 
+def gaussian_log_likelihood(targets, mean, logvar, dim=None):
+    """Sum of element-wise Gaussian log-probs (reference: VAE.py:183-185)."""
+    return _sum(normal_logpdf(targets, mean, logvar), dim)
+
+
+def neg_gaussian_log_likelihood(targets, mean, logvar, dim=None):
+    """Negative Gaussian log-likelihood sum (reference: VAE.py:179-181)."""
+    return -gaussian_log_likelihood(targets, mean, logvar, dim=dim)
+
+
 def kl_diag_std(mean, logvar, dim=None):
     """KL( N(mean, exp(logvar)) || N(0, I) ), summed over `dim` (all if None)."""
     kl = 0.5 * (torch.exp(logvar) + torch.square(mean) - 1.0 - logvar)
