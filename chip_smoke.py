@@ -11,10 +11,10 @@ Run from the root of a checkout. It drives only the port
 2. build: every kernel in vae_posterior_consistency_tpu_torch/csrc/ with
    nvcc (plain C interface, loaded with ctypes), all sources at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the serving and training paths give it: B2f (embed+pool forward), B2b
-   (its backward, with and without the dmasks output) and B1 (the posterior
-   tail); and each autograd Function's gradients against autograd through
-   the plain forward;
+   the serving and training paths give it and beyond them (three masks, 64
+   features): B2f (embed+pool forward), B2b (its backward, with and without
+   the dmasks output) and B1 (the posterior tail); and each autograd
+   Function's gradients against autograd through the plain forward;
 4. serving: the trained MNIST reg_EDDI1 checkpoint in the repo (reference
    state_dict, mapped by the port) behind ImputationServer(device="cuda"),
    imputing the 179 MNIST test rows in requests of 1, 8, 64 and 179 rows.
@@ -31,10 +31,16 @@ Run from the root of a checkout. It drives only the port
    falling; (c) the saved checkpoint loaded back and served;
 7. training, the flagship reg_vae1 / kl_reg on Data/wine split 1, batch 64,
    30 epochs: B1 once a step, the embed+pool kernels never, the loss falling;
-8. timings with CUDA events and the host clock.
+8. timings with CUDA events and the host clock: B2f and B2b as the serving
+   and training paths launch them (`EmbedPool.forward` on A and C [D, K],
+   `EmbedPool.backward` for A and C only), the standalone `embed_pool_bwd`,
+   one shape where the bytes and not the launch set the time (S=2,
+   B=4096), and B1; each figure with the number of device operations one
+   call makes, counted by torch.profiler.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
-error against the plain version, times, bound), then, as its last line,
+launches per call, error against the plain version, times, bound), then, as
+its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 300 s. It writes nothing in the checkout but the kernels' build
@@ -69,8 +75,8 @@ PEAK_F32_S = 67e12
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-4)
 #: B2b against its plain version: dx and dmasks sum K=10 terms, so float32
 #: rounding in another order stays near 1e-6 of their size; dA and dC sum B
-#: terms (by tiles of rows, then tiles in order), so the absolute tolerance
-#: grows with B
+#: terms (each warp over its rows, then the warps in order), so the absolute
+#: tolerance grows with B
 BWD_RTOL = 1e-5
 BWD_ATOL_PER_TERM = 1e-5
 #: the card's server against the CPU server (plain versions), same noise.
@@ -139,13 +145,16 @@ def embed_pool_bound_ms(S, B, D, K):
     return _bound(nbytes, (3 + 2 * S) * B * D * K)
 
 
-def embed_pool_bwd_bound_ms(S, B, D, K, dmasks=True):
-    """B2b: reads x, masks, A, C, g and writes dx, dmasks (if asked), dA, dC
-    once; (9+4S)*B*D*K operations (the embed recomputed, gsum, dx, dmasks,
-    dA, dC)."""
+def embed_pool_bwd_bound_ms(S, B, D, K, dx=True, dmasks=True):
+    """B2b: reads x, masks, A, C, g and writes dx and dmasks (each if asked),
+    dA, dC once; (6+2S)*B*D*K operations for dA and dC (the affine
+    recomputed, gsum, its gate, dA, dC), 2 more a cell for dx and 1+2S for
+    dmasks: (9+4S) with all four."""
     nbytes = 4 * (B * D + S * B * D + 2 * D * K + S * B * K
-                  + B * D + (S * B * D if dmasks else 0) + 2 * D * K)
-    return _bound(nbytes, (9 + 4 * S) * B * D * K)
+                  + (B * D if dx else 0) + (S * B * D if dmasks else 0)
+                  + 2 * D * K)
+    ops = (6 + 2 * S + (2 if dx else 0) + (1 + 2 * S if dmasks else 0))
+    return _bound(nbytes, ops * B * D * K)
 
 
 def fused_posterior_bound_ms(B, L):
@@ -153,6 +162,26 @@ def fused_posterior_bound_ms(B, L):
     about 31 operations a cell (8 for the two samples, 7 for each KL to
     N(0,I), 9 for KL(q||p), counting an exponential as one)."""
     return _bound(4 * (8 * B * L + 3), 31 * B * L)
+
+
+def device_ops(fn):
+    """Device operations (kernels, copies, fills) one call of `fn` puts on
+    the card, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(2):  # the larger of two counts: a trace may drop an event
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)))
+    return max(counts)
 
 
 def max_abs(a, b):
@@ -219,7 +248,7 @@ def main() -> int:
     D, K = 784, 10
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(S, B):
+    def inputs(S, B, K=K):
         x = torch.rand(B, D, device="cuda", generator=gen)
         masks = (torch.rand(S, B, D, device="cuda", generator=gen)
                  < 0.7).float()
@@ -235,40 +264,51 @@ def main() -> int:
     max_err = {"embed_pool_fwd": 0.0, "embed_pool_bwd": 0.0,
                "fused_posterior_fwd": 0.0}
     with phase("kernels against their plain versions"):
-        for S, B in [(1, 1), (1, 8), (1, 64), (1, 179), (1, 512), (2, 64)]:
-            args = inputs(S, B)
+        for S, B, k in [(1, 1, K), (1, 8, K), (1, 64, K), (1, 179, K),
+                        (1, 512, K), (2, 64, K), (2, 4096, K), (3, 64, K),
+                        (2, 64, 64)]:
+            args = inputs(S, B, k)
             got = fep.embed_pool(*args)
             torch.cuda.synchronize()
             want = fep.embed_pool_reference(*args)
             err = max_abs(got, want)
             max_err["embed_pool_fwd"] = max(max_err["embed_pool_fwd"], err)
             torch.testing.assert_close(got, want, **KERNEL_TOL)
-            print(f"B2f embed_pool S={S} B={B} D={D} K={K}: max abs diff "
+            print(f"B2f embed_pool S={S} B={B} D={D} K={k}: max abs diff "
                   f"{err:.3e}", flush=True)
-        for S in (1, 2):
-            for B in (1, 7, 64, 179):
-                args = inputs(S, B)
-                g = torch.randn(S, B, K, device="cuda", generator=gen)
-                want = fep.embed_pool_bwd_reference(*args, g)
-                for dmasks in (True, False):
-                    got = fep.embed_pool_bwd(*args, g, dmasks=dmasks)
-                    torch.cuda.synchronize()
-                    errs = []
-                    for i, name in enumerate(("dx", "dmasks", "dA", "dC")):
-                        if name == "dmasks" and not dmasks:
-                            if got[1] is not None:
-                                raise AssertionError("dmasks=False gave dm")
-                            continue
-                        atol = BWD_ATOL_PER_TERM * (B if i >= 2 else K)
-                        torch.testing.assert_close(got[i], want[i],
-                                                   rtol=BWD_RTOL, atol=atol)
-                        errs.append(f"{name} {max_abs(got[i], want[i]):.3e}")
-                        max_err["embed_pool_bwd"] = max(
-                            max_err["embed_pool_bwd"],
-                            max_abs(got[i], want[i]))
-                    print(f"B2b embed_pool_bwd S={S} B={B} D={D} K={K} "
-                          f"dmasks={dmasks}: max abs diff "
-                          f"{', '.join(errs)}", flush=True)
+        bwd_cases = [(S, B, K) for S in (1, 2) for B in (1, 7, 64, 179)]
+        for S, B, k in bwd_cases + [(3, 64, K), (2, 64, 64)]:
+            args = inputs(S, B, k)
+            g = torch.randn(S, B, k, device="cuda", generator=gen)
+            want = fep.embed_pool_bwd_reference(*args, g)
+            for dmasks in (True, False):
+                got = fep.embed_pool_bwd(*args, g, dmasks=dmasks)
+                torch.cuda.synchronize()
+                errs = []
+                for i, name in enumerate(("dx", "dmasks", "dA", "dC")):
+                    if name == "dmasks" and not dmasks:
+                        if got[1] is not None:
+                            raise AssertionError("dmasks=False gave dm")
+                        continue
+                    atol = BWD_ATOL_PER_TERM * (B if i >= 2 else k)
+                    torch.testing.assert_close(got[i], want[i],
+                                               rtol=BWD_RTOL, atol=atol)
+                    errs.append(f"{name} {max_abs(got[i], want[i]):.3e}")
+                    max_err["embed_pool_bwd"] = max(
+                        max_err["embed_pool_bwd"],
+                        max_abs(got[i], want[i]))
+                print(f"B2b embed_pool_bwd S={S} B={B} D={D} K={k} "
+                      f"dmasks={dmasks}: max abs diff "
+                      f"{', '.join(errs)}", flush=True)
+        args = inputs(2, 64)
+        g = torch.randn(2, 64, K, device="cuda", generator=gen)
+        for name, fn in (("B2f", lambda: [fep.embed_pool(*args)]),
+                         ("B2b", lambda: fep.embed_pool_bwd(*args, g))):
+            if not all(torch.equal(u, v) for u, v in zip(fn(), fn())):
+                raise AssertionError(f"{name} gave other bits on a second "
+                                     "call")
+        print("B2f and B2b at S=2, B=64: the same bits on two calls",
+              flush=True)
         for B, L in [(64, 10), (7, 3), (4096, 10)]:
             args = stats(B, L)
             got = fp.fused_posterior(*args)
@@ -563,8 +603,27 @@ def main() -> int:
               flush=True)
 
     times = {}
+
+    def timed(label, fn, plain, bound):
+        """Time `fn` and its plain version `plain` (CUDA events), count the
+        device operations of one call of `fn`, print them beside `bound`
+        ((ms, 'bytes' or 'operations')) and return (ms, plain ms, bound ms,
+        bound by, operations a call)."""
+        k_ms = event_ms(fn)
+        p_ms = event_ms(plain)
+        n_ops = device_ops(fn)
+        print(f"{label}: kernel {k_ms:.6f} ms ({n_ops} device operations a "
+              f"call), plain {p_ms:.6f} ms, bound {bound[0]:.6f} ms "
+              f"({bound[1]}) [{card}]", flush=True)
+        return k_ms, p_ms, bound[0], bound[1], n_ops
+
     with phase("timings"):
-        # B2f at the serving shape of the first slice, then the training one
+        # what one launch of a trivial PyTorch kernel costs on this timing
+        one = torch.zeros(1, device="cuda")
+        floor_ms = event_ms(lambda: one.add_(1.0))
+        print(f"launch floor: a 1-element torch add_ {floor_ms:.6f} ms "
+              f"[{card}]", flush=True)
+        # B2f at the serving shape, as ImputationServer launches it
         S, B = 1, 512
         A, C = layers._pointnet_affine(params["encoder"])
         xt = torch.from_numpy(np.concatenate(
@@ -572,55 +631,55 @@ def main() -> int:
         mt = torch.from_numpy(np.concatenate(
             [mask, np.ones((B - len(x), 784), np.float32)]))[None].cuda()
         with torch.no_grad():
-            k_ms = event_ms(lambda: fep.embed_pool(xt, mt, A, C))
-        p_ms = event_ms(lambda: fep.embed_pool_reference(xt, mt, A, C))
-        b_ms, b_by = embed_pool_bound_ms(S, B, D, K)
-        print(f"B2f embed_pool S={S} B={B}: kernel {k_ms:.6f} ms, plain "
-              f"{p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]",
-              flush=True)
+            timed(f"B2f EmbedPool.forward S={S} B={B} (serving)",
+                  lambda: fep.embed_pool(xt, mt, A, C),
+                  lambda: fep.embed_pool_reference(xt, mt, A, C),
+                  embed_pool_bound_ms(S, B, D, K))
 
-        S, B = 2, 64
-        x2, m2, A2, C2 = inputs(S, B)
-        with torch.no_grad():
-            k_ms = event_ms(lambda: fep.embed_pool(x2, m2, A2, C2))
-        p_ms = event_ms(lambda: fep.embed_pool_reference(x2, m2, A2, C2))
-        b_ms, b_by = embed_pool_bound_ms(S, B, D, K)
-        times["embed_pool_fwd"] = (k_ms, p_ms, b_ms, b_by)
-        print(f"B2f embed_pool S={S} B={B}: kernel {k_ms:.6f} ms, plain "
-              f"{p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]",
-              flush=True)
-
-        g2 = torch.randn(S, B, K, device="cuda", generator=gen)
-        k_ms = event_ms(lambda: fep.embed_pool_bwd(x2, m2, A2, C2, g2))
-        k_train_ms = event_ms(
-            lambda: fep.embed_pool_bwd(x2, m2, A2, C2, g2, dmasks=False))
-        p_ms = event_ms(
-            lambda: fep.embed_pool_bwd_reference(x2, m2, A2, C2, g2))
-        b_ms, b_by = embed_pool_bwd_bound_ms(S, B, D, K)
-        b_train_ms, _ = embed_pool_bwd_bound_ms(S, B, D, K, dmasks=False)
-        times["embed_pool_bwd"] = (k_ms, p_ms, b_ms, b_by)
-        print(f"B2b embed_pool_bwd S={S} B={B}: kernel {k_ms:.6f} ms, plain "
-              f"{p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}); without "
-              f"dmasks (the training form) {k_train_ms:.6f} ms, bound "
-              f"{b_train_ms:.6f} ms [{card}]", flush=True)
+        # B2f and B2b as a training step launches them (S=2, B=64), then
+        # at S=2, B=4096, where the bytes and not the launch set the time
+        for S, B in ((2, 64), (2, 4096)):
+            tag = ("training" if B == 64 else
+                   "diagnostic: bytes, not the launch, set the time")
+            x2, m2, A2, C2 = inputs(S, B)
+            g2 = torch.randn(S, B, K, device="cuda", generator=gen)
+            with torch.no_grad():
+                fwd = timed(f"B2f EmbedPool.forward S={S} B={B} ({tag})",
+                            lambda: fep.embed_pool(x2, m2, A2, C2),
+                            lambda: fep.embed_pool_reference(x2, m2, A2, C2),
+                            embed_pool_bound_ms(S, B, D, K))
+            # the step's backward: A and C need a gradient, x and masks not
+            Ar, Cr = A2.clone().requires_grad_(), C2.clone().requires_grad_()
+            agg = fep.embed_pool(x2, m2, Ar, Cr)
+            bwd = timed(
+                f"B2b EmbedPool.backward S={S} B={B}, dA and dC only ({tag})",
+                lambda: torch.autograd.grad(agg, (Ar, Cr), g2,
+                                            retain_graph=True),
+                lambda: fep.embed_pool_bwd_reference(x2, m2, A2, C2, g2),
+                embed_pool_bwd_bound_ms(S, B, D, K, dx=False, dmasks=False))
+            if B == 64:
+                times["embed_pool_fwd"], times["embed_pool_bwd"] = fwd, bwd
+            timed(f"B2b embed_pool_bwd standalone S={S} B={B}, all four "
+                  f"outputs ({tag})",
+                  lambda: fep.embed_pool_bwd(x2, m2, A2, C2, g2),
+                  lambda: fep.embed_pool_bwd_reference(x2, m2, A2, C2, g2),
+                  embed_pool_bwd_bound_ms(S, B, D, K))
 
         Bq, L = 64, LATENT
         st = stats(Bq, L)
-        k_ms = event_ms(lambda: fp.fused_posterior_kernel(*st))
-        p_ms = event_ms(lambda: fp.fused_posterior_reference(*st))
-        b_ms, b_by = fused_posterior_bound_ms(Bq, L)
-        times["fused_posterior_fwd"] = (k_ms, p_ms, b_ms, b_by)
-        print(f"B1 fused_posterior [{Bq},{L}]: kernel {k_ms:.6f} ms, plain "
-              f"{p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}) [{card}]",
-              flush=True)
+        times["fused_posterior_fwd"] = timed(
+            f"B1 fused_posterior [{Bq},{L}]",
+            lambda: fp.fused_posterior_kernel(*st),
+            lambda: fp.fused_posterior_reference(*st),
+            fused_posterior_bound_ms(Bq, L))
 
-        timed = serve.ImputationServer(params, cfg, 784,
-                                       device="cuda").warmup()
+        timed_srv = serve.ImputationServer(params, cfg, 784,
+                                           device="cuda").warmup()
         for n, bucket in ((64, 64), (179, 512)):
             lat = []
             for _ in range(TIMING_RUNS):
                 t0 = time.perf_counter()
-                timed.impute(x[:n], mask[:n])
+                timed_srv.impute(x[:n], mask[:n])
                 lat.append((time.perf_counter() - t0) * 1e3)
             print(f"request of {n} rows (bucket {bucket}): p50 "
                   f"{statistics.median(lat):.6f} ms over {TIMING_RUNS} "
@@ -639,10 +698,11 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces) in where.items():
-        k_ms, p_ms, b_ms, b_by = times[name]
+        k_ms, p_ms, b_ms, b_by, n_ops = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": mnist_counts[name],
+            "launches_per_call": n_ops,
             "max_abs_err": max_err[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -147,14 +147,14 @@ extern "C" int vpc_fused_posterior_fwd(
       ld_eq < L || ld_ep < L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_blocks = vpc_fused_posterior_blocks(B, L);
   Inputs in{mq, lq, mp, lp, eq, ep, ld_mq, ld_lq, ld_mp, ld_lp, ld_eq, ld_ep};
   fused_posterior_kernel<<<n_blocks, kThreads, 0, st>>>(in, z_q, z_p,
                                                         partials, B, L);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   sum_partials_kernel<<<1, kThreads, 0, st>>>(partials, kl, n_blocks);
   return static_cast<int>(cudaGetLastError());

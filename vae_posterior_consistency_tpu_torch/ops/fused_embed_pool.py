@@ -9,7 +9,9 @@ x [B, D], masks [S, B, D], A and C [D, K] (from
 The kernels, in `csrc/embed_pool.cu`, replace the forward and backward
 Pallas kernels of the JAX package (`ops/fused_embed_pool.py`, `_fwd_call`
 and `_bwd_call`); the source's header says what bounds them and how they are
-laid out. The backward recomputes the embed and returns dx, dmasks, dA, dC.
+laid out. Each is one launch per call, reads A and C in place in their
+[D, K] layout, and takes any S and K, as the JAX kernels do. The backward
+recomputes the embed and returns dx, dmasks, dA, dC (dA and dC [D, K]).
 
 `embed_pool` (differentiable, through `EmbedPool`) takes the plain versions,
 `embed_pool_reference` and `embed_pool_bwd_reference`, for CPU tensors only.
@@ -27,9 +29,14 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.ops import _build
 
-#: the kernels keep S*K partial sums per thread in registers
-MAX_S = 2
-MAX_K = 32
+#: values of k one forward block takes (csrc/embed_pool.cu `kChunkK`)
+CHUNK_K = 16
+#: warps of a forward block (csrc/embed_pool.cu `kWarps`)
+WARPS = 8
+#: bytes of A and C a forward block stages in shared memory at most; the H100
+#: gives one block up to 227 KB. Beyond it the kernel reads them from global
+#: memory.
+STAGE_BYTES = 200 * 1024
 
 
 def embed_pool_reference(x, masks, A, C):
@@ -54,21 +61,47 @@ def embed_pool_bwd_reference(x, masks, A, C, g):
     return dx, dmasks, dA, dC
 
 
+def fwd_plan(B, D, K, n_sm):
+    """The forward kernel's tiling for x [B,D] and A [D,K] on a card with
+    `n_sm` SMs: (k_chunk, segments, rows_per_block, staged).
+
+    K splits into the fewest chunks of at most CHUNK_K values, as even as can
+    be (one chunk per block on grid y). Rows split into about one block per
+    SM over all chunks, so A and C are staged once per block and the card
+    gets one wave; from 16 rows an SM on, two blocks an SM, so that twice
+    the warps hide the loads' latency. A block's 8 warps split into row
+    slots x `segments` d segments, as many slots as the tile has rows (a
+    power of two). A and C are staged in shared memory when a block has
+    more than one row to reuse them for and a chunk of them, stored as
+    (A, C) pairs with an odd pitch, fits in STAGE_BYTES; a block of one row
+    reads each value once, and reads it sooner from global memory."""
+    n_kc = -(-K // CHUNK_K)
+    k_chunk = -(-K // n_kc)
+    waves = 2 if B >= 16 * n_sm else 1
+    tiles = min(B, max(1, -(-waves * n_sm // n_kc)))
+    rows = -(-B // tiles)
+    segments = WARPS // min(WARPS, 1 << (rows.bit_length() - 1))
+    staged = rows > 1 and D * (k_chunk | 1) * 8 <= STAGE_BYTES
+    return k_chunk, segments, rows, staged
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _lib():
     lib = _build.library("embed_pool")
     fwd = lib.vpc_embed_pool_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                     + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
-    tiles = lib.vpc_embed_pool_bwd_tiles
-    tiles.argtypes = [ctypes.c_int]
-    tiles.restype = ctypes.c_int
     bwd = lib.vpc_embed_pool_bwd
     bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                     + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
-    return lib, fwd, tiles, bwd
+    return lib, fwd, bwd
 
 
 def _check(x, masks, A, C, what):
@@ -92,11 +125,11 @@ def _check(x, masks, A, C, what):
             or B < 1 or D < 1):
         raise ValueError(f"{what}: want x [B,D], masks [S,B,D], A and C "
                          f"[D,K], got {[tuple(t.shape) for t in tensors]}")
-    if not 1 <= S <= MAX_S or not 1 <= K <= MAX_K:
-        raise ValueError(f"{what}: the kernel takes S <= {MAX_S} masks "
-                         f"and K <= {MAX_K} features, got S={S}, K={K}")
-    if not (x.is_contiguous() and masks.is_contiguous()):
-        raise ValueError(f"{what}: x and masks must be contiguous")
+    if S < 1 or K < 1:
+        raise ValueError(f"{what}: want at least one mask and one feature, "
+                         f"got S={S}, K={K}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: x, masks, A and C must be contiguous")
     return S, B, D, K
 
 
@@ -104,37 +137,43 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _embed_pool_fwd_kernel(x, masks, a_t, c_t, S, B, D, K):
+def _embed_pool_fwd_kernel(x, masks, A, C, S, B, D, K, plan=None):
+    """One forward launch, tiled by `plan` (k_chunk, segments,
+    rows_per_block, staged); by default `fwd_plan`'s for this card."""
     out = torch.empty((S, B, K), device=x.device, dtype=torch.float32)
-    lib, fwd, _, _ = _lib()
-    code = fwd(x.data_ptr(), masks.data_ptr(), a_t.data_ptr(), c_t.data_ptr(),
-               out.data_ptr(), S, B, D, K, x.device.index, _stream(x))
+    k_chunk, segments, rows, staged = plan or fwd_plan(
+        B, D, K, _sm_count(x.device.index))
+    lib, fwd, _ = _lib()
+    code = fwd(x.data_ptr(), masks.data_ptr(), A.data_ptr(), C.data_ptr(),
+               out.data_ptr(), S, B, D, K, k_chunk, segments, rows,
+               int(staged), x.device.index, _stream(x))
     _build.check(lib, code, "embed_pool kernel launch")
     embed_pool.launches += 1
     return out
 
 
-def _embed_pool_bwd_kernel(x, masks, a_t, c_t, g, S, B, D, K, dmasks):
+def _embed_pool_bwd_kernel(x, masks, A, C, g, S, B, D, K, want_dx=True,
+                           want_dm=True):
     dev = x.device
     g = g.to(torch.float32).contiguous()
     if tuple(g.shape) != (S, B, K):
         raise ValueError(f"embed_pool_bwd: want g [S,B,K] = {(S, B, K)}, got "
                          f"{tuple(g.shape)}")
-    lib, _, tiles, bwd = _lib()
-    dx = torch.empty((B, D), device=dev, dtype=torch.float32)
-    dm = (torch.empty((S, B, D), device=dev, dtype=torch.float32)
-          if dmasks else None)
-    partial = torch.empty((tiles(B), 2, K, D), device=dev,
-                          dtype=torch.float32)
-    dac = torch.empty((2, K, D), device=dev, dtype=torch.float32)
-    code = bwd(x.data_ptr(), masks.data_ptr(), a_t.data_ptr(), c_t.data_ptr(),
-               g.data_ptr(), dx.data_ptr(),
-               dm.data_ptr() if dm is not None else None,
-               partial.data_ptr(), dac.data_ptr(), S, B, D, K, dev.index,
-               _stream(x))
+    lib, _, bwd = _lib()
+
+    def out(shape, wanted=True):
+        return (torch.empty(shape, device=dev, dtype=torch.float32)
+                if wanted else None)
+
+    dx, dm = out((B, D), want_dx), out((S, B, D), want_dm)
+    dA, dC = out((D, K)), out((D, K))
+    code = bwd(x.data_ptr(), masks.data_ptr(), A.data_ptr(), C.data_ptr(),
+               g.data_ptr(), dx.data_ptr() if dx is not None else None,
+               dm.data_ptr() if dm is not None else None, dA.data_ptr(),
+               dC.data_ptr(), S, B, D, K, dev.index, _stream(x))
     _build.check(lib, code, "embed_pool backward kernel launch")
     embed_pool_bwd.launches += 1
-    return dx, dm, dac[0].t(), dac[1].t()
+    return dx, dm, dA, dC
 
 
 def embed_pool_bwd(x, masks, A, C, g, dmasks=True):
@@ -150,8 +189,8 @@ def embed_pool_bwd(x, masks, A, C, g, dmasks=True):
     if g.device != x.device:
         raise ValueError(f"embed_pool_bwd: g lies on {g.device}, the inputs "
                          f"on {x.device}")
-    return _embed_pool_bwd_kernel(x, masks, A.t().contiguous(),
-                                  C.t().contiguous(), g, S, B, D, K, dmasks)
+    return _embed_pool_bwd_kernel(x, masks, A, C, g, S, B, D, K,
+                                  want_dm=dmasks)
 
 
 embed_pool_bwd.launches = 0
@@ -168,20 +207,18 @@ class EmbedPool(torch.autograd.Function):
             ctx.on_card = False
             return embed_pool_reference(x, masks, A, C)
         S, B, D, K = _check(x, masks, A, C, "embed_pool")
-        a_t = A.t().contiguous()  # [K, D]: reads over d coalesce
-        c_t = C.t().contiguous()
-        ctx.save_for_backward(x, masks, a_t, c_t)
+        ctx.save_for_backward(x, masks, A, C)
         ctx.on_card = True
         ctx.dims = (S, B, D, K)
-        return _embed_pool_fwd_kernel(x, masks, a_t, c_t, S, B, D, K)
+        return _embed_pool_fwd_kernel(x, masks, A, C, S, B, D, K)
 
     @staticmethod
     def backward(ctx, g):
         need = ctx.needs_input_grad
         if ctx.on_card:
-            x, masks, a_t, c_t = ctx.saved_tensors
             dx, dm, dA, dC = _embed_pool_bwd_kernel(
-                x, masks, a_t, c_t, g, *ctx.dims, dmasks=need[1])
+                *ctx.saved_tensors, g, *ctx.dims, want_dx=need[0],
+                want_dm=need[1])
         else:
             dx, dm, dA, dC = embed_pool_bwd_reference(*ctx.saved_tensors, g)
         return tuple(t if n else None for t, n in zip((dx, dm, dA, dC), need))
