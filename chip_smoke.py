@@ -13,7 +13,10 @@ Run from the root of a checkout. It drives only the port
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving and training paths give it and beyond them (three masks, 64
    features): B2f (embed+pool forward), B2b (its backward, with and without
-   the dmasks output) and B1 (the posterior tail); and each autograd
+   the dmasks output), B1 (the posterior tail's forward, one launch of one
+   block at every size) and B1's backward (strided
+   statistics, dense and expanded cotangents, with and without the eps
+   gradients); the same bits on two calls for each; and each autograd
    Function's gradients against autograd through the plain forward;
 4. serving: the trained MNIST reg_EDDI1 checkpoint in the repo (reference
    state_dict, mapped by the port) behind ImputationServer(device="cuda"),
@@ -27,16 +30,21 @@ Run from the root of a checkout. It drives only the port
    rows, batch 64: (a) the first step's loss and gradients on the card
    against the CPU (plain versions) from the same parameters, batch and
    recorded noise; (b) engine/train.train for 3 epochs (78 steps), each of
-   B1, B2f and B2b launched exactly once a step, every loss finite, the loss
-   falling; (c) the saved checkpoint loaded back and served;
+   B1, its backward, B2f and B2b launched exactly once a step and no plain
+   version run on a CUDA tensor, every loss finite, the loss falling; (c)
+   the saved checkpoint loaded back and served;
 7. training, the flagship reg_vae1 / kl_reg on Data/wine split 1, batch 64,
-   30 epochs: B1 once a step, the embed+pool kernels never, the loss falling;
+   30 epochs: B1 and its backward once a step, the embed+pool kernels
+   never, no plain version on a CUDA tensor, the loss falling;
 8. timings with CUDA events and the host clock: B2f and B2b as the serving
    and training paths launch them (`EmbedPool.forward` on A and C [D, K],
    `EmbedPool.backward` for A and C only), the standalone `embed_pool_bwd`,
    one shape where the bytes and not the launch set the time (S=2,
-   B=4096), and B1; each figure with the number of device operations one
-   call makes, counted by torch.profiler.
+   B=4096), B1 (`fused_posterior_kernel`) and its backward as the step
+   calls it (`FusedPosterior.backward` for the four statistics, through
+   autograd), at [64, 10] and at a diagnostic [4096, 10]; each figure with
+   the number of device operations one call makes, counted by
+   torch.profiler, which must be 1 for each B1 kernel.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound), then, as
@@ -164,6 +172,16 @@ def fused_posterior_bound_ms(B, L):
     return _bound(4 * (8 * B * L + 3), 31 * B * L)
 
 
+def fused_posterior_bwd_bound_ms(B, L, eps=False):
+    """B1's backward: reads six [B,L] inputs, dz_q, dz_p and the three KL
+    cotangents, writes the four statistics' gradients (and the two eps
+    gradients with `eps`) once; about 44 operations a cell (8 for five
+    exponentials, 2 for dm and its scaled form, 4 each for the means', 12
+    and 14 for the logvars' gradients), 1 more for each eps gradient."""
+    n_out = 6 if eps else 4
+    return _bound(4 * ((8 + n_out) * B * L + 3), (46 if eps else 44) * B * L)
+
+
 def device_ops(fn):
     """Device operations (kernels, copies, fills) one call of `fn` puts on
     the card, from torch.profiler."""
@@ -230,11 +248,41 @@ def main() -> int:
         fep.embed_pool.launches = 0
         fep.embed_pool_bwd.launches = 0
         fp.fused_posterior.launches = 0
+        fp.fused_posterior.bwd_launches = 0
 
     def counts():
         return {"embed_pool_fwd": fep.embed_pool.launches,
                 "embed_pool_bwd": fep.embed_pool_bwd.launches,
-                "fused_posterior_fwd": fp.fused_posterior.launches}
+                "fused_posterior_fwd": fp.fused_posterior.launches,
+                "fused_posterior_bwd": fp.fused_posterior.bwd_launches}
+
+    @contextlib.contextmanager
+    def no_plain_on_card():
+        """Makes each kernel's plain version raise if it is handed a CUDA
+        tensor while the block runs (the Functions look them up in their
+        modules at each call)."""
+        saved = []
+        for mod, name in ((fep, "embed_pool_reference"),
+                          (fep, "embed_pool_bwd_reference"),
+                          (fp, "fused_posterior_reference"),
+                          (fp, "fused_posterior_backward")):
+            plain = getattr(mod, name)
+
+            def guarded(*args, _plain=plain, _name=name):
+                flat = [a for arg in args for a in (
+                    arg if isinstance(arg, (tuple, list)) else (arg,))]
+                if any(isinstance(a, torch.Tensor) and a.is_cuda
+                       for a in flat):
+                    raise AssertionError(f"{_name} ran on a CUDA tensor")
+                return _plain(*args)
+
+            saved.append((mod, name, plain))
+            setattr(mod, name, guarded)
+        try:
+            yield
+        finally:
+            for mod, name, plain in saved:
+                setattr(mod, name, plain)
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -256,13 +304,31 @@ def main() -> int:
         C = torch.randn(D, K, device="cuda", generator=gen) * 0.3
         return x, masks, A, C
 
-    def stats(B, L):
+    def stats(B, L, strided=False):
+        """B1's six inputs; with `strided` the four statistics are the row
+        and column halves of one [2B, 2L] encoder output, as a training
+        step hands them over (row stride 2L)."""
         mq, mp, eq, ep = torch.randn(4, B, L, device="cuda", generator=gen)
         lq, lp = torch.rand(2, B, L, device="cuda", generator=gen) * 3 - 2
+        if strided:
+            h = torch.cat([torch.cat([mq, lq], 1), torch.cat([mp, lp], 1)])
+            mean_all, logvar_all = h.chunk(2, dim=1)
+            mq, lq = mean_all[:B], logvar_all[:B]
+            mp, lp = mean_all[B:], logvar_all[B:]
         return mq, lq, mp, lp, eq, ep
 
+    def b1_cotangents(B, L, expanded=False):
+        """dz_q, dz_p [B, L] and dkl [3]; `expanded` gives them stride 0, as
+        a `.sum()` upstream does."""
+        if expanded:
+            dz_q, dz_p = torch.randn(2, 1, 1, device="cuda", generator=gen)
+            dkl = torch.randn(1, device="cuda", generator=gen)
+            return dz_q.expand(B, L), dz_p.expand(B, L), dkl.expand(3)
+        dz_q, dz_p = torch.randn(2, B, L, device="cuda", generator=gen)
+        return dz_q, dz_p, torch.randn(3, device="cuda", generator=gen)
+
     max_err = {"embed_pool_fwd": 0.0, "embed_pool_bwd": 0.0,
-               "fused_posterior_fwd": 0.0}
+               "fused_posterior_fwd": 0.0, "fused_posterior_bwd": 0.0}
     with phase("kernels against their plain versions"):
         for S, B, k in [(1, 1, K), (1, 8, K), (1, 64, K), (1, 179, K),
                         (1, 512, K), (2, 64, K), (2, 4096, K), (3, 64, K),
@@ -309,9 +375,11 @@ def main() -> int:
                                      "call")
         print("B2f and B2b at S=2, B=64: the same bits on two calls",
               flush=True)
-        for B, L in [(64, 10), (7, 3), (4096, 10)]:
-            args = stats(B, L)
-            got = fp.fused_posterior(*args)
+        # B1: one launch of one block at every size
+        for B, L in [(64, 10), (7, 3), (4096, 10), (1, 1)]:
+            args = stats(B, L, strided=B == 64)
+            got = fp.fused_posterior_kernel(*args)
+            got = (*got[:2], *got[2])
             torch.cuda.synchronize()
             want = fp.fused_posterior_reference(*args)
             errs = []
@@ -323,6 +391,45 @@ def main() -> int:
                     max_err["fused_posterior_fwd"], max_abs(u, v))
             print(f"B1 fused_posterior [{B},{L}]: max abs diff "
                   f"{', '.join(errs)}", flush=True)
+        needs_forms = {"statistics": (True,) * 4 + (False,) * 2,
+                       "all six": (True,) * 6}
+        for B, L in [(64, 10), (7, 3), (4096, 10), (1, 1)]:
+            args = stats(B, L, strided=True)
+            for expanded in (False, True):
+                cts = b1_cotangents(B, L, expanded)
+                want = fp.fused_posterior_backward(args, *cts)
+                for form, needs in needs_forms.items():
+                    got = fp.fused_posterior_backward_kernel(args, *cts,
+                                                             needs=needs)
+                    torch.cuda.synchronize()
+                    errs = []
+                    for name, u, v, n in zip(
+                            ("mq", "lq", "mp", "lp", "eq", "ep"), got, want,
+                            needs):
+                        if not n:
+                            if u is not None:
+                                raise AssertionError(f"unasked g_{name}")
+                            continue
+                        torch.testing.assert_close(u, v, **KERNEL_TOL)
+                        errs.append(f"g_{name} {max_abs(u, v):.3e}")
+                        max_err["fused_posterior_bwd"] = max(
+                            max_err["fused_posterior_bwd"], max_abs(u, v))
+                    print(f"B1 backward [{B},{L}] strided statistics, "
+                          f"{'expanded' if expanded else 'dense'} dz, "
+                          f"{form}: max abs diff {', '.join(errs)}",
+                          flush=True)
+        for B, L in [(64, 10), (4096, 10)]:
+            args = stats(B, L, strided=True)
+            cts = b1_cotangents(B, L)
+            for name, fn in (
+                    ("B1", lambda: fp.fused_posterior_kernel(*args)),
+                    ("B1 backward", lambda: fp.fused_posterior_backward_kernel(
+                        args, *cts))):
+                if not all(torch.equal(u, v) for u, v in zip(fn(), fn())):
+                    raise AssertionError(f"{name} [{B},{L}] gave other bits "
+                                         "on a second call")
+            print(f"B1 and its backward at [{B},{L}]: the same bits on two "
+                  "calls", flush=True)
 
         # the autograd Functions against autograd through the plain forward
         args = stats(64, 10)
@@ -382,7 +489,8 @@ def main() -> int:
         print(f"launches while serving {len(REQUEST_ROWS)} requests: "
               f"{serve_counts}", flush=True)
         if serve_counts != {"embed_pool_fwd": len(REQUEST_ROWS),
-                            "embed_pool_bwd": 0, "fused_posterior_fwd": 0}:
+                            "embed_pool_bwd": 0, "fused_posterior_fwd": 0,
+                            "fused_posterior_bwd": 0}:
             raise AssertionError(f"serving {len(REQUEST_ROWS)} requests "
                                  f"launched {serve_counts}")
 
@@ -534,9 +642,10 @@ def main() -> int:
             steps_per_epoch = -(-mnist.train.n // 64)
             reset_counts()
             t0 = time.perf_counter()
-            trained, hist = trainer.train(mnist, train_cfg,
-                                          experiments_root=ckpt_root,
-                                          device="cuda", on_step=on_step)
+            with no_plain_on_card():
+                trained, hist = trainer.train(mnist, train_cfg,
+                                              experiments_root=ckpt_root,
+                                              device="cuda", on_step=on_step)
             mnist_s = time.perf_counter() - t0
             mnist_counts = counts()
             n_steps = MNIST_EPOCHS * steps_per_epoch
@@ -583,14 +692,16 @@ def main() -> int:
         on_step, wine_medians = step_timer()
         wine_steps = -(-wine.train.n // 64)
         reset_counts()
-        _, wine_hist = trainer.train(wine, wine_cfg, save=False,
-                                     device="cuda", on_step=on_step)
+        with no_plain_on_card():
+            _, wine_hist = trainer.train(wine, wine_cfg, save=False,
+                                         device="cuda", on_step=on_step)
         wine_counts = counts()
         n_steps = WINE_EPOCHS * wine_steps
         print(f"{wine.train.n} rows x {wine.obs_dim}, {n_steps} steps; "
               f"launches {wine_counts}", flush=True)
         if wine_counts != {"embed_pool_fwd": 0, "embed_pool_bwd": 0,
-                           "fused_posterior_fwd": n_steps}:
+                           "fused_posterior_fwd": n_steps,
+                           "fused_posterior_bwd": n_steps}:
             raise AssertionError(f"{n_steps} steps launched {wine_counts}")
         means = [h / wine_steps for h in wine_hist]
         print(f"mean loss, first and last epoch: {means[0]:.6f} -> "
@@ -665,13 +776,39 @@ def main() -> int:
                   lambda: fep.embed_pool_bwd_reference(x2, m2, A2, C2, g2),
                   embed_pool_bwd_bound_ms(S, B, D, K))
 
-        Bq, L = 64, LATENT
-        st = stats(Bq, L)
-        times["fused_posterior_fwd"] = timed(
-            f"B1 fused_posterior [{Bq},{L}]",
-            lambda: fp.fused_posterior_kernel(*st),
-            lambda: fp.fused_posterior_reference(*st),
-            fused_posterior_bound_ms(Bq, L))
+        # B1 and its backward as a training step launches them, then at
+        # [4096, 10]: the statistics strided (the leaves are detached views,
+        # which keep the row stride 2L), the backward for the four
+        # statistics through autograd
+        for Bq, L in ((64, LATENT), (4096, LATENT)):
+            tag = "training" if Bq == 64 else "diagnostic"
+            st = stats(Bq, L, strided=True)
+            cells = -(-Bq * L // 1024)
+            fwd = timed(f"B1 fused_posterior [{Bq},{L}] ({tag}: one block, "
+                        f"{cells} cell{'s' * (cells > 1)} a thread at most)",
+                        lambda: fp.fused_posterior_kernel(*st),
+                        lambda: fp.fused_posterior_reference(*st),
+                        fused_posterior_bound_ms(Bq, L))
+            leaves = [t.detach().requires_grad_() for t in st[:4]]
+            if any(t.stride() != (2 * L, 1) for t in leaves):
+                raise AssertionError("B1 timing: the statistics lost their "
+                                     "row stride 2L")
+            outs = fp.FusedPosterior.apply(*leaves, *st[4:])
+            cts = b1_cotangents(Bq, L)
+            bwd = timed(
+                f"B1 FusedPosterior.backward [{Bq},{L}], the four statistics' "
+                f"gradients ({tag})",
+                lambda: torch.autograd.grad(outs, leaves, cts,
+                                            retain_graph=True),
+                lambda: fp.fused_posterior_backward(st, *cts),
+                fused_posterior_bwd_bound_ms(Bq, L))
+            if Bq == 64:
+                times["fused_posterior_fwd"] = fwd
+                times["fused_posterior_bwd"] = bwd
+        for name in ("fused_posterior_fwd", "fused_posterior_bwd"):
+            if times[name][4] != 1:
+                raise AssertionError(f"{name}: {times[name][4]} device "
+                                     "operations a call, not 1")
 
         timed_srv = serve.ImputationServer(params, cfg, 784,
                                            device="cuda").warmup()
@@ -695,6 +832,9 @@ def main() -> int:
                            jax_ops + "fused_embed_pool.py:178"),
         "fused_posterior_fwd": (csrc + "fused_posterior.cu",
                                 jax_ops + "fused_posterior.py:94"),
+        # the jnp `_bwd` of the custom VJP, not a Pallas call
+        "fused_posterior_bwd": (csrc + "fused_posterior.cu",
+                                jax_ops + "fused_posterior.py:166"),
     }
     kernels = []
     for name, (source, replaces) in where.items():

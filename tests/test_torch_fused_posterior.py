@@ -1,8 +1,11 @@
 """Fused posterior tail (kernel B1) in the port: its plain forward against the
 JAX package's Pallas kernel (interpret mode off-TPU) and its jnp reference,
-and the autograd Function's closed-form backward against the JAX custom VJP
-and against torch autograd through the plain forward. The CUDA kernel itself
-is tested on the card by tests/test_torch_kernels_cuda.py."""
+and the autograd Function's closed-form backward against the JAX custom VJP,
+the JAX `_bwd` and torch autograd through the plain forward, in the forms a
+training step gives it: gradients for the statistics only or for all six
+inputs, expanded cotangents, a zero KL_reg cotangent, and statistics that are
+strided halves of one encoder output. The CUDA kernels themselves are tested
+on the card by tests/test_torch_kernels_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +15,7 @@ import torch
 
 from vae_posterior_consistency_tpu.ops import fused_posterior as jfp
 from vae_posterior_consistency_tpu_torch.ops import fused_posterior as tfp
+from torch_b1 import NEEDS, encoder_output, statistics
 
 #: sums over B*L cells run in another order in each implementation
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -102,3 +106,140 @@ def test_non_cpu_tensors_are_never_routed_to_the_plain_version():
     mixed[4] = mixed[4].to("meta")
     with pytest.raises(ValueError, match="one CUDA device"):
         tfp.fused_posterior(*mixed)
+
+
+def _jax_bwd(arrays, dz_q, dz_p, dkl):
+    """The JAX package's closed-form VJP (`_bwd`), as numpy arrays."""
+    cts = (jnp.asarray(dz_q), jnp.asarray(dz_p), *map(jnp.float32, dkl))
+    return [np.asarray(g) for g in jfp._bwd(tuple(map(jnp.asarray, arrays)),
+                                            cts)]
+
+
+@pytest.mark.parametrize("needs", sorted(NEEDS))
+@pytest.mark.parametrize("B,L", SHAPES)
+def test_function_gradients_match_jax_bwd_for_each_needs_subset(B, L, needs):
+    arrays = _case(B + L + 7, B, L)
+    dz_q, dz_p, dkl = _cotangents(B + 3, B, L)
+    want = _jax_bwd(arrays, dz_q, dz_p, dkl)
+    inputs = [torch.from_numpy(a).requires_grad_(n)
+              for a, n in zip(arrays, NEEDS[needs])]
+    z_q, z_p, kl = tfp.FusedPosterior.apply(*inputs)
+    wanted = [t for t in inputs if t.requires_grad]
+    got = torch.autograd.grad((z_q, z_p, kl), wanted,
+                              (torch.from_numpy(dz_q), torch.from_numpy(dz_p),
+                               torch.from_numpy(dkl)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=str(i), **TOL)
+
+
+class _Ctx:
+    """What autograd hands `FusedPosterior.backward`."""
+
+    def __init__(self, saved, needs):
+        self.saved_tensors = tuple(saved)
+        self.needs_input_grad = tuple(needs)
+
+
+@pytest.mark.parametrize("needs", sorted(NEEDS))
+def test_backward_returns_none_for_inputs_that_need_no_gradient(needs):
+    arrays = [torch.from_numpy(a) for a in _case(5, 6, 4)]
+    dz_q, dz_p, dkl = map(torch.from_numpy, _cotangents(5, 6, 4))
+    got = tfp.FusedPosterior.backward(_Ctx(arrays, NEEDS[needs]), dz_q, dz_p,
+                                      dkl)
+    assert len(got) == 6
+    assert [g is not None for g in got] == list(NEEDS[needs])
+
+
+def test_gradients_with_expanded_cotangents_from_sum():
+    """A `.sum()` upstream hands dz over as an expanded tensor (stride 0)."""
+    B, L = 9, 5
+    arrays = _case(11, B, L)
+    inputs = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    z_q, z_p, kl_q, kl_p, kl_reg = tfp.fused_posterior(*inputs)
+    loss = z_q.sum() + 2.0 * z_p.sum() + 3.0 * kl_q - kl_p + 0.5 * kl_reg
+    got = torch.autograd.grad(loss, inputs)
+    ones = np.ones((B, L), np.float32)
+    want = _jax_bwd(arrays, ones, 2.0 * ones,
+                    np.array([3.0, -1.0, 0.5], np.float32))
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=str(i), **TOL)
+    # and the Function itself takes cotangents with zero strides
+    dz = torch.ones(1, 1).expand(B, L)
+    assert dz.stride() == (0, 0)
+    direct = tfp.FusedPosterior.backward(
+        _Ctx(map(torch.from_numpy, arrays), (True,) * 6), dz, 2.0 * dz,
+        torch.tensor(3.0).expand(3))
+    want = _jax_bwd(arrays, ones, 2.0 * ones, np.full(3, 3.0, np.float32))
+    for i, (g, w) in enumerate(zip(direct, want)):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=str(i), **TOL)
+
+
+def test_gradients_when_kl_reg_is_unused():
+    """Under `ml_reg` the loss never reads KL_reg: its cotangent is the zero
+    that unbind's backward fills in."""
+    B, L = 12, 6
+    arrays = _case(13, B, L)
+    dz_q, dz_p, dkl = _cotangents(13, B, L)
+    dkl[2] = 0.0
+    inputs = [torch.from_numpy(a).requires_grad_(n)
+              for a, n in zip(arrays, NEEDS["statistics"])]
+    z_q, z_p, kl_q, kl_p, _ = tfp.fused_posterior(*inputs)
+    got = torch.autograd.grad(
+        (z_q, z_p, kl_q, kl_p), inputs[:4],
+        (torch.from_numpy(dz_q), torch.from_numpy(dz_p),
+         torch.tensor(dkl[0]), torch.tensor(dkl[1])))
+    want = _jax_bwd(arrays, dz_q, dz_p, dkl)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=str(i), **TOL)
+
+
+def test_gradients_through_strided_halves_of_one_encoder_output():
+    """The statistics are column halves (mean, logvar) and row halves (q, p)
+    of one [2B, 2L] encoder output, as in the dense families' stacked
+    stream: row stride 2L, and one gradient buffer dh for all four."""
+    B, L = 8, 5
+    arrays = _case(17, B, L)
+    dz_q, dz_p, dkl = _cotangents(17, B, L)
+    h = encoder_output(*map(torch.from_numpy, arrays[:4])).requires_grad_()
+    stats = statistics(h)
+    assert all(t.stride() == (2 * L, 1) for t in stats)
+    outs = tfp.fused_posterior(*stats, *map(torch.from_numpy, arrays[4:]))
+    (dh,) = torch.autograd.grad(
+        outs, h, (torch.from_numpy(dz_q), torch.from_numpy(dz_p),
+                  *torch.from_numpy(dkl)))
+    g = _jax_bwd(arrays, dz_q, dz_p, dkl)
+    want = encoder_output(*map(torch.tensor, g[:4]))
+    np.testing.assert_allclose(dh.numpy(), want.numpy(), **TOL)
+
+
+def test_cpu_backward_counts_no_launch():
+    inputs = [torch.from_numpy(a).requires_grad_() for a in _case(1, 4, 3)]
+    before = (tfp.fused_posterior.launches, tfp.fused_posterior.bwd_launches)
+    z_q, z_p, kl_q, kl_p, kl_reg = tfp.fused_posterior(*inputs)
+    (z_q.sum() + z_p.sum() + kl_q + kl_p + kl_reg).backward()
+    assert all(t.grad is not None for t in inputs)
+    assert (tfp.fused_posterior.launches,
+            tfp.fused_posterior.bwd_launches) == before
+
+
+def test_non_cpu_tensors_never_reach_the_plain_backward(monkeypatch):
+    def plain(*args):
+        raise AssertionError("the plain backward ran on non-CPU tensors")
+
+    monkeypatch.setattr(tfp, "fused_posterior_backward", plain)
+    arrays = [torch.from_numpy(a) for a in _case(0, 5, 3)]
+    cts = [torch.from_numpy(c) for c in _cotangents(0, 5, 3)]
+    meta = [t.to("meta") for t in arrays]
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.FusedPosterior.backward(_Ctx(meta, NEEDS["statistics"]),
+                                    *(t.to("meta") for t in cts))
+    # CPU statistics with one cotangent elsewhere: not all on the CPU, so
+    # the kernel's wrapper takes it and refuses
+    with pytest.raises(ValueError):
+        tfp.FusedPosterior.backward(_Ctx(arrays, NEEDS["all"]), cts[0],
+                                    cts[1].to("meta"), cts[2])
+    before = tfp.fused_posterior.bwd_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.fused_posterior_backward_kernel(meta, *(t.to("meta")
+                                                    for t in cts))
+    assert tfp.fused_posterior.bwd_launches == before

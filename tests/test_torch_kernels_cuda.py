@@ -12,6 +12,7 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
 from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
+from torch_b1 import NEEDS, encoder_output, statistics
 
 
 @pytest.fixture
@@ -196,7 +197,9 @@ def test_functions_gradients_match_autograd_of_plain(cuda):
            *torch.randn(3, device=cuda, generator=gen)]
     a = [t.clone().requires_grad_() for t in stats]
     b = [t.clone().requires_grad_() for t in stats]
+    before = fp.fused_posterior.bwd_launches
     got = torch.autograd.grad(fp.fused_posterior(*a), a, cts)
+    assert fp.fused_posterior.bwd_launches == before + 1
     want = torch.autograd.grad(fp.fused_posterior_reference(*b), b, cts)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
@@ -210,3 +213,115 @@ def test_functions_gradients_match_autograd_of_plain(cuda):
     for i, (u, v) in enumerate(zip(got, want)):
         torch.testing.assert_close(u, v, rtol=1e-5,
                                    atol=1e-5 * (64 if i >= 2 else 1))
+
+
+def _device_ops(fn):
+    """Device operations (kernels, copies, fills) one call of `fn` puts on
+    the card, from torch.profiler: the larger of two counts, as a trace may
+    drop an event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)))
+    return max(counts)
+
+
+def _stats(B, L, device, seed, strided=True):
+    """The six inputs of B1; with `strided`, the four statistics are the
+    row and column halves of one [2B, 2L] encoder output (row stride 2L)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mq, mp, eq, ep = torch.randn(4, B, L, device=device, generator=gen)
+    lq, lp = torch.rand(2, B, L, device=device, generator=gen) * 3.0 - 2.0
+    if strided:
+        mq, lq, mp, lp = statistics(encoder_output(mq, lq, mp, lp))
+    return mq, lq, mp, lp, eq, ep
+
+
+def _cotangents(B, L, device, seed, expanded=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if expanded:  # what a `.sum()` upstream hands over: stride 0
+        dz_q, dz_p = torch.randn(2, 1, 1, device=device, generator=gen)
+        dkl = torch.randn(1, device=device, generator=gen)
+        return dz_q.expand(B, L), dz_p.expand(B, L), dkl.expand(3)
+    dz_q, dz_p = torch.randn(2, B, L, device=device, generator=gen)
+    return dz_q, dz_p, torch.randn(3, device=device, generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expanded", [False, True])
+@pytest.mark.parametrize("needs", sorted(NEEDS))
+@pytest.mark.parametrize("B,L", [(64, 10), (7, 3), (4096, 10), (1, 1)])
+def test_fused_posterior_bwd_kernel_matches_plain(cuda, B, L, needs,
+                                                  expanded):
+    stats = _stats(B, L, cuda, B + L)
+    cts = _cotangents(B, L, cuda, B * L, expanded)
+    before = fp.fused_posterior.bwd_launches
+    got = fp.fused_posterior_backward_kernel(stats, *cts, needs=NEEDS[needs])
+    torch.cuda.synchronize()
+    assert fp.fused_posterior.bwd_launches == before + 1
+    want = fp.fused_posterior_backward(stats, *cts)
+    for g, w, n in zip(got, want, NEEDS[needs]):
+        if not n:
+            assert g is None
+            continue
+        assert g.shape == (B, L) and g.is_contiguous()
+        # elementwise: the exponentials and roundings of another compiler
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(65536, 10), (262144, 10)])
+def test_fused_posterior_forward_is_one_launch_at_any_size(cuda, B, L):
+    """One block walks all the cells, many turns a thread, and sums them in
+    the same launch."""
+    stats = _stats(B, L, cuda, 3, strided=False)
+    before = fp.fused_posterior.launches
+    got = fp.fused_posterior(*stats)
+    torch.cuda.synchronize()
+    assert fp.fused_posterior.launches == before + 1
+    want = fp.fused_posterior_reference(*stats)
+    # z elementwise; the three KL sums over B*L cells in another order
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    assert _device_ops(lambda: fp.fused_posterior_kernel(*stats)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L", [(64, 10), (4096, 10), (65536, 10)])
+def test_fused_posterior_kernels_give_the_same_bits_twice(cuda, B, L):
+    stats = _stats(B, L, cuda, 11)
+    cts = _cotangents(B, L, cuda, 12)
+    device = torch.cuda.current_device()
+    first = [*fp.fused_posterior_kernel(*stats),
+             *fp.fused_posterior_backward_kernel(stats, *cts)]
+    second = [*fp.fused_posterior_kernel(*stats),
+              *fp.fused_posterior_backward_kernel(stats, *cts)]
+    torch.cuda.synchronize()
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
+    # the entry points give the caller's current device back
+    assert torch.cuda.current_device() == device
+
+
+@pytest.mark.cuda
+def test_fused_posterior_forward_and_backward_are_one_launch_each(cuda):
+    """As a training step calls them: the Function's forward, and its
+    backward for the four statistics through autograd."""
+    stats = _stats(64, 10, cuda, 5)
+    leaves = [t.detach().requires_grad_() for t in stats[:4]]  # stride 2L
+    assert _device_ops(lambda: fp.fused_posterior_kernel(*stats)) == 1
+    outs = fp.FusedPosterior.apply(*leaves, *stats[4:])
+    cts = _cotangents(64, 10, cuda, 6)
+    before = fp.fused_posterior.bwd_launches
+    assert _device_ops(lambda: torch.autograd.grad(
+        outs, leaves, cts, retain_graph=True)) == 1
+    assert fp.fused_posterior.bwd_launches == before + 2
