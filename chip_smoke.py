@@ -36,10 +36,22 @@ Run from the root of a checkout. It drives only the port
 7. training, the flagship reg_vae1 / kl_reg on Data/wine split 1, batch 64,
    30 epochs: B1 and its backward once a step, the embed+pool kernels
    never, no plain version on a CUDA tensor, the loss falling;
-8. timings with CUDA events and the host clock: B2f and B2b as the serving
+8. evaluation, engine/evaluate.eval_vae over both splits: (a) the MNIST
+   reg_EDDI1 checkpoint in the repo at full width, M=1, batch 64 (26 train
+   and 3 test batches, the last 51 rows padded to 64): B2f launched once a
+   batch at S=1, nothing else, no plain version on a CUDA tensor; the
+   metrics against a CPU eval_vae (plain versions) fed the card's recorded
+   noise; the test RMSE below the column-mean fill, printed beside the
+   committed artifact's; (b) the wine reg_vae1 of phase 7 at M=50 (50 reps
+   of 3 train and 1 test batches): no kernel launched, the metrics against
+   the CPU's in the same way; (c) the wall-clock of each split on the host
+   clock, with a sync at each end, and the device operations of one split
+   of one batch;
+9. timings with CUDA events and the host clock: B2f and B2b as the serving
    and training paths launch them (`EmbedPool.forward` on A and C [D, K],
    `EmbedPool.backward` for A and C only), the standalone `embed_pool_bwd`,
-   one shape where the bytes and not the launch set the time (S=2,
+   B2f at the evaluation shape (S=1, B=64), one shape where the bytes and
+   not the launch set the time (S=2,
    B=4096), B1 (`fused_posterior_kernel`) and its backward as the step
    calls it (`FusedPosterior.backward` for the four statistics, through
    autograd), at [64, 10] and at a diagnostic [4096, 10]; each figure with
@@ -103,6 +115,18 @@ SERVE_SCORE_ATOL = 5e-3
 #: layers; its rounding is ~1e-6 of its largest entry: atol 1e-4 * max|leaf|.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-4
+#: eval_vae on the card against eval_vae on the CPU, same parameters and
+#: recorded noise. RMSE: a mean of per-batch square roots of sums over the
+#: holes of one batch (at most 64 x 784 cells of values in [0, 1]); float32
+#: rounding in another order stays near 1e-7 of it: atol 1e-5. The loss,
+#: negl and negl_imp are row means of row sums over 784 cells, whose running
+#: sums reach about 1e3 whatever the value (serving's SERVE_SCORE_ATOL):
+#: rtol 1e-4 on values of 1e2-1e3.
+EVAL_RMSE_ATOL = 1e-5
+EVAL_LOSS_RTOL = 1e-4
+#: the wine reg_vae1 evaluation runs record 34's M
+WINE_EVAL_M = 50
+EVAL_TIMING_RUNS = 5
 REQUEST_ROWS = (1, 8, 64, 179)
 TIMING_RUNS = 100
 MNIST_EPOCHS = 3
@@ -237,7 +261,12 @@ def main() -> int:
 
     from vae_posterior_consistency_tpu_torch.config import RunConfig
     from vae_posterior_consistency_tpu_torch.data import loaders
-    from vae_posterior_consistency_tpu_torch.engine import checkpoint, serve
+    from vae_posterior_consistency_tpu_torch.engine import (
+        artifacts,
+        checkpoint,
+        evaluate,
+        serve,
+    )
     from vae_posterior_consistency_tpu_torch.engine import train as trainer
     from vae_posterior_consistency_tpu_torch.models import get_model, layers
     from vae_posterior_consistency_tpu_torch.ops import _build
@@ -693,8 +722,8 @@ def main() -> int:
         wine_steps = -(-wine.train.n // 64)
         reset_counts()
         with no_plain_on_card():
-            _, wine_hist = trainer.train(wine, wine_cfg, save=False,
-                                         device="cuda", on_step=on_step)
+            wine_params, wine_hist = trainer.train(
+                wine, wine_cfg, save=False, device="cuda", on_step=on_step)
         wine_counts = counts()
         n_steps = WINE_EPOCHS * wine_steps
         print(f"{wine.train.n} rows x {wine.obs_dim}, {n_steps} steps; "
@@ -712,6 +741,133 @@ def main() -> int:
         print(f"wine step p50 after the first epoch: {wine_dev_ms:.6f} ms "
               f"(CUDA events), {wine_host_ms:.6f} ms (host clock) [{card}]",
               flush=True)
+
+    def recording_noise(seed):
+        """The default eval noise on the card, each draw kept for replay."""
+        src, kept = trainer.GeneratorNoise(seed, "cuda"), []
+
+        def noise(kind, rep, step, shape):
+            t = src(kind, rep, step, shape)
+            kept.append(t)
+            return t
+
+        return noise, kept
+
+    def eval_card_vs_cpu(label, dataset, cfg, card_params, cpu_params,
+                         want_counts):
+        """eval_vae on the card (counts reset just before, read just after,
+        no plain version on a CUDA tensor), then on the CPU from the same
+        parameters and the card's noise replayed; returns the card's
+        results and its launches."""
+        noise, kept = recording_noise(cfg.seed + 1)
+        reset_counts()
+        with no_plain_on_card():
+            got = evaluate.eval_vae(dataset, cfg, params=card_params,
+                                    noise=noise, save=False, device="cuda")
+        launched = counts()
+        print(f"{label}: launches {launched}", flush=True)
+        if launched != want_counts:
+            raise AssertionError(f"{label} launched {launched}, want "
+                                 f"{want_counts}")
+        replay = iter([t.cpu() for t in kept])
+        cpu_ds = loaders.Dataset(
+            *(None if sp is None else loaders.Split(sp.x.cpu(), sp.mask.cpu(),
+                                                    sp.stage)
+              for sp in (dataset.train, dataset.test)), dataset.obs_dim)
+        want = evaluate.eval_vae(
+            cpu_ds, cfg, params=cpu_params, save=False, device="cpu",
+            noise=lambda kind, rep, step, shape: next(replay))
+        if next(replay, None) is not None:
+            raise AssertionError(f"{label}: the CPU drew less noise")
+        for stage in want:
+            diffs = []
+            for name, value in want[stage].items():
+                g = got[stage][name]
+                tol = (EVAL_RMSE_ATOL if name == "rmse"
+                       else EVAL_LOSS_RTOL * abs(value))
+                if not (np.isfinite(g) and abs(g - value) <= tol):
+                    raise AssertionError(
+                        f"{label} [{stage}] {name}: card {g!r}, CPU "
+                        f"{value!r}, tolerance {tol:.3e}")
+                diffs.append(f"{name} {g:.6f} (CPU {value:.6f})")
+            print(f"{label} [{stage}] card: {', '.join(diffs)}", flush=True)
+        return got, launched
+
+    def split_seconds(dataset, cfg, card_params):
+        """Median host-clock seconds of eval_vae over each split alone, a
+        sync at each end (eval_vae reads its metrics back: the other)."""
+        out = {}
+        for sp in (dataset.train, dataset.test):
+            one = loaders.Dataset(sp, None, dataset.obs_dim)
+            runs = []
+            for _ in range(EVAL_TIMING_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                evaluate.eval_vae(one, cfg, params=card_params, save=False,
+                                  device="cuda")
+                runs.append(time.perf_counter() - t0)
+            out[sp.stage] = statistics.median(runs)
+        return out
+
+    eval_cfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
+                         missing_rate=30, seed=SEED, M=1, batch_size=64)
+    with phase("evaluation (a): MNIST reg_EDDI1, the committed checkpoint, "
+               "M=1"):
+        n_batches = eval_cfg.M * sum(-(-sp.n // 64)
+                                     for sp in (mnist.train, mnist.test))
+        cpu_ref = checkpoint.load_reference(path, eval_cfg, 784, device="cpu")
+        mnist_eval, mnist_eval_counts = eval_card_vs_cpu(
+            "MNIST reg_EDDI1 eval", mnist, eval_cfg, params, cpu_ref,
+            {"embed_pool_fwd": n_batches, "embed_pool_bwd": 0,
+             "fused_posterior_fwd": 0, "fused_posterior_bwd": 0})
+        committed = float(torch.load(
+            artifacts.eval_vae_paths(eval_cfg, "test",
+                                     str(REPO / "experiments"))["rmse"],
+            weights_only=False))
+        test_rmse = mnist_eval["test"]["rmse"]
+        print(f"MNIST test RMSE {test_rmse:.6f} over {mnist.test.n} rows "
+              f"(column-mean fill on the same cells {rmse_mean:.6f}; the "
+              f"committed artifact reads {committed:.6f}, other noise); "
+              f"B2f once a batch: {n_batches} batches", flush=True)
+        if not test_rmse < rmse_mean:
+            raise AssertionError("the evaluated model does not beat the "
+                                 "column-mean fill")
+
+    wine_eval_cfg = wine_cfg.replace(M=WINE_EVAL_M)
+    with phase(f"evaluation (b): wine {wine_eval_cfg.vae_type} of phase 7, "
+               f"M={WINE_EVAL_M}"):
+        cpu_wine = {k: v.cpu() for k, v in
+                    checkpoint.flatten(wine_params).items()}
+        eval_card_vs_cpu(
+            "wine reg_vae1 eval", wine, wine_eval_cfg, wine_params,
+            checkpoint.unflatten(cpu_wine),
+            {k: 0 for k in ("embed_pool_fwd", "embed_pool_bwd",
+                            "fused_posterior_fwd", "fused_posterior_bwd")})
+
+    with phase("evaluation (c): wall-clock per split, device operations"):
+        eval_times = {}
+        for label, ds, ecfg, prm in (
+                ("MNIST reg_EDDI1 M=1", mnist, eval_cfg, params),
+                (f"wine reg_vae1 M={WINE_EVAL_M}", wine, wine_eval_cfg,
+                 wine_params)):
+            secs = split_seconds(ds, ecfg, prm)
+            eval_times[label] = secs
+            steps = {sp.stage: -(-sp.n // min(64, sp.n))
+                     for sp in (ds.train, ds.test)}
+            print(f"{label} eval, median of {EVAL_TIMING_RUNS}, host clock: "
+                  + ", ".join(f"{st} {secs[st]:.6f} s ({ecfg.M} x "
+                              f"{steps[st]} batches, "
+                              f"{secs[st] / (ecfg.M * steps[st]) * 1e3:.6f}"
+                              f" ms a batch)" for st in secs)
+                  + f" [{card}]", flush=True)
+            one = loaders.Dataset(loaders.Split(ds.train.x[:64],
+                                                ds.train.mask[:64], "train"),
+                                  None, ds.obs_dim)
+            n_ops = device_ops(lambda: evaluate.eval_vae(
+                one, ecfg.replace(M=1), params=prm, save=False,
+                device="cuda"))
+            print(f"{label}: one split of one batch of 64 rows puts "
+                  f"{n_ops} device operations on the card", flush=True)
 
     times = {}
 
@@ -746,6 +902,16 @@ def main() -> int:
                   lambda: fep.embed_pool(xt, mt, A, C),
                   lambda: fep.embed_pool_reference(xt, mt, A, C),
                   embed_pool_bound_ms(S, B, D, K))
+
+        # B2f as an evaluation batch launches it (S=1, B=64)
+        xe = torch.from_numpy(x[:64]).cuda()
+        me = torch.from_numpy(mask[:64])[None].cuda()
+        with torch.no_grad():
+            times["embed_pool_fwd_eval"] = timed(
+                "B2f EmbedPool.forward S=1 B=64 (evaluation)",
+                lambda: fep.embed_pool(xe, me, A, C),
+                lambda: fep.embed_pool_reference(xe, me, A, C),
+                embed_pool_bound_ms(1, 64, D, K))
 
         # B2f and B2b as a training step launches them (S=2, B=64), then
         # at S=2, B=4096, where the bytes and not the launch set the time
@@ -845,7 +1011,13 @@ def main() -> int:
             "launches_per_call": n_ops,
             "max_abs_err": max_err[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            # launches on the MNIST evaluation of phase 8 (a)
+            "eval_launches": mnist_eval_counts[name],
         })
+    # B2f at the evaluation shape, S=1, B=64
+    e_ms, e_plain, e_bound, _, _ = times["embed_pool_fwd_eval"]
+    next(k for k in kernels if k["name"] == "embed_pool_fwd").update(
+        eval_ms=e_ms, eval_plain_ms=e_plain, eval_bound_ms=e_bound)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

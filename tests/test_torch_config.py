@@ -1,14 +1,21 @@
 """Port config and registry against the JAX package: the vae_type master
-switch parses identically, RunConfig keeps the JAX defaults, and get_model
-routes the gauss families and refuses the rest by name."""
+switch parses identically, RunConfig has the JAX fields and defaults, the
+JSONL/argparse layer reads every grid record and every CLI override as JAX
+does, the flags whose engine the port lacks raise naming their slice, and
+get_model routes the gauss families and refuses the rest by name."""
 
+import argparse
 import dataclasses
+import json
 
 import pytest
 
 from vae_posterior_consistency_tpu import config as jcfg
 from vae_posterior_consistency_tpu_torch import config as tcfg
 from vae_posterior_consistency_tpu_torch.models import get_model
+
+GRID = "Data/imputation_args.json"
+RECORDS = list(jcfg.iter_jsonl_configs(GRID))
 
 #: the vae_types of tests/test_registry.py, plus its fallback and
 #: first-digit cases
@@ -36,9 +43,133 @@ def test_family_precedence_matches_jax():
 def test_run_config_defaults_match_jax():
     port = tcfg.RunConfig()
     ref = jcfg.RunConfig()
+    assert ([f.name for f in dataclasses.fields(port)]
+            == [f.name for f in dataclasses.fields(ref)])
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert port.M == 1
     assert port.info == tcfg.parse_vae_type(ref.vae_type)
+
+
+@pytest.mark.parametrize("value", [True, False, "yes", "True", " t ", "Y",
+                                   "1", "no", "FALSE", "f", "n", "0", "", " ",
+                                   1, 0, "maybe", "2"])
+def test_str2bool_matches_jax(value):
+    try:
+        want = jcfg.str2bool(value)
+    except argparse.ArgumentTypeError:
+        with pytest.raises(argparse.ArgumentTypeError):
+            tcfg.str2bool(value)
+        return
+    assert tcfg.str2bool(value) is want
+
+
+def test_iter_jsonl_configs_matches_jax(tmp_path):
+    path = tmp_path / "grid.json"
+    path.write_text("\n" + json.dumps({"a": {"default": 1}}) + "\n\n"
+                    + json.dumps({"b": {"default": "x"}}) + "\n")
+    assert (list(tcfg.iter_jsonl_configs(str(path)))
+            == list(jcfg.iter_jsonl_configs(str(path))))
+    assert len(list(tcfg.iter_jsonl_configs(GRID))) == len(RECORDS) == 39
+
+
+def _parsed(cfg_mod, record, argv):
+    args = cfg_mod.setup_parser(record, "impute_eval").parse_args(argv)
+    return args, cfg_mod.RunConfig.from_args(args, alpha=1.0,
+                                             p_missingness=30)
+
+
+#: CLI overrides as a user passes them, applied to every record
+ARGVS = [
+    [],
+    ["-vae_type", "reg_vae1", "-epoch", "2"],
+    ["-M", "7", "-batch_size", "16", "-beta_annealing", "true",
+     "-missing_rate", "50"],
+    ["-alphas", "0.5,2", "-missings", "10,30", "-seeds", "1", "-mesh", ""],
+]
+
+
+@pytest.mark.parametrize("index", range(len(RECORDS)))
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "none")
+def test_every_grid_record_parses_as_in_jax(index, argv):
+    record = RECORDS[index]
+    t_args, t_cfg = _parsed(tcfg, record, argv)
+    j_args, j_cfg = _parsed(jcfg, record, argv)
+    assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg)
+    shared = set(vars(j_args)) - {"profile"}
+    assert {k: getattr(t_args, k) for k in shared} == {
+        k: getattr(j_args, k) for k in shared}
+    assert set(vars(t_args)) == set(vars(j_args)) | {"device"}
+    assert t_args.device == "cuda"
+    via_record = tcfg.RunConfig.from_jsonl_record(record)
+    assert dataclasses.asdict(via_record) == dataclasses.asdict(
+        jcfg.RunConfig.from_jsonl_record(record))
+
+
+def test_from_jsonl_record_reads_bools_as_jax_does():
+    record = {"vae_type": {"default": "reg_vae2"},
+              "beta_annealing": {"default": " "},
+              "alpha_annealing": {"default": "false"},
+              "flow_actnorm": {"default": "yes"},
+              "not_a_field": {"default": 3}}
+    got = tcfg.RunConfig.from_jsonl_record(record, seed=4)
+    want = jcfg.RunConfig.from_jsonl_record(record, seed=4)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.beta_annealing is False and got.flow_actnorm is True
+    assert got.replace(M=3).M == 3 and got.M == 1
+    assert dataclasses.asdict(got.replace(epoch=5)) == dataclasses.asdict(
+        want.replace(epoch=5))
+
+
+@pytest.mark.parametrize("spec", ["", "1", "0.5,1,2", " 2 , 3 ", "1,,2",
+                                  "a,b", ",", "1e-1"])
+def test_parse_alphas_and_missings_match_jax(spec):
+    args = argparse.Namespace(alphas=spec, missings=spec)
+    for name in ("parse_alphas", "parse_missings"):
+        default = [1.0] if name == "parse_alphas" else [30]
+        try:
+            want = getattr(jcfg, name)(args, default)
+        except SystemExit as exc:
+            with pytest.raises(SystemExit) as got:
+                getattr(tcfg, name)(args, default)
+            assert str(got.value) == str(exc)
+            continue
+        assert getattr(tcfg, name)(args, default) == want
+
+
+def test_restart_and_early_stop_flags_parse_as_jax_and_wait_for_slice_5():
+    probe = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args([])
+    assert tcfg.restart_opts(probe) == jcfg.restart_opts(probe) == (None,
+                                                                   False)
+    assert tcfg.early_stopper(probe, tcfg.RunConfig()) is None
+    for argv in (["-checkpoint_every", "5"], ["-resume", "true"]):
+        args = tcfg.setup_parser(RECORDS[33], "x").parse_args(argv)
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            tcfg.restart_opts(args)
+    args = tcfg.setup_parser(RECORDS[33], "x").parse_args(
+        ["-checkpoint_every", "-3"])
+    assert tcfg.restart_opts(args) == jcfg.restart_opts(args) == (None, False)
+    args = tcfg.setup_parser(RECORDS[33], "x").parse_args(
+        ["-early_stop", "yes"])
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tcfg.early_stopper(args, tcfg.RunConfig())
+
+
+@pytest.mark.parametrize("argv,slice_name", [
+    (["-mesh", "auto"], "slice 10"), (["-mesh", "2,1"], "slice 10"),
+    (["-ensemble", "true"], "slice 9"), (["-seeds", "4"], "slice 9"),
+    (["-profile", "traces"], "slice 11")])
+def test_unported_flags_name_their_slice(argv, slice_name):
+    args = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args(argv)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        tcfg.check_unported(args)
+
+
+def test_ported_flags_pass():
+    args = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args(
+        ["-mesh", " ", "-seeds", "1", "-ensemble", "no", "-device", "cpu"])
+    tcfg.check_unported(args)
+    assert args.device == "cpu"
 
 
 @pytest.mark.parametrize("vae_type,regularized", [
@@ -48,11 +179,12 @@ def test_get_model_routes_gauss(vae_type, regularized):
     model = get_model(tcfg.RunConfig(vae_type=vae_type))
     assert model.name == "gauss"
     assert model.uses_p_branch is regularized
+    assert model.eval_kind == "vae"
 
 
 @pytest.mark.parametrize("vae_type,slice_name", [
-    ("reg_flow1", "flow"), ("vanilla_flow2", "flow"),
-    ("reg_MIWAE1", "importance-weighted"),
+    ("reg_flow1", "slice 6, the flow"), ("vanilla_flow2", "flow"),
+    ("reg_MIWAE1", "slice 7, the importance-weighted"),
     ("vanilla_notMIWAE1", "importance-weighted")])
 def test_get_model_names_the_slice_of_unported_families(vae_type, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

@@ -1,0 +1,247 @@
+"""The port's MCAR evaluation against the JAX package: `eval_vae` fed a noise
+source that replays JAX's evaluation key stream gives JAX's metrics on both
+splits from the same parameters; the artifacts it writes have JAX's names
+and contents; `completion` gives JAX's samples."""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vae_posterior_consistency_tpu import config as jcfg
+from vae_posterior_consistency_tpu.data import loaders as jloaders
+from vae_posterior_consistency_tpu.engine import artifacts as jart
+from vae_posterior_consistency_tpu.engine import checkpoint as jckpt
+from vae_posterior_consistency_tpu.engine import evaluate as jeval
+from vae_posterior_consistency_tpu.engine import inference as jinf
+from vae_posterior_consistency_tpu.models import get_model as jget_model
+from vae_posterior_consistency_tpu_torch import config as tcfg
+from vae_posterior_consistency_tpu_torch.data import loaders as tloaders
+from vae_posterior_consistency_tpu_torch.engine import artifacts as tart
+from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
+from vae_posterior_consistency_tpu_torch.engine import evaluate as teval
+from vae_posterior_consistency_tpu_torch.engine import inference as tinf
+from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as tfep
+
+#: the port's eval against JAX's under the same key stream: the same float32
+#: arithmetic in another summation order
+RTOL = 1e-5
+#: the MNIST-width loss terms sum 784 cells per row after 500-wide layers
+MNIST_LOSS_RTOL = 1e-4
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+class JaxEvalKeys:
+    """Replays the JAX evaluator's key stream as a port noise source
+    (engine/evaluate.py:95-113, 201-203, then gauss.forward's
+    reparameterize): keys[m] = fold_in(key, m), split into (kperm, kbatch);
+    the batch key fold_in(kbatch, s), split into (k_maskp, k_model); eps =
+    normal(k_model)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __call__(self, kind, rep, step, shape):
+        kperm, kbatch = jax.random.split(jax.random.fold_in(self.key, rep))
+        if kind == "perm":
+            return _t(jax.random.permutation(kperm, shape[0])).long()
+        assert kind == "eps", kind
+        _k_maskp, k_model = jax.random.split(jax.random.fold_in(kbatch, step))
+        return _t(jax.random.normal(k_model, shape))
+
+
+def _datasets(x_tr, m_tr, x_te, m_te):
+    def jsplit(x, m, stage):
+        return jloaders.Split(jnp.asarray(x), jnp.asarray(m), stage)
+
+    def tsplit(x, m, stage):
+        return tloaders.Split(torch.from_numpy(x), torch.from_numpy(m), stage)
+
+    D = x_tr.shape[1]
+    return (jloaders.Dataset(jsplit(x_tr, m_tr, "train"),
+                             jsplit(x_te, m_te, "test"), D),
+            tloaders.Dataset(tsplit(x_tr, m_tr, "train"),
+                             tsplit(x_te, m_te, "test"), D))
+
+
+def _tiny(seed, D=6):
+    """Train: 20 rows, masks at 70%, 3 batches of 8 with 4 rows wrap-padded.
+    Test: 9 rows, one with holes and eight fully observed, so of its two
+    batches of 8 one has no missing cell among its valid rows (its RMSE is
+    0 over a denominator clamped to 1), and when the holed row is also one
+    of the 7 padded rows of the last batch, its holes weigh 0."""
+    rng = np.random.default_rng(seed)
+    x_tr = rng.uniform(0.0, 1.0, (20, D)).astype(np.float32)
+    m_tr = (rng.random((20, D)) < 0.7).astype(np.float32)
+    x_te = rng.uniform(0.0, 1.0, (9, D)).astype(np.float32)
+    m_te = np.ones((9, D), np.float32)
+    m_te[4, [1, 3]] = 0.0
+    return _datasets(x_tr, m_tr, x_te, m_te)
+
+
+def _params(jc, obs_dim, seed=7):
+    jparams = jget_model(jc).init(jax.random.PRNGKey(seed), jc, obs_dim)
+    return jparams, tckpt.params_from_jax(jckpt._flatten(jparams), "cpu")
+
+
+def _both(jc, tc, jds, tds, obs_dim, **kw):
+    jparams, tparams = _params(jc, obs_dim)
+    want = jeval.eval_vae(jds, jc, params=jparams, **kw)
+    got = teval.eval_vae(tds, tc, params=tparams,
+                         noise=JaxEvalKeys(jax.random.PRNGKey(jc.seed + 1)),
+                         device="cpu", **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("vae_type", ["reg_vae1", "vanilla_EDDI1",
+                                      "reg_vae1_mask_augm"])
+def test_eval_vae_matches_jax_under_the_replayed_key_stream(vae_type):
+    kw = dict(vae_type=vae_type, M=2, batch_size=8, seed=3, missing_rate=30)
+    jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
+    jds, tds = _tiny(seed=5)
+    got, want = _both(jc, tc, jds, tds, 6, save=False)
+    assert list(got) == list(want) == ["train", "test"]
+    for stage in want:
+        assert list(got[stage]) == list(want[stage])  # order too
+        for name, value in want[stage].items():
+            np.testing.assert_allclose(got[stage][name], value, rtol=RTOL,
+                                       err_msg=f"{stage} {name}")
+    assert got["test"]["rmse"] > 0.0
+    assert all(np.isfinite(v) for s in got.values() for v in s.values())
+
+
+def test_both_splits_start_from_the_same_keys():
+    """The default source restarts from cfg.seed + 1 for each split: a
+    split evaluated twice gives the same metrics, as in JAX."""
+    tc = tcfg.RunConfig(vae_type="reg_vae1", M=2, batch_size=8)
+    _, tds = _tiny(seed=6)
+    tds.test = tloaders.Split(tds.train.x, tds.train.mask, "test")
+    _, tparams = _params(jcfg.RunConfig(vae_type="reg_vae1"), 6)
+    res = teval.eval_vae(tds, tc, params=tparams, save=False, device="cpu")
+    assert res["train"] == res["test"]
+
+
+def test_eval_vae_at_mnist_width_matches_jax():
+    """reg_EDDI1 at MNIST widths (D=784, trunk 500-500-200, decoder
+    200-500-500) on 100 rows of each split of Data/mnist: two batches of 64
+    a split, the last 36 rows and 28 padded."""
+    kw = dict(vae_type="reg_EDDI1", data_type="mnist", M=1, batch_size=64,
+              missing_rate=30)
+    jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
+    full = tloaders.data_loader_mnist("Data", "reg_EDDI1", 30, 64,
+                                      device="cpu")
+    arrays = [t[:100].numpy() for t in (full.train.x, full.train.mask,
+                                        full.test.x, full.test.mask)]
+    jds, tds = _datasets(*arrays)
+    before = tfep.embed_pool.launches
+    got, want = _both(jc, tc, jds, tds, 784, save=False)
+    assert tfep.embed_pool.launches == before  # CPU: the plain version
+    for stage in want:
+        np.testing.assert_allclose(got[stage]["rmse"], want[stage]["rmse"],
+                                   rtol=RTOL, err_msg=stage)
+        for name in ("loss", "negl", "negl_imp"):
+            np.testing.assert_allclose(got[stage][name], want[stage][name],
+                                       rtol=MNIST_LOSS_RTOL,
+                                       err_msg=f"{stage} {name}")
+
+
+@pytest.mark.parametrize("vae_type", ["reg_vae1", "vanilla_vae2_mask_augm",
+                                      "reg_EDDI3", "vanilla_EDDI1_with_drop"])
+@pytest.mark.parametrize("stage", ["train", "test"])
+def test_eval_vae_paths_match_jax(vae_type, stage):
+    kw = dict(vae_type=vae_type, missing_rate=30, alpha=0.5,
+              p_missingness=10, reg_type="ml_reg", data_type="mnist")
+    jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
+    assert (tart.eval_vae_paths(tc, stage, "root")
+            == jart.eval_vae_paths(jc, stage, "root"))
+    assert tart.strip_digits(vae_type) == jart.strip_digits(vae_type)
+
+
+def _tree(root):
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            out[os.path.relpath(path, root)] = path
+    return out
+
+
+@pytest.mark.parametrize("vae_type", ["vanilla_vae1", "reg_vae1"])
+def test_saved_artifacts_match_jax(tmp_path, vae_type):
+    kw = dict(vae_type=vae_type, M=2, batch_size=8, missing_rate=30)
+    jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
+    jds, tds = _tiny(seed=8)
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    jparams, tparams = _params(jc, 6)
+    jeval.eval_vae(jds, jc, params=jparams, experiments_root=jroot)
+    teval.eval_vae(tds, tc, params=tparams, experiments_root=troot,
+                   noise=JaxEvalKeys(jax.random.PRNGKey(jc.seed + 1)),
+                   device="cpu")
+    jfiles, tfiles = _tree(jroot), _tree(troot)
+    assert sorted(tfiles) == sorted(jfiles)
+    assert len(tfiles) == 9  # 4 artifacts a split and metrics.jsonl
+    for rel, path in tfiles.items():
+        if rel.endswith("metrics.jsonl"):
+            continue
+        got = torch.load(path, weights_only=False)
+        want = torch.load(jfiles[rel], weights_only=False)
+        assert isinstance(got, torch.Tensor) and got.dtype == want.dtype
+        assert got.shape == want.shape == ()
+        np.testing.assert_allclose(got.item(), want.item(), rtol=RTOL,
+                                   err_msg=rel)
+    rel = [r for r in tfiles if r.endswith("metrics.jsonl")][0]
+    recs = [[json.loads(line) for line in open(f[rel])]
+            for f in (tfiles, jfiles)]
+    assert len(recs[0]) == len(recs[1]) == 8
+    for got, want in zip(*recs):
+        assert sorted(got) == sorted(want)
+        assert {k: v for k, v in got.items() if k not in ("time", "value")} \
+            == {k: v for k, v in want.items() if k not in ("time", "value")}
+        np.testing.assert_allclose(got["value"], want["value"], rtol=RTOL)
+
+
+def test_eval_vae_loads_the_trained_checkpoint(tmp_path):
+    """params=None reads the checkpoint at its reference path."""
+    tc = tcfg.RunConfig(vae_type="vanilla_vae1", M=1, batch_size=8)
+    _, tds = _tiny(seed=9)
+    _, tparams = _params(jcfg.RunConfig(vae_type="vanilla_vae1"), 6)
+    tckpt.save(tparams, tckpt.checkpoint_path(tc, str(tmp_path)))
+    a = teval.eval_vae(tds, tc, experiments_root=str(tmp_path), save=False,
+                       device="cpu")
+    b = teval.eval_vae(tds, tc, params=tparams, save=False, device="cpu")
+    assert a == b
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            teval.eval_vae(tds, tc, params=tparams, save=False)
+
+
+@pytest.mark.parametrize("vae_type", ["reg_vae1", "vanilla_EDDI1"])
+def test_completion_matches_jax(vae_type):
+    jc = jcfg.RunConfig(vae_type=vae_type, seed=2)
+    tc = tcfg.RunConfig(vae_type=vae_type, seed=2)
+    jparams, tparams = _params(jc, 6)
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0.0, 1.0, (5, 6)).astype(np.float32)
+    mask = (rng.random((5, 6)) < 0.7).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    want = np.asarray(jinf.completion(jparams, jnp.asarray(x),
+                                      jnp.asarray(mask), jnp.asarray(mask), 3,
+                                      jc, key=key))
+    eps = torch.stack([_t(jax.random.normal(k, (5, jc.latent_dim)))
+                       for k in jax.random.split(key, 3)])
+    got = tinf.completion(tparams, torch.from_numpy(x), torch.from_numpy(mask),
+                          torch.from_numpy(mask), 3, tc, eps=eps)
+    assert got.shape == (3, 5, 6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
+    drawn = tinf.completion(tparams, torch.from_numpy(x),
+                            torch.from_numpy(mask), None, 3, tc)
+    again = tinf.completion(tparams, torch.from_numpy(x),
+                            torch.from_numpy(mask), None, 3, tc)
+    assert torch.equal(drawn, again) and drawn.shape == (3, 5, 6)

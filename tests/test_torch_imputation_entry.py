@@ -1,0 +1,155 @@
+"""The port's entry point, `python -m
+vae_posterior_consistency_tpu_torch.experiment_main.imputation`, on the CPU:
+a one-record grid (record 34, the flagship reg_vae1, cut to 2 epochs) trains,
+saves a checkpoint the JAX package reads, and writes the artifacts under the
+names the JAX package's entry point gives them; a record the port cannot run
+yet fails by name with its slice, and the run exits nonzero."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from vae_posterior_consistency_tpu import config as jcfg
+from vae_posterior_consistency_tpu.data import loaders as jloaders
+from vae_posterior_consistency_tpu.engine import artifacts as jart
+from vae_posterior_consistency_tpu.engine import checkpoint as jckpt
+from vae_posterior_consistency_tpu.engine import train as jtrain
+from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
+from vae_posterior_consistency_tpu_torch.experiment_main import imputation
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RECORDS = [json.loads(line) for line in
+           open(os.path.join(REPO, "Data", "imputation_args.json"))
+           if line.strip()]
+#: 1-based record numbers in Data/imputation_args.json
+FLAGSHIP, FLOW, MIWAE, WITH_DROP = 34, 7, 4, 25
+
+
+def _record(number, **defaults):
+    record = json.loads(json.dumps(RECORDS[number - 1]))
+    for key, value in defaults.items():
+        record[key]["default"] = value
+    return record
+
+
+def _workdir(tmp_path, records):
+    """A directory holding Data/imputation_args.json with `records` and a
+    copy of Data/wine."""
+    os.makedirs(tmp_path / "Data")
+    shutil.copytree(os.path.join(REPO, "Data", "wine"),
+                    tmp_path / "Data" / "wine")
+    with open(tmp_path / "Data" / "imputation_args.json", "w") as fh:
+        for rec in records:
+            fh.write(json.dumps(rec) + "\n")
+    return tmp_path
+
+
+def test_one_record_grid_trains_evaluates_and_saves_what_jax_reads(
+        tmp_path, monkeypatch, capsys):
+    record = _record(FLAGSHIP, epoch=2)
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    assert imputation.main(["-device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "=== train reg_vae1 (missing=30, alpha=1.0) ===" in out
+    assert "Epoch: [1/2], Total Loss:" in out
+    for stage in ("train", "test"):
+        line = [ln for ln in out.splitlines()
+                if ln.startswith(f"  [{stage}] ")]
+        assert len(line) == 1
+        fields = dict(kv.split("=") for kv in line[0].split()[1:])
+        assert list(fields) == ["loss", "negl", "negl_imp", "rmse"]
+        assert all(np.isfinite(float(v)) for v in fields.values())
+
+    args = jcfg.setup_parser(record, "impute_eval").parse_args([])
+    jc = jcfg.RunConfig.from_args(args, alpha=1.0, p_missingness=30)
+    assert (jc.vae_type, jc.epoch, jc.M, jc.missing_rate) == ("reg_vae1", 2,
+                                                              50, 30)
+    # the checkpoint: at JAX's path, read by JAX's load_trained
+    ckpt = jckpt.checkpoint_path(jc, "experiments")
+    assert os.path.isfile(ckpt)
+    jds = jloaders.data_loader("Data", jc.vae_type, jc.missing_rate,
+                               jc.batch_size, jc.data_type)
+    loaded = jckpt._flatten(jtrain.load_trained(jds, jc, "experiments"))
+    saved = torch.load(ckpt, weights_only=False)
+    assert sorted(loaded) == sorted(saved)
+    for key, value in saved.items():
+        np.testing.assert_array_equal(loaded[key], value, err_msg=key)
+    # the artifacts: JAX's names, nothing else but metrics.jsonl
+    want = {ckpt}
+    for stage in ("train", "test"):
+        want |= set(jart.eval_vae_paths(jc, stage, "experiments").values())
+    metrics = os.path.join("experiments", jc.experiment_type, jc.data_type,
+                           "metrics.jsonl")
+    want.add(metrics)
+    written = {os.path.join(d, f) for d, _, files in os.walk("experiments")
+               for f in files}
+    assert written == want
+    for stage in ("train", "test"):
+        for path in jart.eval_vae_paths(jc, stage, "experiments").values():
+            value = torch.load(path, weights_only=False)
+            assert value.dtype == torch.float64 and value.shape == ()
+            assert np.isfinite(value.item())
+    recs = [json.loads(line) for line in open(metrics)]
+    assert [(r["stage"], r["metric"]) for r in recs] == [
+        (s, m) for s in ("train", "test")
+        for m in ("loss", "negl", "negl_imp", "rmse")]
+
+
+@pytest.mark.parametrize("number,names", [
+    (FLOW, ("vanilla_flow1", "slice 6")),
+    (MIWAE, ("vanilla_MIWAE1", "slice 7")),
+    (WITH_DROP, ("vanilla_EDDI1_with_drop", "ROADMAP.md A.5"))])
+def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
+        tmp_path, monkeypatch, capsys, number, names):
+    monkeypatch.chdir(_workdir(tmp_path, [_record(number, epoch=1)]))
+    assert imputation.main(["-device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert "Traceback" not in out
+    not_run = [ln for ln in out.splitlines() if ln.startswith("=== not run")]
+    assert len(not_run) == 1 and all(n in not_run[0] for n in names)
+    assert "1 run(s) not made" in out
+    assert not os.path.exists("experiments")
+
+
+def test_the_module_runs_from_the_command_line(tmp_path):
+    """A flow record beside the flagship, each at 1 epoch: the flagship
+    runs, the flow record is named, the exit code is 1. A flag whose engine
+    is not ported stops the run before it starts."""
+    work = _workdir(tmp_path, [_record(FLOW, epoch=1),
+                               _record(FLAGSHIP, epoch=1, M=1)])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m",
+           "vae_posterior_consistency_tpu_torch.experiment_main.imputation",
+           "-device", "cpu"]
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 1, proc.stderr
+    assert "=== not run: vanilla_flow1" in proc.stdout
+    assert "  [test] loss=" in proc.stdout
+    assert "vanilla_flow1 (missing=30, alpha=1.0): vae_type" in proc.stdout
+    proc = subprocess.run(cmd + ["-seeds", "3"], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1
+    assert "slice 9" in proc.stderr and "Traceback" not in proc.stderr
+
+
+def test_a_missing_grid_raises(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="imputation_args.json"):
+        imputation.main(["-device", "cpu"])
+
+
+def test_port_checkpoint_path_is_jax_path_for_every_grid_record():
+    for record in RECORDS:
+        args = jcfg.setup_parser(record, "impute_eval").parse_args([])
+        jc = jcfg.RunConfig.from_args(args, alpha=1.0, p_missingness=30)
+        tc = imputation.RunConfig.from_args(
+            imputation.setup_parser(record, "impute_eval").parse_args([]),
+            alpha=1.0, p_missingness=30)
+        assert tckpt.checkpoint_path(tc) == jckpt.checkpoint_path(jc)

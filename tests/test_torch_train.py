@@ -177,7 +177,9 @@ def _tiny_datasets(n, obs_dim, seed):
 #: Bound: 2 * lr * steps on any weight, and at most one weight in a thousand
 #: more than 1e-5 apart.
 @pytest.mark.parametrize("vae_type,reg_type", [("reg_vae1", "kl_reg"),
-                                               ("reg_EDDI1", "ml_reg")])
+                                               ("reg_EDDI1", "ml_reg"),
+                                               ("reg_vae1_mask_augm",
+                                                "kl_reg")])
 def test_train_reproduces_jax_train_under_the_replayed_key_stream(
         vae_type, reg_type):
     kw = dict(vae_type=vae_type, reg_type=reg_type, epoch=2, batch_size=8,

@@ -1,14 +1,103 @@
-"""Run configuration: the `vae_type` master switch and the fields serving and
-training read.
+"""Run configuration: the `vae_type` master switch, `RunConfig` and the
+JSONL/argparse layer the entry points read.
 
-A copy of the JAX package's `config.py` contract (`parse_vae_type`,
-`FAMILY_PRECEDENCE`, `VaeTypeInfo`, `RunConfig`) cut to what the port uses
-so far; later slices add the argparse/JSONL layer.
+A copy of the JAX package's `config.py` contract: every config record of
+`Data/imputation_args.json` maps arg-name -> {type, default, help} and becomes
+an argparse parser whose single-dash flags override the record (reference:
+src/utils/utils.py:177-189). The flags the JAX package adds (`-mesh`,
+`-ensemble`, `-seeds`, `-alphas`, `-missings`, `-checkpoint_every`,
+`-resume`, `-early_stop`, `-profile`) parse the same way here; those whose
+engine the port has not yet ported raise `NotImplementedError` naming the
+slice of ROADMAP.md queue A that brings it. The port adds one flag of its
+own, `-device`.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
+from typing import Any, Iterator
+
+
+def str2bool(v: Any) -> bool:
+    """Lenient bool parsing (reference: src/utils/utils.py:165-173)."""
+    if isinstance(v, bool):
+        return v
+    s = str(v).strip().lower()
+    if s in ("yes", "true", "t", "y", "1"):
+        return True
+    if s in ("no", "false", "f", "n", "0", ""):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+#: flags every parser gets when its record does not define them (the JAX
+#: package's framework extensions, and the port's `-device`):
+#: name -> (type, default, help)
+_EXTRA_FLAGS = {
+    "mesh": (str, "", "device mesh: '' = single-device engine (the only one "
+             "the port has so far)"),
+    "ensemble": (str2bool, False, "train each family's split triple as one "
+                 "ensemble (not ported yet)"),
+    "seeds": (int, 1, "seed replicas per config (not ported yet)"),
+    "alphas": (str, "", "comma-separated regularization strengths to sweep "
+               "(e.g. '0.5,1,2'); empty = the entry's default sweep"),
+    "missings": (str, "", "comma-separated p_missingness rates to sweep "
+                 "(e.g. '10,30,50'); empty = the entry's default sweep"),
+    "checkpoint_every": (int, 0, "write a mid-training resume file every N "
+                         "epochs (not ported yet; 0 = end-of-training save)"),
+    "resume": (str2bool, False, "restart from a resume file (not ported "
+               "yet)"),
+    "early_stop": (str2bool, False, "patience-based early stopping (not "
+                   "ported yet)"),
+    "profile": (str, "", "write a profiler trace to this directory (not "
+                "ported yet)"),
+    "device": (str, "cuda", "torch device the run uses: 'cuda' (the "
+               "kernels) or 'cpu' (their plain versions)"),
+}
+
+#: flags whose engine is not ported yet -> the ROADMAP.md slice that brings it
+SLICE_RESTART = "slice 5 (restartability and early stopping)"
+SLICE_ENSEMBLE = "slice 9 (ensembles)"
+SLICE_MESH = "slice 10 (multi-device)"
+SLICE_PROFILE = "slice 11 (utils/logging through torch.profiler)"
+
+
+def setup_parser(arguments: dict, title: str) -> argparse.ArgumentParser:
+    """An argparse parser from a JSONL config record: every key becomes a
+    single-dash flag `-<name>` typed after its default, so CLI flags
+    override any config value (reference: src/utils/utils.py:177-189); then
+    the flags of `_EXTRA_FLAGS` the record does not define."""
+    parser = argparse.ArgumentParser(
+        description=title, formatter_class=argparse.ArgumentDefaultsHelpFormatter
+    )
+    for key, value in arguments.items():
+        default = value["default"]
+        typ = str2bool if isinstance(default, bool) else type(default)
+        parser.add_argument(
+            "-%s" % key, type=typ, help=value.get("help", ""), default=default
+        )
+    for key, (typ, default, help_) in _EXTRA_FLAGS.items():
+        if key not in arguments:
+            parser.add_argument("-%s" % key, type=typ, default=default,
+                                help=help_)
+    return parser
+
+
+def iter_jsonl_configs(path: str) -> Iterator[dict]:
+    """Yield per-run config records from a JSON-lines file, skipping blanks."""
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            yield json.loads(line)
+
+
+# ---------------------------------------------------------------------------
+# vae_type string contract
+# ---------------------------------------------------------------------------
 
 #: model-family precedence, mirroring the reference factory's substring
 #: dispatch order (src/utils/loaders.py:19-245): `flow` wins over `reg_vae`,
@@ -65,11 +154,19 @@ def parse_vae_type(vae_type: str) -> VaeTypeInfo:
     )
 
 
+# ---------------------------------------------------------------------------
+# Typed run config
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass
 class RunConfig:
-    """One run. Names and defaults follow the JAX package's `RunConfig` (the
-    reference JSONL schema, Data/imputation_args.json line 1); only the
-    fields that serving, training and checkpoint naming read are here."""
+    """One experiment run. Field names, order and defaults are the JAX
+    package's `RunConfig` (the reference JSONL schema; record 1 of
+    Data/imputation_args.json is `reg_MIWAE1`, the flagship `reg_vae1` is
+    record 34). Every field parses and is stored; the knobs of families the
+    port has not ported yet (flow, (not)MIWAE, AIS) mean nothing until
+    those families arrive."""
 
     missing_rate: int = 50
     vae_type: str = "reg_vae1"
@@ -78,19 +175,151 @@ class RunConfig:
     data_type: str = "wine"
     epoch: int = 3000
     batch_size: int = 64
+    patience: int = 100
     data_path: str = "Data"
     K: int = 10  # PointNet feature-map dim
+    M: int = 1  # Monte-Carlo reps of evaluation
     latent_dim: int = 10
+    hid_dim: int = 500
+    train_k: int = 20  # IWAE samples during training
+    valid_k: int = 5000  # IWAE samples during validation
+    n_iwae: int = 50
+    n_ais_iwae: int = 40
+    ais_schedule: str = "sigmoidal"
+    n_ais_dist: int = 500
+    num_estimates: int = 100
     beta_annealing: bool = False
+    alpha_annealing: bool = True
+    # sweep-level knobs (the reference hard-codes these loops:
+    # imputation.py:23-24)
     alpha: float = 1.0
     p_missingness: int = 30
     beta: float = 1.0
     seed: int = 0
     data_transform: str = "minmax"  # 'minmax' | 'stand'
+    not_miwae_type: str = "changed"  # 'changed' | 'author'
+    #: the JAX package's PRNG implementation; stored, unused by the port,
+    #: whose noise comes from torch.Generator objects
+    rng_impl: str = "rbg"
+    flow_tails: str = "clamp"  # 'clamp' | 'linear'
+    flow_actnorm: bool = False
+    fixed_iwae_bound: bool = False
+    reg_notmiwae_variant: str = "v2"  # 'v2' | 'both_s' | 'sampled_mask'
     #: 'float32' only in the port so far; 'bfloat16' comes with the
     #: mixed-precision slice (models/registry.get_model raises)
     compute_dtype: str = "float32"
+    #: '' only in the port so far (check_unported raises for any other)
+    mesh: str = ""
 
     @property
     def info(self) -> VaeTypeInfo:
         return parse_vae_type(self.vae_type)
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace, **overrides) -> "RunConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in vars(args).items() if k in fields}
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def from_jsonl_record(cls, record: dict, **overrides) -> "RunConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {}
+        for key, value in record.items():
+            if key in fields:
+                default = value["default"]
+                if isinstance(getattr(cls, key, None), bool) or key.endswith(
+                    "_annealing"
+                ):
+                    default = str2bool(default)
+                kw[key] = default
+        kw.update(overrides)
+        return cls(**kw)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# CLI flag readers shared by the entry points
+# ---------------------------------------------------------------------------
+
+
+def check_unported(args) -> None:
+    """Raise NotImplementedError, naming the slice, for a flag whose engine
+    the port does not have yet: `-mesh` other than '', `-ensemble true`,
+    `-seeds` above 1, `-profile`."""
+    if (getattr(args, "mesh", "") or "").strip():
+        raise NotImplementedError(
+            f"-mesh {args.mesh!r}: the multi-device engine is not ported "
+            f"yet; it comes with {SLICE_MESH}")
+    if bool(getattr(args, "ensemble", False)):
+        raise NotImplementedError(
+            "-ensemble true: the ensemble engine is not ported yet; it "
+            f"comes with {SLICE_ENSEMBLE}")
+    if int(getattr(args, "seeds", 1)) > 1:
+        raise NotImplementedError(
+            f"-seeds {args.seeds}: seed ensembles are not ported yet; they "
+            f"come with {SLICE_ENSEMBLE}")
+    if getattr(args, "profile", ""):
+        raise NotImplementedError(
+            f"-profile: tracing is not ported yet; it comes with "
+            f"{SLICE_PROFILE}")
+
+
+def restart_opts(args):
+    """(-checkpoint_every, -resume) -> (checkpoint_every or None, resume),
+    read as the JAX package reads them: a non-positive checkpoint_every is
+    'off'. Either one set raises NotImplementedError: resume files come
+    with slice 5."""
+    ck = int(getattr(args, "checkpoint_every", 0) or 0)
+    ck, resume = (ck if ck > 0 else None), bool(getattr(args, "resume", False))
+    if ck is not None or resume:
+        raise NotImplementedError(
+            f"-checkpoint_every {ck or 0} -resume {resume}: mid-training "
+            f"checkpoints are not ported yet; they come with {SLICE_RESTART}")
+    return ck, resume
+
+
+def early_stopper(args, cfg: RunConfig, ensemble: bool = False):
+    """`-early_stop` -> None when unset, as in the JAX package; set, it
+    raises NotImplementedError: early stopping comes with slice 5."""
+    del cfg, ensemble
+    if not bool(getattr(args, "early_stop", False)):
+        return None
+    raise NotImplementedError(
+        f"-early_stop true: early stopping is not ported yet; it comes with "
+        f"{SLICE_RESTART}")
+
+
+def parse_alphas(args, default):
+    """Resolve the `-alphas` flag into a list of floats (the entry's
+    hard-coded sweep when unset). Rejects empties/garbage loudly."""
+    spec = (getattr(args, "alphas", "") or "").strip()
+    if not spec:
+        return list(default)
+    try:
+        alphas = [float(tok) for tok in spec.split(",") if tok.strip()]
+    except ValueError:
+        raise SystemExit(f"-alphas {spec!r}: expected comma-separated floats")
+    if not alphas:
+        raise SystemExit(f"-alphas {spec!r}: no values")
+    return alphas
+
+
+def parse_missings(args, default):
+    """Resolve the `-missings` flag into a list of ints (the entry's
+    hard-coded p_missingness sweep when unset): integer percentages, as the
+    reference's `for missing in [30]` loop and the artifact names have them
+    (reference: src/experiment_main/imputation.py:23)."""
+    spec = (getattr(args, "missings", "") or "").strip()
+    if not spec:
+        return list(default)
+    try:
+        vals = [int(tok) for tok in spec.split(",") if tok.strip()]
+    except ValueError:
+        raise SystemExit(f"-missings {spec!r}: expected comma-separated ints")
+    if not vals:
+        raise SystemExit(f"-missings {spec!r}: no values")
+    return vals

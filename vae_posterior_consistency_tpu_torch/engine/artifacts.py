@@ -1,0 +1,97 @@
+"""Result artifacts: the reference's paths and `.pt` scalars, and a
+structured `metrics.jsonl` (port of the JAX package's `engine/artifacts.py`,
+the MCAR part).
+
+The reference writes every headline metric as a torch-saved tensor in a
+deep, name-mangled directory tree (reference:
+src/experiment_main/evaluate.py:247-297). The paths here are the JAX
+package's character for character, and each file holds what the JAX package
+writes there: a 0-d float64 tensor for a Python float. The MIWAE, MNAR and
+active-learning paths come with their families.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from vae_posterior_consistency_tpu_torch.config import RunConfig
+from vae_posterior_consistency_tpu_torch.engine.checkpoint import family_dir
+
+
+def strip_digits(s: str) -> str:
+    return "".join(c for c in s if not c.isdigit())
+
+
+def _base(cfg: RunConfig, root: str, sub: str) -> str:
+    return os.path.join(root, cfg.experiment_type, cfg.data_type, sub)
+
+
+def save_tensor(value, path: str) -> None:
+    """torch.save `value` at `path`, parents made. A tensor is saved as it
+    is; anything else goes through numpy first, as in the JAX package, so a
+    Python float becomes a 0-d float64 tensor."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if not isinstance(value, torch.Tensor):
+        value = torch.as_tensor(np.array(value))
+    torch.save(value, path)
+
+
+def log_metric(cfg: RunConfig, name: str, value, stage: str = "",
+               root: str = "experiments") -> None:
+    """Append one metric record to `<root>/<experiment_type>/<data_type>/
+    metrics.jsonl` (the JAX package's record, field for field)."""
+    path = os.path.join(root, cfg.experiment_type, cfg.data_type,
+                        "metrics.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arr = np.asarray(value)
+    rec = {
+        "time": time.time(),
+        "vae_type": cfg.vae_type,
+        "stage": stage,
+        "metric": name,
+        "value": float(arr.reshape(-1)[0]) if arr.size == 1 else arr.tolist(),
+        "alpha": cfg.alpha,
+        "p_missingness": cfg.p_missingness,
+        "missing_rate": cfg.missing_rate,
+        "reg_type": cfg.reg_type,
+    }
+    with open(path, "a") as fh:
+        fh.write(json.dumps(rec) + "\n")
+
+
+def eval_vae_paths(cfg: RunConfig, stage: str,
+                   root: str = "experiments") -> dict:
+    """The four MCAR evaluation artifacts of one split: rmse, elbo, negll,
+    negll_imp (reference: src/experiment_main/evaluate.py:247-297)."""
+    fam = family_dir(cfg.vae_type)
+    rest = _base(cfg, root, "rest")
+    elbos = _base(cfg, root, "elbos")
+    if "vanilla" in cfg.vae_type:
+        tail = f"_{cfg.missing_rate}_missing_rate_test.pt"
+        return {
+            "rmse": os.path.join(rest, fam,
+                                 f"{stage}_{cfg.vae_type}_rmse{tail}"),
+            "elbo": os.path.join(elbos, fam,
+                                 f"{stage}_{cfg.vae_type}_vae_elbo{tail}"),
+            "negll": os.path.join(
+                rest, fam, f"{stage}_{cfg.vae_type}_negative_llh{tail}"),
+            "negll_imp": os.path.join(
+                rest, fam,
+                f"{stage}_{cfg.vae_type}_negative_llh_imputed{tail}"),
+        }
+    mid = f"_{cfg.alpha}_{cfg.p_missingness}_{cfg.reg_type}"
+    tail = f"{mid}_{cfg.missing_rate}_missing_rate_full_reg_test.pt"
+    return {
+        "rmse": os.path.join(rest, fam, f"{stage}_{cfg.vae_type}_rmse{tail}"),
+        "elbo": os.path.join(elbos, fam,
+                             f"{stage}_{cfg.vae_type}_vae_elbo{tail}"),
+        "negll": os.path.join(
+            rest, fam, f"{stage}_{cfg.vae_type}_negative_llh_q{tail}"),
+        "negll_imp": os.path.join(
+            rest, fam, f"{stage}_{cfg.vae_type}_negative_llh_q_imputed{tail}"),
+    }

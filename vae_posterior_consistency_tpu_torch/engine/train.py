@@ -28,6 +28,7 @@ for instance one that replays the JAX package's key stream.
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, Optional
 
 import torch
@@ -105,11 +106,11 @@ def make_train_step(cfg: RunConfig, model=None) -> Callable:
     return train_step
 
 
-def _check_device(device) -> torch.device:
+def check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "train on the CPU")
+                           "run on the CPU")
     return device
 
 
@@ -134,7 +135,7 @@ def train(
     from `GeneratorNoise(cfg.seed + 1, device)`. `log_fn(epoch, loss_sum)`
     runs after each epoch (1-based), `on_step(epoch, step, loss)` after each
     step (0-based; `loss` stays on the device)."""
-    device = _check_device(device)
+    device = check_device(device)
     model = get_model(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -181,11 +182,26 @@ def train(
     return params, history
 
 
+def epoch_logger(max_epochs: int) -> Callable[[int, float], None]:
+    """A `log_fn` for `train` that prints each epoch in the reference's
+    format ('Epoch: [i/max], Total Loss: x', src/experiment_main/
+    train.py:118) with the epochs a second so far, as the JAX package's
+    `utils/logging.epoch_logger` does."""
+    start = time.time()
+
+    def log(done: int, loss: float):
+        rate = done / max(time.time() - start, 1e-9)
+        print(f"Epoch: [{done - 1}/{max_epochs}], Total Loss: {loss}"
+              f"  ({rate:.1f} epochs/s)", flush=True)
+
+    return log
+
+
 def load_trained(dataset: Dataset, cfg: RunConfig,
                  experiments_root: str = "experiments", device="cuda"):
     """model_loader('test') equivalent (reference: src/utils/loaders.py:
     13-246): rebuild the model and load the mangled-path checkpoint."""
-    device = _check_device(device)
+    device = check_device(device)
     model = get_model(cfg)
     template = model.init(torch.Generator(device=device).manual_seed(0), cfg,
                           dataset.obs_dim, device=device)

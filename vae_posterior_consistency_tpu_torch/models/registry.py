@@ -22,6 +22,9 @@ class ModelDef:
     train_loss: Callable
     eval_step: Callable  # (params, x, mask, mask_p, eps, cfg) -> dict
     uses_p_branch: bool
+    #: 'vae' (rmse, loss, negl, negl_imp) | 'miwae' (rmse only, valid_k
+    #: importance samples; comes with the importance-weighted slice)
+    eval_kind: str = "vae"
 
 
 _GAUSS = ModelDef(
@@ -41,12 +44,12 @@ _FAMILY_TO_DEF = {
 
 #: families not ported yet -> the slice (ROADMAP.md queue A) that ports them
 _LATER = {
-    "vanilla_flow": "the flow slice",
-    "reg_flow": "the flow slice",
-    "reg_notMIWAE": "the importance-weighted slice",
-    "vanilla_notMIWAE": "the importance-weighted slice",
-    "reg_MIWAE": "the importance-weighted slice",
-    "MIWAE": "the importance-weighted slice",
+    "vanilla_flow": "slice 6, the flow slice",
+    "reg_flow": "slice 6, the flow slice",
+    "reg_notMIWAE": "slice 7, the importance-weighted slice",
+    "vanilla_notMIWAE": "slice 7, the importance-weighted slice",
+    "reg_MIWAE": "slice 7, the importance-weighted slice",
+    "MIWAE": "slice 7, the importance-weighted slice",
 }
 
 

@@ -60,9 +60,15 @@ def train_masks(info, cfg, mask, *, uniforms=None, generator=None):
     if info.regularized:
         return mask, sub_mask(mask, cfg.p_missingness, uniforms=uniforms,
                               generator=generator)
-    if info.with_drop:
+    check_ported(info)
+    return mask, torch.ones_like(mask)
+
+
+def check_ported(info) -> None:
+    """Raise NotImplementedError for a vanilla `_with_drop` type, whose
+    training mask (`eddi_drop_mask`) the port does not have yet."""
+    if info.with_drop and not info.regularized:
         raise NotImplementedError(
             f"vae_type {info.raw!r}: the `_with_drop` training mask "
             "(eddi_drop_mask) is not ported yet; it comes with the EDDI "
-            "drop-mask slice (ROADMAP A.12)")
-    return mask, torch.ones_like(mask)
+            "drop-mask item (ROADMAP.md A.5)")
