@@ -12,8 +12,9 @@ Run from the root of a checkout. It drives only the port
    nvcc (plain C interface, loaded with ctypes), all sources at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving and training paths give it and beyond them (three masks, 64
-   features): B2f (embed+pool forward), B2b (its backward, with and without
-   the dmasks output), B1 (the posterior tail's forward, one launch of one
+   features; and at the wine width, D=13, S=1 and 2, B=64 and 17): B2f
+   (embed+pool forward), B2b (its backward, with and without the dmasks
+   output), B1 (the posterior tail's forward, one launch of one
    block at every size) and B1's backward (strided
    statistics, dense and expanded cotangents, with and without the eps
    gradients); the same bits on two calls for each; and each autograd
@@ -33,9 +34,16 @@ Run from the root of a checkout. It drives only the port
    B1, its backward, B2f and B2b launched exactly once a step and no plain
    version run on a CUDA tensor, every loss finite, the loss falling; (c)
    the saved checkpoint loaded back and served;
-7. training, the flagship reg_vae1 / kl_reg on Data/wine split 1, batch 64,
-   30 epochs: B1 and its backward once a step, the embed+pool kernels
-   never, no plain version on a CUDA tensor, the loss falling;
+7. training on Data/wine split 1, batch 64, 30 epochs each, no plain
+   version on a CUDA tensor, every loss finite, the loss falling: (a) the
+   flagship reg_vae1 / kl_reg, B1 and its backward once a step, the
+   embed+pool kernels never; (b) the flow posterior reg_flow1 / kl_reg at
+   its records' width (hid_dim 500, latent 10, missing_rate 30): its first
+   step's loss and gradients on the card against the CPU from the same
+   parameters, batch and recorded noise, then 30 epochs, no kernel
+   launched; (c) vanilla_EDDI1_with_drop (missing_rate 30): the EDDI drop
+   mask drawn on the card once a step, B2f and B2b each launched once a
+   step at S=1, D=13, B1 never;
 8. evaluation, engine/evaluate.eval_vae over both splits: (a) the MNIST
    reg_EDDI1 checkpoint in the repo at full width, M=1, batch 64 (26 train
    and 3 test batches, the last 51 rows padded to 64): B2f launched once a
@@ -46,21 +54,26 @@ Run from the root of a checkout. It drives only the port
    of 3 train and 1 test batches): no kernel launched, the metrics against
    the CPU's in the same way; (c) the wall-clock of each split on the host
    clock, with a sync at each end, and the device operations of one split
-   of one batch;
+   of one batch from torch.profiler ("not measured" where no trace was
+   whole); (d) the reg_flow1 of phase 7 at record 12's M=50: no kernel,
+   the metrics against the CPU's in the same way, the wall-clock of each
+   split;
 9. timings with CUDA events and the host clock: B2f and B2b as the serving
    and training paths launch them (`EmbedPool.forward` on A and C [D, K],
    `EmbedPool.backward` for A and C only), the standalone `embed_pool_bwd`,
-   B2f at the evaluation shape (S=1, B=64), one shape where the bytes and
-   not the launch set the time (S=2,
-   B=4096), B1 (`fused_posterior_kernel`) and its backward as the step
-   calls it (`FusedPosterior.backward` for the four statistics, through
-   autograd), at [64, 10] and at a diagnostic [4096, 10]; each figure with
-   the number of device operations one call makes, counted by
-   torch.profiler, which must be 1 for each B1 kernel.
+   B2f at the evaluation shape (S=1, B=64), B2f and B2b at the wine
+   `_with_drop` training shape (S=1, B=64, D=13), one shape where the bytes
+   and not the launch set the time (S=2, B=4096), B1
+   (`fused_posterior_kernel`) and its backward as the step calls it
+   (`FusedPosterior.backward` for the four statistics, through autograd),
+   at [64, 10] and at a diagnostic [4096, 10]; each figure with
+   the number of device operations one call makes, counted in a CUDA graph
+   captured from one call, which must be 1 for each B1 kernel.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
-launches per call, error against the plain version, times, bound), then, as
-its last line,
+launches per call, error against the plain version, times, bound; for B2f
+and B2b also their launches on the `_with_drop` run and their times at its
+shape), then, as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 300 s. It writes nothing in the checkout but the kernels' build
@@ -71,6 +84,7 @@ import faulthandler
 
 faulthandler.dump_traceback_later(300, exit=True)
 
+import collections  # noqa: E402
 import contextlib  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
@@ -124,14 +138,24 @@ STEP_GRAD_REL = 1e-4
 #: rtol 1e-4 on values of 1e2-1e3.
 EVAL_RMSE_ATOL = 1e-5
 EVAL_LOSS_RTOL = 1e-4
-#: the wine reg_vae1 evaluation runs record 34's M
+#: the wine reg_vae1 evaluation runs record 34's M, the flow record 12's
 WINE_EVAL_M = 50
+FLOW_EVAL_M = 50
 EVAL_TIMING_RUNS = 5
+#: a marker kernel's busy-wait (clock cycles) around a profiled call, and
+#: the host time (s) that pads the profiler's window on each side
+MARK_CYCLES = 1000
+MARK_PAD_S = 0.02
+#: CUgraphNodeType of the graph nodes that are device operations: a kernel,
+#: a copy, a fill
+GRAPH_OP_NODES = (0, 1, 2)
 REQUEST_ROWS = (1, 8, 64, 179)
 TIMING_RUNS = 100
 MNIST_EPOCHS = 3
 WINE_EPOCHS = 30
 LATENT = 10
+#: the wine records' width (Data/wine: 13 features)
+WINE_D = 13
 
 
 @contextlib.contextmanager
@@ -206,24 +230,82 @@ def fused_posterior_bwd_bound_ms(B, L, eps=False):
     return _bound(4 * ((8 + n_out) * B * L + 3), (46 if eps else 44) * B * L)
 
 
-def device_ops(fn):
+def device_ops(build):
+    """Device operations (kernels, copies, fills) one call puts on the card:
+    the kernel, copy and fill nodes of a CUDA graph captured from one call
+    of the function that `build()` returns. `build` runs on the capturing
+    stream before the capture begins, because autograd runs a backward on
+    the stream of its forward. The count needs no trace: torch.profiler's
+    traces of one-kernel calls on the H100 at times held no device event at
+    all, in one run not in ten tries."""
+    import ctypes
+
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(code, what):
+        if code != 0:
+            raise RuntimeError(f"{what}: CUresult {code}")
+
+    stream = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(stream):
+        fn = build()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    graph.reset()
+    return sum(k in GRAPH_OP_NODES for k in kinds)
+
+
+def traced_ops(fn, want=3, tries=10):
     """Device operations (kernels, copies, fills) one call of `fn` puts on
-    the card, from torch.profiler."""
+    the card, from torch.profiler, for a call that waits on the host and so
+    cannot be captured in a graph: those between two marker kernels
+    (`torch.cuda._sleep`, named spin_kernel) queued just before and just
+    after the call, in a window padded with MARK_PAD_S of host time on each
+    side. A count is read only from a trace that holds both markers, and
+    the largest of the first `want` such counts in at most `tries` traces
+    is returned; None where no trace held both (traces on the H100 at
+    times held no device event at all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     counts = []
-    for _ in range(2):  # the larger of two counts: a trace may drop an event
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(MARK_PAD_S)
+            torch.cuda._sleep(MARK_CYCLES)
             fn()
+            torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
-        counts.append(sum(1 for e in prof.events()
-                          if e.device_type == DeviceType.CUDA
-                          and not getattr(e, "is_user_annotation", False)))
-    return max(counts)
+            time.sleep(MARK_PAD_S)
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)),
+            key=lambda e: e.time_range.start)]
+        marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if len(marks) == 2:
+            counts.append(marks[1] - marks[0] - 1)
+            if len(counts) == want:
+                break
+    return max(counts) if counts else None
 
 
 def max_abs(a, b):
@@ -325,7 +407,7 @@ def main() -> int:
     D, K = 784, 10
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def inputs(S, B, K=K):
+    def inputs(S, B, K=K, D=D):
         x = torch.rand(B, D, device="cuda", generator=gen)
         masks = (torch.rand(S, B, D, device="cuda", generator=gen)
                  < 0.7).float()
@@ -404,6 +486,44 @@ def main() -> int:
                                      "call")
         print("B2f and B2b at S=2, B=64: the same bits on two calls",
               flush=True)
+        # the wine width (D=13) of the EDDI records 25-27 and 37-39: S=1
+        # training a `_with_drop` type, S=2 a regularized one; B=64 a full
+        # batch, B=17 the wine test split's one batch
+        for S, B in [(S, B) for S in (1, 2) for B in (64, 17)]:
+            args = inputs(S, B, D=WINE_D)
+            got = fep.embed_pool(*args)
+            torch.cuda.synchronize()
+            want = fep.embed_pool_reference(*args)
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+            err = max_abs(got, want)
+            max_err["embed_pool_fwd"] = max(max_err["embed_pool_fwd"], err)
+            g = torch.randn(S, B, K, device="cuda", generator=gen)
+            want_b = fep.embed_pool_bwd_reference(*args, g)
+            errs = [f"fwd {err:.3e}"]
+            for dmasks in (True, False):
+                got_b = fep.embed_pool_bwd(*args, g, dmasks=dmasks)
+                torch.cuda.synchronize()
+                for i, name in enumerate(("dx", "dmasks", "dA", "dC")):
+                    if name == "dmasks" and not dmasks:
+                        if got_b[1] is not None:
+                            raise AssertionError("dmasks=False gave dm")
+                        continue
+                    atol = BWD_ATOL_PER_TERM * (B if i >= 2 else K)
+                    torch.testing.assert_close(got_b[i], want_b[i],
+                                               rtol=BWD_RTOL, atol=atol)
+                    e = max_abs(got_b[i], want_b[i])
+                    max_err["embed_pool_bwd"] = max(
+                        max_err["embed_pool_bwd"], e)
+                    errs.append(f"{name}{'' if dmasks else ' (no dm)'} "
+                                f"{e:.3e}")
+            for name, fn in (("B2f", lambda: [fep.embed_pool(*args)]),
+                             ("B2b", lambda: fep.embed_pool_bwd(*args, g))):
+                if not all(torch.equal(u, v) for u, v in zip(fn(), fn())):
+                    raise AssertionError(f"{name} S={S} B={B} D={WINE_D} "
+                                         "gave other bits on a second call")
+            print(f"B2f/B2b S={S} B={B} D={WINE_D} K={K}: max abs diff "
+                  f"{', '.join(errs)}; the same bits on two calls",
+                  flush=True)
         # B1: one launch of one block at every size
         for B, L in [(64, 10), (7, 3), (4096, 10), (1, 1)]:
             args = stats(B, L, strided=B == 64)
@@ -603,18 +723,15 @@ def main() -> int:
 
         return on_step, medians
 
-    train_cfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
-                          missing_rate=30, seed=SEED, epoch=MNIST_EPOCHS,
-                          batch_size=64)
-    with phase("training MNIST reg_EDDI1 / kl_reg (a): first step, card vs "
-               "CPU"):
-        mnist = loaders.data_loader_mnist(str(REPO / "Data"),
-                                          train_cfg.vae_type,
-                                          train_cfg.missing_rate, 64,
-                                          device="cuda")
-        model = get_model(train_cfg)
-        cpu_params = model.init(torch.Generator().manual_seed(SEED),
-                                train_cfg, 784, device="cpu")
+    def first_step_card_vs_cpu(cfg, xb, mb, obs_dim):
+        """The first training step's loss and gradients on the card against
+        the CPU's (plain versions) from the same seeded parameters, batch
+        and recorded noise; returns the card step's launches. A leaf no
+        loss term reaches (the flow decoder's dead logvar head) must get
+        no gradient on either."""
+        model = get_model(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(SEED), cfg,
+                                obs_dim, device="cpu")
         recorded = []
         card_gen_noise = trainer.GeneratorNoise(SEED + 1, "cuda")
 
@@ -626,31 +743,33 @@ def main() -> int:
         def first_step(params, x, m, noise):
             leaves = {k: v.clone().requires_grad_()
                       for k, v in checkpoint.flatten(params).items()}
-            eff, mask_p, eps, eps_z = trainer.draw_step(train_cfg, noise, m,
-                                                        0, 0)
+            eff, mask_p, eps, eps_z = trainer.draw_step(cfg, noise, m, 0, 0)
             loss, _ = model.train_loss(checkpoint.unflatten(leaves), x, eff,
-                                       mask_p, eps, 1.0, train_cfg,
-                                       eps_z=eps_z)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+                                       mask_p, eps, 1.0, cfg, eps_z=eps_z)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
             return loss.detach(), dict(zip(leaves, grads))
 
-        xb, mb = mnist.train.x[:64], mnist.train.mask[:64]
         card_params = {k: v.cuda() for k, v in
                        checkpoint.flatten(cpu_params).items()}
         reset_counts()
         card_loss, card_grads = first_step(checkpoint.unflatten(card_params),
-                                           xb, mb, recording)
+                                           xb.cuda(), mb.cuda(), recording)
         step_counts = counts()
-        if step_counts != {k: 1 for k in step_counts}:
-            raise AssertionError(f"one step launched {step_counts}")
         replay = iter([t.cpu() for t in recorded])
         cpu_loss, cpu_grads = first_step(
             cpu_params, xb.cpu(), mb.cpu(),
             lambda kind, epoch, step, shape: next(replay))
         torch.testing.assert_close(card_loss.cpu(), cpu_loss,
                                    rtol=STEP_LOSS_RTOL, atol=0)
-        worst = 0.0
+        worst, unused = 0.0, 0
         for key, g in cpu_grads.items():
+            if g is None or card_grads[key] is None:
+                if not (g is None and card_grads[key] is None):
+                    raise AssertionError(f"gradient {key}: on one device "
+                                         "only")
+                unused += 1
+                continue
             scale = g.abs().max().item()
             diff = max_abs(card_grads[key].cpu(), g)
             if diff > STEP_GRAD_REL * scale:
@@ -659,10 +778,24 @@ def main() -> int:
                                      f"{scale:.3e}")
             worst = max(worst, diff / scale if scale else 0.0)
         print(f"first step: loss card {card_loss.item():.6f} CPU "
-              f"{cpu_loss.item():.6f}; {len(cpu_grads)} gradient leaves, "
-              f"worst max|diff| / max|leaf| {worst:.3e}; launches "
-              f"{step_counts}",
-              flush=True)
+              f"{cpu_loss.item():.6f}; {len(cpu_grads) - unused} gradient "
+              f"leaves ({unused} unused on both), worst max|diff| / "
+              f"max|leaf| {worst:.3e}; launches {step_counts}", flush=True)
+        return step_counts
+
+    train_cfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
+                          missing_rate=30, seed=SEED, epoch=MNIST_EPOCHS,
+                          batch_size=64)
+    with phase("training MNIST reg_EDDI1 / kl_reg (a): first step, card vs "
+               "CPU"):
+        mnist = loaders.data_loader_mnist(str(REPO / "Data"),
+                                          train_cfg.vae_type,
+                                          train_cfg.missing_rate, 64,
+                                          device="cuda")
+        step_counts = first_step_card_vs_cpu(
+            train_cfg, mnist.train.x[:64], mnist.train.mask[:64], 784)
+        if step_counts != {k: 1 for k in step_counts}:
+            raise AssertionError(f"one step launched {step_counts}")
 
     with tempfile.TemporaryDirectory() as ckpt_root:
         with phase(f"training MNIST reg_EDDI1 / kl_reg (b): {MNIST_EPOCHS} "
@@ -741,6 +874,98 @@ def main() -> int:
         print(f"wine step p50 after the first epoch: {wine_dev_ms:.6f} ms "
               f"(CUDA events), {wine_host_ms:.6f} ms (host clock) [{card}]",
               flush=True)
+
+    flow_cfg = RunConfig(vae_type="reg_flow1", missing_rate=30, seed=SEED,
+                         epoch=WINE_EPOCHS, batch_size=64)
+    no_kernel = {k: 0 for k in ("embed_pool_fwd", "embed_pool_bwd",
+                                "fused_posterior_fwd", "fused_posterior_bwd")}
+    with phase(f"training {flow_cfg.vae_type} / {flow_cfg.reg_type} on "
+               f"{flow_cfg.data_type} (a): first step, card vs CPU"):
+        flow_data = loaders.data_loader(str(REPO / "Data"),
+                                        flow_cfg.vae_type,
+                                        flow_cfg.missing_rate, 64,
+                                        flow_cfg.data_type, device="cuda")
+        step_counts = first_step_card_vs_cpu(
+            flow_cfg, flow_data.train.x[:64], flow_data.train.mask[:64],
+            flow_data.obs_dim)
+        if step_counts != no_kernel:
+            raise AssertionError(f"a flow step launched {step_counts}")
+
+    with phase(f"training {flow_cfg.vae_type} / {flow_cfg.reg_type} on "
+               f"{flow_cfg.data_type} (b): {WINE_EPOCHS} epochs"):
+        on_step, flow_medians = step_timer()
+        flow_steps = -(-flow_data.train.n // 64)
+        reset_counts()
+        t0 = time.perf_counter()
+        with no_plain_on_card():
+            flow_params, flow_hist = trainer.train(
+                flow_data, flow_cfg, save=False, device="cuda",
+                on_step=on_step)
+        flow_s = time.perf_counter() - t0
+        flow_counts = counts()
+        n_steps = WINE_EPOCHS * flow_steps
+        print(f"{flow_data.train.n} rows x {flow_data.obs_dim}, hid_dim "
+              f"{flow_cfg.hid_dim}, {n_steps} steps in {flow_s:.3f} s; "
+              f"launches {flow_counts}", flush=True)
+        if flow_counts != no_kernel:
+            raise AssertionError(f"{n_steps} flow steps launched "
+                                 f"{flow_counts}")
+        means = [h / flow_steps for h in flow_hist]
+        print(f"mean loss, first and last epoch: {means[0]:.6f} -> "
+              f"{means[-1]:.6f}", flush=True)
+        if not (np.isfinite(flow_hist).all() and means[-1] < means[0]):
+            raise AssertionError(f"the flow loss did not fall: {means}")
+        flow_dev_ms, flow_host_ms = flow_medians()
+        print(f"{flow_cfg.vae_type} step p50 after the first epoch: "
+              f"{flow_dev_ms:.6f} ms (CUDA events), {flow_host_ms:.6f} ms "
+              f"(host clock) [{card}]", flush=True)
+
+    drop_cfg = RunConfig(vae_type="vanilla_EDDI1_with_drop", missing_rate=30,
+                         seed=SEED, epoch=WINE_EPOCHS, batch_size=64)
+    with phase(f"training {drop_cfg.vae_type} on {drop_cfg.data_type}: "
+               f"{WINE_EPOCHS} epochs"):
+        drop_data = loaders.data_loader(str(REPO / "Data"),
+                                        drop_cfg.vae_type,
+                                        drop_cfg.missing_rate, 64,
+                                        drop_cfg.data_type, device="cuda")
+        src = trainer.GeneratorNoise(drop_cfg.seed + 1, "cuda")
+        drawn = collections.Counter()
+
+        def drop_noise(kind, epoch, step, shape):
+            t = src(kind, epoch, step, shape)
+            drawn[(kind, t.device.type)] += 1
+            return t
+
+        on_step, drop_medians = step_timer()
+        drop_steps = -(-drop_data.train.n // 64)
+        reset_counts()
+        with no_plain_on_card():
+            _, drop_hist = trainer.train(drop_data, drop_cfg, save=False,
+                                         device="cuda", noise=drop_noise,
+                                         on_step=on_step)
+        drop_counts = counts()
+        n_steps = WINE_EPOCHS * drop_steps
+        print(f"{drop_data.train.n} rows x {drop_data.obs_dim}, {n_steps} "
+              f"steps; launches {drop_counts}; draws {dict(drawn)}",
+              flush=True)
+        if drop_counts != {"embed_pool_fwd": n_steps,
+                           "embed_pool_bwd": n_steps,
+                           "fused_posterior_fwd": 0,
+                           "fused_posterior_bwd": 0}:
+            raise AssertionError(f"{n_steps} steps launched {drop_counts}")
+        if drawn[("drop", "cuda")] != n_steps or any(
+                dev != "cuda" for _, dev in drawn):
+            raise AssertionError(f"the drop mask was not drawn on the card "
+                                 f"once a step: {dict(drawn)}")
+        means = [h / drop_steps for h in drop_hist]
+        print(f"mean loss, first and last epoch: {means[0]:.6f} -> "
+              f"{means[-1]:.6f}", flush=True)
+        if not (np.isfinite(drop_hist).all() and means[-1] < means[0]):
+            raise AssertionError(f"the with_drop loss did not fall: {means}")
+        drop_dev_ms, drop_host_ms = drop_medians()
+        print(f"{drop_cfg.vae_type} step p50 after the first epoch: "
+              f"{drop_dev_ms:.6f} ms (CUDA events), {drop_host_ms:.6f} ms "
+              f"(host clock) [{card}]", flush=True)
 
     def recording_noise(seed):
         """The default eval noise on the card, each draw kept for replay."""
@@ -863,26 +1088,62 @@ def main() -> int:
             one = loaders.Dataset(loaders.Split(ds.train.x[:64],
                                                 ds.train.mask[:64], "train"),
                                   None, ds.obs_dim)
-            n_ops = device_ops(lambda: evaluate.eval_vae(
+            n_ops = traced_ops(lambda: evaluate.eval_vae(
                 one, ecfg.replace(M=1), params=prm, save=False,
                 device="cuda"))
-            print(f"{label}: one split of one batch of 64 rows puts "
-                  f"{n_ops} device operations on the card", flush=True)
+            print(f"{label}: the device operations one split of one batch "
+                  "of 64 rows puts on the card: "
+                  + ("not measured, no trace was whole" if n_ops is None
+                     else str(n_ops)), flush=True)
+
+    flow_eval_cfg = flow_cfg.replace(M=FLOW_EVAL_M)
+    with phase(f"evaluation (d): {flow_cfg.vae_type} of its training phase, "
+               f"M={FLOW_EVAL_M}"):
+        cpu_flow = {k: v.cpu() for k, v in
+                    checkpoint.flatten(flow_params).items()}
+        eval_card_vs_cpu(f"{flow_cfg.vae_type} eval", flow_data,
+                         flow_eval_cfg, flow_params,
+                         checkpoint.unflatten(cpu_flow), no_kernel)
+        secs = split_seconds(flow_data, flow_eval_cfg, flow_params)
+        steps = {sp.stage: -(-sp.n // min(64, sp.n))
+                 for sp in (flow_data.train, flow_data.test)}
+        print(f"{flow_cfg.vae_type} M={FLOW_EVAL_M} eval, median of "
+              f"{EVAL_TIMING_RUNS}, host clock: "
+              + ", ".join(f"{st} {secs[st]:.6f} s ({FLOW_EVAL_M} x "
+                          f"{steps[st]} batches, "
+                          f"{secs[st] / (FLOW_EVAL_M * steps[st]) * 1e3:.6f}"
+                          f" ms a batch)" for st in secs)
+              + f" [{card}]", flush=True)
 
     times = {}
 
-    def timed(label, fn, plain, bound):
+    def timed(label, fn, plain, bound, build=None):
         """Time `fn` and its plain version `plain` (CUDA events), count the
-        device operations of one call of `fn`, print them beside `bound`
-        ((ms, 'bytes' or 'operations')) and return (ms, plain ms, bound ms,
-        bound by, operations a call)."""
+        device operations of one call of `fn` (for a backward, of the one
+        `build()` makes, see device_ops), print them beside `bound` ((ms,
+        'bytes' or 'operations')) and return (ms, plain ms, bound ms, bound
+        by, operations a call)."""
         k_ms = event_ms(fn)
         p_ms = event_ms(plain)
-        n_ops = device_ops(fn)
+        n_ops = device_ops(build or (lambda: fn))
         print(f"{label}: kernel {k_ms:.6f} ms ({n_ops} device operations a "
               f"call), plain {p_ms:.6f} ms, bound {bound[0]:.6f} ms "
               f"({bound[1]}) [{card}]", flush=True)
         return k_ms, p_ms, bound[0], bound[1], n_ops
+
+    def backward_of(forward, sources, cts):
+        """A builder of one call of autograd's backward: it makes leaves of
+        `sources` (detached, so each keeps its strides), runs `forward` on
+        them on the current stream and returns the call that takes their
+        gradients under the cotangents `cts`. Autograd runs a backward on
+        its forward's stream, and hands a leaf its gradient on the stream
+        where the leaf was first used."""
+        def build():
+            leaves = [t.detach().requires_grad_() for t in sources]
+            outs = forward(*leaves)
+            return lambda: torch.autograd.grad(outs, leaves, cts,
+                                               retain_graph=True)
+        return build
 
     with phase("timings"):
         # what one launch of a trivial PyTorch kernel costs on this timing
@@ -926,14 +1187,14 @@ def main() -> int:
                             lambda: fep.embed_pool_reference(x2, m2, A2, C2),
                             embed_pool_bound_ms(S, B, D, K))
             # the step's backward: A and C need a gradient, x and masks not
-            Ar, Cr = A2.clone().requires_grad_(), C2.clone().requires_grad_()
-            agg = fep.embed_pool(x2, m2, Ar, Cr)
+            build = backward_of(lambda A, C: fep.embed_pool(x2, m2, A, C),
+                                (A2, C2), g2)
             bwd = timed(
                 f"B2b EmbedPool.backward S={S} B={B}, dA and dC only ({tag})",
-                lambda: torch.autograd.grad(agg, (Ar, Cr), g2,
-                                            retain_graph=True),
+                build(),
                 lambda: fep.embed_pool_bwd_reference(x2, m2, A2, C2, g2),
-                embed_pool_bwd_bound_ms(S, B, D, K, dx=False, dmasks=False))
+                embed_pool_bwd_bound_ms(S, B, D, K, dx=False, dmasks=False),
+                build=build)
             if B == 64:
                 times["embed_pool_fwd"], times["embed_pool_bwd"] = fwd, bwd
             timed(f"B2b embed_pool_bwd standalone S={S} B={B}, all four "
@@ -941,6 +1202,27 @@ def main() -> int:
                   lambda: fep.embed_pool_bwd(x2, m2, A2, C2, g2),
                   lambda: fep.embed_pool_bwd_reference(x2, m2, A2, C2, g2),
                   embed_pool_bwd_bound_ms(S, B, D, K))
+
+        # B2f and B2b as a `_with_drop` wine step launches them (S=1,
+        # B=64, D=13): the forward, and the backward for A and C only
+        xw, mw, Aw, Cw = inputs(1, 64, D=WINE_D)
+        gw = torch.randn(1, 64, K, device="cuda", generator=gen)
+        with torch.no_grad():
+            times["embed_pool_fwd_wine"] = timed(
+                f"B2f EmbedPool.forward S=1 B=64 D={WINE_D} (wine training)",
+                lambda: fep.embed_pool(xw, mw, Aw, Cw),
+                lambda: fep.embed_pool_reference(xw, mw, Aw, Cw),
+                embed_pool_bound_ms(1, 64, WINE_D, K))
+        build = backward_of(lambda A, C: fep.embed_pool(xw, mw, A, C),
+                            (Aw, Cw), gw)
+        times["embed_pool_bwd_wine"] = timed(
+            f"B2b EmbedPool.backward S=1 B=64 D={WINE_D}, dA and dC only "
+            "(wine training)",
+            build(),
+            lambda: fep.embed_pool_bwd_reference(xw, mw, Aw, Cw, gw),
+            embed_pool_bwd_bound_ms(1, 64, WINE_D, K, dx=False,
+                                    dmasks=False),
+            build=build)
 
         # B1 and its backward as a training step launches them, then at
         # [4096, 10]: the statistics strided (the leaves are detached views,
@@ -955,19 +1237,19 @@ def main() -> int:
                         lambda: fp.fused_posterior_kernel(*st),
                         lambda: fp.fused_posterior_reference(*st),
                         fused_posterior_bound_ms(Bq, L))
-            leaves = [t.detach().requires_grad_() for t in st[:4]]
-            if any(t.stride() != (2 * L, 1) for t in leaves):
+            if any(t.detach().stride() != (2 * L, 1) for t in st[:4]):
                 raise AssertionError("B1 timing: the statistics lost their "
                                      "row stride 2L")
-            outs = fp.FusedPosterior.apply(*leaves, *st[4:])
             cts = b1_cotangents(Bq, L)
+            build = backward_of(
+                lambda *lv: fp.FusedPosterior.apply(*lv, *st[4:]), st[:4],
+                cts)
             bwd = timed(
                 f"B1 FusedPosterior.backward [{Bq},{L}], the four statistics' "
                 f"gradients ({tag})",
-                lambda: torch.autograd.grad(outs, leaves, cts,
-                                            retain_graph=True),
+                build(),
                 lambda: fp.fused_posterior_backward(st, *cts),
-                fused_posterior_bwd_bound_ms(Bq, L))
+                fused_posterior_bwd_bound_ms(Bq, L), build=build)
             if Bq == 64:
                 times["fused_posterior_fwd"] = fwd
                 times["fused_posterior_bwd"] = bwd
@@ -975,6 +1257,15 @@ def main() -> int:
             if times[name][4] != 1:
                 raise AssertionError(f"{name}: {times[name][4]} device "
                                      "operations a call, not 1")
+        # the count sees each operation of a call that makes many: B1's
+        # plain backward, eager PyTorch
+        n_plain = device_ops(
+            lambda: lambda: fp.fused_posterior_backward(st, *cts))
+        print(f"B1 plain backward [{Bq},{L}]: {n_plain} device operations a "
+              "call", flush=True)
+        if n_plain < 2:
+            raise AssertionError(f"the graph count gives B1's plain backward "
+                                 f"{n_plain} device operations")
 
         timed_srv = serve.ImputationServer(params, cfg, 784,
                                            device="cuda").warmup()
@@ -1018,6 +1309,13 @@ def main() -> int:
     e_ms, e_plain, e_bound, _, _ = times["embed_pool_fwd_eval"]
     next(k for k in kernels if k["name"] == "embed_pool_fwd").update(
         eval_ms=e_ms, eval_plain_ms=e_plain, eval_bound_ms=e_bound)
+    # B2f and B2b on the wine vanilla_EDDI1_with_drop run: launches, and
+    # times at its shape (S=1, B=64, D=13)
+    for k in kernels:
+        if k["name"] in ("embed_pool_fwd", "embed_pool_bwd"):
+            w_ms, w_plain, w_bound, _, _ = times[k["name"] + "_wine"]
+            k.update(drop_launches=drop_counts[k["name"]], wine_ms=w_ms,
+                     wine_plain_ms=w_plain, wine_bound_ms=w_bound)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

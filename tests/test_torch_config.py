@@ -182,8 +182,19 @@ def test_get_model_routes_gauss(vae_type, regularized):
     assert model.eval_kind == "vae"
 
 
+@pytest.mark.parametrize("vae_type,regularized", [
+    ("reg_flow1", True), ("reg_flow3", True), ("vanilla_flow2", False)])
+def test_get_model_routes_flow(vae_type, regularized):
+    model = get_model(tcfg.RunConfig(vae_type=vae_type))
+    assert model.name == "flow"
+    assert model.uses_p_branch is regularized
+    assert model.eval_kind == "vae"
+    assert model.encode_sample_logprob is not None
+
+
 @pytest.mark.parametrize("vae_type,slice_name", [
-    ("reg_flow1", "slice 6, the flow"), ("vanilla_flow2", "flow"),
+    ("reg_notMIWAE1", "slice 7, the importance-weighted"),
+    ("MIWAE1", "importance-weighted"),
     ("reg_MIWAE1", "slice 7, the importance-weighted"),
     ("vanilla_notMIWAE1", "importance-weighted")])
 def test_get_model_names_the_slice_of_unported_families(vae_type, slice_name):

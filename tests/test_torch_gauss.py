@@ -127,6 +127,13 @@ def test_math_matches_jax():
         tmath.reparameterize(_t(mean), _t(logvar), eps=_t(eps)).numpy(),
         mean + eps * np.exp(0.5 * logvar), rtol=1e-6, atol=1e-6)
     assert tmath.FIXED_X_LOGVAR == jmath.FIXED_X_LOGVAR
+    zero = np.zeros_like(x)
+    np.testing.assert_array_equal(
+        tmath.std_normal_logpdf(_t(x)).numpy(),
+        tmath.normal_logpdf(_t(x), _t(zero), _t(zero)).numpy())
+    np.testing.assert_allclose(tmath.std_normal_logpdf(_t(x)).numpy(),
+                               jmath.normal_logpdf(x, zero, zero), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_reparameterize_takes_exactly_one_noise_source():

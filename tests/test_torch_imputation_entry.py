@@ -1,9 +1,11 @@
 """The port's entry point, `python -m
 vae_posterior_consistency_tpu_torch.experiment_main.imputation`, on the CPU:
-a one-record grid (record 34, the flagship reg_vae1, cut to 2 epochs) trains,
+a one-record grid (record 34, the flagship reg_vae1, cut to 2 epochs; also
+record 10, reg_flow1, and record 25, vanilla_EDDI1_with_drop) trains,
 saves a checkpoint the JAX package reads, and writes the artifacts under the
 names the JAX package's entry point gives them; a record the port cannot run
-yet fails by name with its slice, and the run exits nonzero."""
+yet (records 1-6, the MIWAE family) fails by name with its slice, and the
+run exits nonzero."""
 
 import json
 import os
@@ -28,7 +30,9 @@ RECORDS = [json.loads(line) for line in
            open(os.path.join(REPO, "Data", "imputation_args.json"))
            if line.strip()]
 #: 1-based record numbers in Data/imputation_args.json
-FLAGSHIP, FLOW, MIWAE, WITH_DROP = 34, 7, 4, 25
+FLAGSHIP, REG_FLOW, MIWAE, WITH_DROP = 34, 10, 4, 25
+#: the records the entry point does not run yet (the MIWAE family, slice 7)
+UNPORTED = list(range(1, 7))
 
 
 def _record(number, **defaults):
@@ -55,9 +59,44 @@ def test_one_record_grid_trains_evaluates_and_saves_what_jax_reads(
     record = _record(FLAGSHIP, epoch=2)
     monkeypatch.chdir(_workdir(tmp_path, [record]))
     assert imputation.main(["-device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert "=== train reg_vae1 (missing=30, alpha=1.0) ===" in out
-    assert "Epoch: [1/2], Total Loss:" in out
+    _check_one_record_run(record, capsys.readouterr().out, ("reg_vae1", 2,
+                                                           50, 30))
+
+
+@pytest.mark.parametrize("number,vae_type", [
+    (REG_FLOW, "reg_flow1"), (WITH_DROP, "vanilla_EDDI1_with_drop")])
+def test_flow_and_drop_records_write_what_jax_reads(
+        tmp_path, monkeypatch, capsys, number, vae_type):
+    """Record 10 (the flow posterior, hid_dim 500) and record 25 (the EDDI
+    drop mask), each cut to 2 epochs and M=2."""
+    record = _record(number, epoch=2, M=2)
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    assert imputation.main(["-device", "cpu"]) == 0
+    _check_one_record_run(record, capsys.readouterr().out, (vae_type, 2, 2,
+                                                           30))
+
+
+def test_the_full_grid_names_exactly_records_1_to_6():
+    not_run = []
+    for number, record in enumerate(RECORDS, start=1):
+        args = imputation.setup_parser(record, "impute_eval").parse_args([])
+        cfg = imputation.RunConfig.from_args(args, alpha=1.0,
+                                             p_missingness=30)
+        reason = imputation.unported(cfg)
+        if reason is not None:
+            assert "slice 7" in reason and cfg.vae_type in reason
+            not_run.append(number)
+    assert not_run == UNPORTED
+    assert len(RECORDS) - len(not_run) == 33
+
+
+def _check_one_record_run(record, out, want_cfg):
+    """The output, checkpoint and artifacts of a one-record grid run in
+    the working directory: the checkpoint at JAX's path, read by JAX's
+    load_trained; JAX's artifact names and nothing else."""
+    vae_type, epochs = want_cfg[:2]
+    assert f"=== train {vae_type} (missing=30, alpha=1.0) ===" in out
+    assert f"Epoch: [1/{epochs}], Total Loss:" in out
     for stage in ("train", "test"):
         line = [ln for ln in out.splitlines()
                 if ln.startswith(f"  [{stage}] ")]
@@ -68,8 +107,7 @@ def test_one_record_grid_trains_evaluates_and_saves_what_jax_reads(
 
     args = jcfg.setup_parser(record, "impute_eval").parse_args([])
     jc = jcfg.RunConfig.from_args(args, alpha=1.0, p_missingness=30)
-    assert (jc.vae_type, jc.epoch, jc.M, jc.missing_rate) == ("reg_vae1", 2,
-                                                              50, 30)
+    assert (jc.vae_type, jc.epoch, jc.M, jc.missing_rate) == want_cfg
     # the checkpoint: at JAX's path, read by JAX's load_trained
     ckpt = jckpt.checkpoint_path(jc, "experiments")
     assert os.path.isfile(ckpt)
@@ -102,9 +140,9 @@ def test_one_record_grid_trains_evaluates_and_saves_what_jax_reads(
 
 
 @pytest.mark.parametrize("number,names", [
-    (FLOW, ("vanilla_flow1", "slice 6")),
+    (1, ("reg_MIWAE1", "slice 7")),
     (MIWAE, ("vanilla_MIWAE1", "slice 7")),
-    (WITH_DROP, ("vanilla_EDDI1_with_drop", "ROADMAP.md A.5"))])
+    (6, ("vanilla_MIWAE3", "slice 7"))])
 def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
         tmp_path, monkeypatch, capsys, number, names):
     monkeypatch.chdir(_workdir(tmp_path, [_record(number, epoch=1)]))
@@ -118,10 +156,10 @@ def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
 
 
 def test_the_module_runs_from_the_command_line(tmp_path):
-    """A flow record beside the flagship, each at 1 epoch: the flagship
-    runs, the flow record is named, the exit code is 1. A flag whose engine
-    is not ported stops the run before it starts."""
-    work = _workdir(tmp_path, [_record(FLOW, epoch=1),
+    """A MIWAE record beside the flagship, each at 1 epoch: the flagship
+    runs, the MIWAE record is named, the exit code is 1. A flag whose
+    engine is not ported stops the run before it starts."""
+    work = _workdir(tmp_path, [_record(MIWAE, epoch=1),
                                _record(FLAGSHIP, epoch=1, M=1)])
     env = dict(os.environ, PYTHONPATH=REPO)
     cmd = [sys.executable, "-m",
@@ -130,9 +168,9 @@ def test_the_module_runs_from_the_command_line(tmp_path):
     proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 1, proc.stderr
-    assert "=== not run: vanilla_flow1" in proc.stdout
+    assert "=== not run: vanilla_MIWAE1" in proc.stdout
     assert "  [test] loss=" in proc.stdout
-    assert "vanilla_flow1 (missing=30, alpha=1.0): vae_type" in proc.stdout
+    assert "vanilla_MIWAE1 (missing=30, alpha=1.0): vae_type" in proc.stdout
     proc = subprocess.run(cmd + ["-seeds", "3"], cwd=work, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 1

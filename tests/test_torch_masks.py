@@ -62,6 +62,9 @@ def test_element_rates_under_a_generator(rate):
 
 
 def test_noise_is_explicit_and_with_drop_waits():
+    """Every mask waits for its uniforms: given or drawn from a generator,
+    exactly one of the two; a `_with_drop` type's two uniforms a cell come
+    as one [2, B, D] tensor."""
     mask = torch.ones(3, 4)
     with pytest.raises(ValueError, match="exactly one"):
         tmasks.sub_mask(mask, 30)
@@ -71,5 +74,57 @@ def test_noise_is_explicit_and_with_drop_waits():
     with pytest.raises(ValueError, match="shape"):
         tmasks.sub_mask(mask, 30, uniforms=torch.rand(4, 3))
     cfg = tcfg.RunConfig(vae_type="vanilla_vae2_with_drop")
-    with pytest.raises(NotImplementedError, match="eddi_drop_mask"):
+    with pytest.raises(ValueError, match="exactly one"):
         tmasks.train_masks(cfg.info, cfg, mask)
+    with pytest.raises(ValueError, match="shape"):
+        tmasks.train_masks(cfg.info, cfg, mask, uniforms=torch.rand(3, 4))
+    eff, mask_p = tmasks.train_masks(cfg.info, cfg, mask,
+                                     uniforms=torch.rand(2, 3, 4))
+    assert eff.shape == mask_p.shape == (3, 4) and torch.all(mask_p == 1.0)
+
+
+@pytest.mark.parametrize("vae_type", ["vanilla_vae1_with_drop",
+                                      "vanilla_EDDI2_with_drop",
+                                      "vanilla_vae3_with_drop_mask_augm"])
+def test_eddi_drop_mask_given_jax_uniforms_equals_jax(vae_type):
+    """Bit for bit: JAX draws temp from uniform(k1) and the keep draw from
+    uniform(k2), (k1, k2) = split(k_mask) (ops/masks.py:38-40); the port
+    takes them as uniforms[0] and uniforms[1]. Ties included: draws at
+    0.99 and beyond, and keep draws exactly at 1 - temp."""
+    jc, tc = jcfg.RunConfig(vae_type=vae_type), tcfg.RunConfig(
+        vae_type=vae_type)
+    rng = np.random.default_rng(7)
+    mask = (rng.random((40, 13)) < 0.7).astype(np.float32)
+    key = jax.random.PRNGKey(21)
+    k1, k2 = jax.random.split(key)
+    u = np.stack([np.asarray(jax.random.uniform(k, mask.shape))
+                  for k in (k1, k2)])
+    want = jmasks.train_masks(jc.info, jc, key, mask)
+    got = tmasks.train_masks(tc.info, tc, torch.from_numpy(mask),
+                             uniforms=torch.from_numpy(u))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        tmasks.eddi_drop_mask(mask.shape, uniforms=torch.from_numpy(u)
+                              ).numpy(),
+        np.asarray(jmasks.eddi_drop_mask(key, mask.shape)))
+    # the ties, through JAX's arithmetic on the same uniforms
+    temp = np.array([0.5, 0.99, 0.995, 0.25, 0.0], np.float32)
+    keep = (np.float32(1.0) - np.minimum(temp, np.float32(0.99))).astype(
+        np.float32)
+    ut = np.stack([temp, keep])
+    want = (jnp.asarray(keep) < 1.0 - jnp.minimum(jnp.asarray(temp), 0.99)
+            ).astype(jnp.float32)
+    got = tmasks.eddi_drop_mask(temp.shape, uniforms=torch.from_numpy(ut))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.any()  # a draw exactly at the keep probability drops
+
+
+def test_drop_mask_rate_under_a_generator():
+    """P(kept) = 1 - E[min(U, 0.99)] = 1 - (0.99**2 / 2 + 0.99 * 0.01)."""
+    gen = torch.Generator().manual_seed(3)
+    drop = tmasks.eddi_drop_mask((400, 250), generator=gen, device="cpu")
+    n = drop.numel()
+    want = 1 - (0.99 ** 2 / 2 + 0.99 * 0.01)
+    assert abs(drop.mean().item() - want) < 5 * np.sqrt(0.25 / n)

@@ -135,11 +135,17 @@ def test_reg_eddi_two_mask_path_matches_jax_live_at_mnist_widths():
 class JaxKeyStream:
     """Replays the JAX trainer's key stream as a port noise source:
     engine/train.py:150-176 (per-epoch fold_in, permutation, per-step
-    fold_in and split into (k_mask, k_model)), then ops/masks.py:28-29 and
-    gauss.py:163, 185, 196, 215."""
+    fold_in and split into (k_mask, k_model)), then the masks from k_mask
+    (ops/masks.py:28-29 for mask_p; :38-40 for the drop mask, two uniforms
+    from split(k_mask)) and the model's noise from k_model, which follows
+    the family: gauss splits it in three, (kq, kp, kz), and draws eps
+    [2, B, L] or [B, L] from kq (gauss.py:163, 185, 196, 215); the flow
+    splits it in two, (kq, kp), and draws [B, L] from each
+    (flow_vae.py:96, nn/flow.py:185)."""
 
-    def __init__(self, k_run):
+    def __init__(self, k_run, flow=False):
         self.k_run = k_run
+        self.flow = flow
 
     def __call__(self, kind, epoch, step, shape):
         kperm, kstep = jax.random.split(jax.random.fold_in(self.k_run, epoch))
@@ -148,6 +154,16 @@ class JaxKeyStream:
         k_mask, k_model = jax.random.split(jax.random.fold_in(kstep, step))
         if kind == "mask_p":
             return _t(jax.random.uniform(k_mask, shape))
+        if kind == "drop":
+            return _t(jnp.stack([jax.random.uniform(k, shape[1:])
+                                 for k in jax.random.split(k_mask)]))
+        if self.flow:
+            assert kind == "eps", kind
+            kq, kp = jax.random.split(k_model)
+            if len(shape) == 2:
+                return _t(jax.random.normal(kq, shape))
+            return _t(jnp.stack([jax.random.normal(k, shape[1:])
+                                 for k in (kq, kp)]))
         kq, _kp, kz = jax.random.split(k_model, 3)
         if kind == "eps":
             return _t(jax.random.normal(kq, shape))
@@ -176,22 +192,22 @@ def _tiny_datasets(n, obs_dim, seed):
 #: move that weight by up to the learning rate per step in either direction.
 #: Bound: 2 * lr * steps on any weight, and at most one weight in a thousand
 #: more than 1e-5 apart.
-@pytest.mark.parametrize("vae_type,reg_type", [("reg_vae1", "kl_reg"),
-                                               ("reg_EDDI1", "ml_reg"),
-                                               ("reg_vae1_mask_augm",
-                                                "kl_reg")])
-def test_train_reproduces_jax_train_under_the_replayed_key_stream(
-        vae_type, reg_type):
+def train_against_jax(vae_type, reg_type="kl_reg", **extra):
+    """JAX `train` and the port's `train` under JaxKeyStream from the same
+    JAX-initialised parameters, on 20 rows of 6 features at batch 8 (3
+    steps an epoch, 4 rows wrap-padded), 2 epochs, held as described
+    above."""
     kw = dict(vae_type=vae_type, reg_type=reg_type, epoch=2, batch_size=8,
-              seed=3)
+              seed=3, **extra)
     jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
-    n, obs_dim = 20, 6  # 3 steps an epoch, 4 rows wrap-padded
+    n, obs_dim = 20, 6
     jds, tds = _tiny_datasets(n, obs_dim, seed=1)
     want_params, want_hist = jtrain.train(jds, jc, save=False)
     k_init, k_run = jax.random.split(jax.random.PRNGKey(jc.seed))
     init = jget_model(jc).init(k_init, jc, obs_dim)
     got_params, got_hist = ttrain.train(
-        tds, tc, save=False, device="cpu", noise=JaxKeyStream(k_run),
+        tds, tc, save=False, device="cpu",
+        noise=JaxKeyStream(k_run, flow="flow" in vae_type),
         params=tckpt.params_from_jax(jckpt._flatten(init), "cpu"))
     assert len(got_hist) == len(want_hist) == 2
     np.testing.assert_allclose(got_hist, want_hist, rtol=1e-4)
@@ -203,6 +219,19 @@ def test_train_reproduces_jax_train_under_the_replayed_key_stream(
         np.abs(got_flat[k].numpy() - want_flat[k]).ravel() for k in got_flat])
     assert diffs.max() <= 2 * ttrain.LEARNING_RATE * steps, diffs.max()
     assert np.mean(diffs > 1e-5) <= 1e-3, np.sort(diffs)[-10:]
+    return got_params
+
+
+@pytest.mark.parametrize("vae_type,reg_type", [
+    ("reg_vae1", "kl_reg"), ("reg_EDDI1", "ml_reg"),
+    ("reg_vae1_mask_augm", "kl_reg"),
+    # the EDDI drop mask: two uniforms a cell from split(k_mask)
+    ("vanilla_vae1_with_drop", "kl_reg"),
+    ("vanilla_EDDI1_with_drop", "kl_reg"),
+    ("vanilla_vae1_with_drop_mask_augm", "kl_reg")])
+def test_train_reproduces_jax_train_under_the_replayed_key_stream(
+        vae_type, reg_type):
+    train_against_jax(vae_type, reg_type)
 
 
 def test_port_checkpoint_loads_in_jax(tmp_path):

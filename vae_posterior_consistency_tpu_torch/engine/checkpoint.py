@@ -7,6 +7,10 @@ the layout the port keeps, so its parameters map leaf for leaf. The
 reference's own state_dicts (`src/experiment_main/train.py:120-131`) name
 torch modules and store Linear weights [out, in]; `convert_state_dict` maps
 them as `tools/convert_reference_checkpoint.py` does for the JAX package.
+
+A list in the parameters (the flow's `actnorm`, one dict a spline layer) is
+keyed by its indices, as JAX's tree paths key it: "actnorm/0/log_scale",
+"actnorm/0/shift", "actnorm/1/log_scale", ...
 """
 
 from __future__ import annotations
@@ -47,20 +51,33 @@ def checkpoint_path(cfg: RunConfig, root: str = "experiments") -> str:
     return os.path.join(base, name)
 
 
-def flatten(params: dict, prefix: str = "") -> dict:
-    """Nested parameter dict -> {"a/b/c": leaf}, the checkpoint key layout."""
+def flatten(params, prefix: str = "") -> dict:
+    """Nested parameters (dicts, lists) -> {"a/b/c": leaf}, the checkpoint
+    key layout; a list's entries are keyed by their indices."""
+    items = (params.items() if isinstance(params, dict)
+             else enumerate(params))
     flat = {}
-    for k, v in params.items():
+    for k, v in items:
         key = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             flat.update(flatten(v, key + "/"))
         else:
             flat[key] = v
     return flat
 
 
+def _lists(node):
+    """Turn every dict keyed exactly "0".."n-1" back into a list."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and sorted(node) == [str(i) for i in range(len(node))]:
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
 def unflatten(flat: dict) -> dict:
-    """{"a/b/c": leaf} -> nested parameter dict (the inverse of `flatten`)."""
+    """{"a/b/c": leaf} -> nested parameters (the inverse of `flatten`)."""
     params: dict = {}
     for key, leaf in flat.items():
         *parents, name = key.split("/")
@@ -68,7 +85,7 @@ def unflatten(flat: dict) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[name] = leaf
-    return params
+    return _lists(params)
 
 
 def params_from_jax(flat: dict, device) -> dict:
@@ -165,6 +182,11 @@ def convert_state_dict(sd, cfg: RunConfig, obs_dim: int) -> dict:
     than the registered `prior_*` constants) and on shapes that differ from
     the model's."""
     model = get_model(cfg)  # raises for families the port does not have
+    if model.name != "gauss":
+        raise NotImplementedError(
+            f"vae_type {cfg.vae_type!r}: reference state_dicts are mapped "
+            "for the gauss family only so far; the converter for every "
+            "family comes with slice 11")
     sd = _TrackedDict(sd)
     params = _convert_gauss(sd, cfg)
     unconsumed = [k for k in sd

@@ -15,11 +15,14 @@ one, eagerly, with every statistic kept on the device and read once a
 split. The ensemble and sharded evaluators come with slices 9 and 10 (the
 entry point refuses their flags), the MIWAE evaluator with slice 7.
 
+It serves the families whose `eval_kind` is 'vae': gauss and flow.
 All noise comes from one source, called as `noise(kind, rep, step, shape)`:
   "perm"  a permutation of range(shape[0]) (int64), once a rep (step 0);
-  "eps"   standard normals [bsz, latent_dim], once a batch.
-The JAX package also draws a fresh `mask_p` each batch, but the gauss
-`eval_step` does not read it, so nothing is drawn for it here; a family
+  "eps"   standard normals [bsz, latent_dim], once a batch: the gauss
+          reparameterisation noise or the flow's base noise, each drawn
+          by JAX as normal(k_model, (bsz, latent_dim)).
+The JAX package also draws a fresh `mask_p` each batch, but neither
+family's `eval_step` reads it, so nothing is drawn for it here; a family
 that reads it adds the draw. The default source is
 `train.GeneratorNoise(cfg.seed + 1, device)`, made anew for each split, as
 the JAX package derives both splits' keys from the same PRNGKey(seed + 1).

@@ -1,10 +1,13 @@
-"""Full-budget statistical parity of the port against the JAX package: the
-flagship `reg_vae1` / `kl_reg` on Data/wine split 1, trained and evaluated
-as `tools/parity_check.py:run_ours` does for the JAX row (3000 epochs,
-batch 64, missing_rate 30, M=2, alpha 1.0, p_missingness 30, seeds 0-3).
+"""Full-budget statistical parity of the port against the JAX package: a
+`vae_type` (the flagship `reg_vae1` by default; also `reg_flow1`,
+`vanilla_flow1`, ...) with `kl_reg` on Data/wine split 1, trained and
+evaluated as `tools/parity_check.py:run_ours` does for the JAX row (3000
+epochs, batch 64, missing_rate 30, M=2, alpha 1.0, p_missingness 30, seeds
+0-3, the other fields at their `RunConfig` defaults).
 
     python -m vae_posterior_consistency_tpu_torch.engine.parity_full_budget \
-        [--epochs 3000] [--seeds 4] [--device cuda] [--out FILE]
+        [--vae_type reg_vae1] [--epochs 3000] [--seeds 4] [--device cuda] \
+        [--out FILE]
 
 Run from the root of a checkout. The JAX row is read as data from
 `tools/parity_full_budget.jsonl` (the record of this configuration; its
@@ -39,24 +42,24 @@ from vae_posterior_consistency_tpu_torch.engine import evaluate, train
 
 REPO = Path(__file__).resolve().parents[2]
 JAX_ROWS = REPO / "tools" / "parity_full_budget.jsonl"
-#: the configuration of the JAX row (tools/parity_check.py:run_ours)
-CONFIG = dict(vae_type="reg_vae1", reg_type="kl_reg", data_type="wine",
-              batch_size=64, missing_rate=30, M=2, alpha=1.0,
-              p_missingness=30)
+#: the configuration of the JAX rows (tools/parity_check.py:run_ours),
+#: all but the vae_type
+CONFIG = dict(reg_type="kl_reg", data_type="wine", batch_size=64,
+              missing_rate=30, M=2, alpha=1.0, p_missingness=30)
 BAND = 0.03
 METRICS = ("rmse", "loss", "negl", "negl_imp")
 
 
-def jax_row() -> dict:
-    """The JAX package's full-budget record of CONFIG."""
+def jax_row(config: dict) -> dict:
+    """The JAX package's full-budget record of `config`."""
     with open(JAX_ROWS) as fh:
         for line in fh:
             rec = json.loads(line)
-            if all(rec.get(k) == CONFIG[k] for k in
+            if all(rec.get(k) == config[k] for k in
                    ("vae_type", "reg_type", "data_type", "batch_size",
                     "missing_rate")):
                 return rec
-    raise LookupError(f"no {CONFIG['vae_type']} / {CONFIG['reg_type']} row "
+    raise LookupError(f"no {config['vae_type']} / {config['reg_type']} row "
                       f"in {JAX_ROWS}")
 
 
@@ -70,9 +73,9 @@ def card_name() -> str:
         return "nvidia-smi not available"
 
 
-def run_seed(seed: int, epochs: int, device) -> dict:
+def run_seed(config: dict, seed: int, epochs: int, device) -> dict:
     """Train and evaluate one seed; its metrics per split and wall-clock."""
-    cfg = RunConfig(**CONFIG, epoch=epochs, seed=seed)
+    cfg = RunConfig(**config, epoch=epochs, seed=seed)
     ds = loaders.data_loader(str(REPO / cfg.data_path), cfg.vae_type,
                              cfg.missing_rate, cfg.batch_size, cfg.data_type,
                              device=device)
@@ -104,6 +107,8 @@ def verdict(port: list, jax_mean: float, jax_std: float):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--vae_type", default="reg_vae1",
+                    help="the JAX row to hold the port against")
     ap.add_argument("--epochs", type=int, default=3000)
     ap.add_argument("--seeds", type=int, default=4)
     ap.add_argument("--device", default="cuda")
@@ -112,16 +117,17 @@ def main(argv=None) -> int:
     device = train.check_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    row = jax_row()
+    config = dict(vae_type=args.vae_type, **CONFIG)
+    row = jax_row(config)
     jax_test = row["report"]["test"]["rmse"]
     card = card_name()
     print(f"{card}; torch {torch.__version__}, device {device}; "
-          f"{CONFIG}, {args.epochs} epochs, seeds 0-{args.seeds - 1}",
+          f"{config}, {args.epochs} epochs, seeds 0-{args.seeds - 1}",
           flush=True)
 
     seeds = []
     for seed in range(args.seeds):
-        r = run_seed(seed, args.epochs, device)
+        r = run_seed(config, seed, args.epochs, device)
         seeds.append(r)
         print(f"seed {seed}: train {r['train_s']:.3f} s, eval "
               f"{r['eval_s']:.3f} s; loss {r['first_epoch_loss']:.6f} -> "
@@ -141,7 +147,7 @@ def main(argv=None) -> int:
           f"{jax_test['ours_mean']:.6f} +- {jax_test['ours_std']:.6f} "
           f"({row['seeds']} seeds); diff {diff:+.6f}, tol {tol:.6f} "
           f"(band {BAND}) -> {word} [{card}]", flush=True)
-    result = {"config": CONFIG, "epochs": args.epochs, "card": card,
+    result = {"config": config, "epochs": args.epochs, "card": card,
               "seeds": seeds, "means": means,
               "test_rmse": {"port_mean": mean, "port_std": std,
                             "jax_mean": jax_test["ours_mean"],

@@ -4,14 +4,17 @@ time and operators by host time, from `torch.profiler` over a window of
 steady-state steps.
 
     python -m vae_posterior_consistency_tpu_torch.engine.profile_train \
-        [--steps 30] [--trace-dir DIR]
+        [--steps 30] [--trace-dir DIR] [--vae_type NAME ...]
 
 Runs two configurations at full width: MNIST `reg_EDDI1` / `kl_reg` (the
 EDDI two-mask path, kernels B1, B2f and B2b) and the flagship wine
 `reg_vae1` / `kl_reg` (dense path, kernel B1), batch 64, from seeded random
-parameters. Each gets 20 warm-up steps, then `--steps` steps timed on the
-host clock between two synchronisations, then the same number of steps
-under the profiler. Needs a CUDA card; `--trace-dir` also writes a Chrome
+parameters. `--vae_type` runs the named types on wine instead, at their
+grid records' settings (missing_rate 30, hid_dim 500, latent 10), for
+instance `reg_flow1` (the flow posterior, no kernel) or
+`vanilla_EDDI1_with_drop` (B2f and B2b at S=1). Each gets 20 warm-up
+steps, then `--steps` steps timed on the host clock between two
+synchronisations, then the same number of steps under the profiler. Needs a CUDA card; `--trace-dir` also writes a Chrome
 trace per configuration.
 """
 
@@ -117,6 +120,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--trace-dir", default="")
     ap.add_argument("--data-path", default="Data")
+    ap.add_argument("--vae_type", nargs="+", default=[],
+                    help="profile these types on wine instead of the two "
+                         "default configurations")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
@@ -127,16 +133,24 @@ def main(argv=None) -> int:
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    mnist_cfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
-                          missing_rate=30)
-    mnist = loaders.data_loader_mnist(args.data_path, mnist_cfg.vae_type,
-                                      mnist_cfg.missing_rate, 64,
-                                      device="cuda")
-    wine_cfg = RunConfig()
-    wine = loaders.data_loader(args.data_path, wine_cfg.vae_type,
-                               wine_cfg.missing_rate, 64, wine_cfg.data_type,
-                               device="cuda")
-    for cfg, data in ((mnist_cfg, mnist), (wine_cfg, wine)):
+    runs = []
+    if args.vae_type:
+        for vae_type in args.vae_type:
+            cfg = RunConfig(vae_type=vae_type, missing_rate=30)
+            runs.append((cfg, loaders.data_loader(
+                args.data_path, cfg.vae_type, cfg.missing_rate, 64,
+                cfg.data_type, device="cuda")))
+    else:
+        mnist_cfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
+                              missing_rate=30)
+        runs.append((mnist_cfg, loaders.data_loader_mnist(
+            args.data_path, mnist_cfg.vae_type, mnist_cfg.missing_rate, 64,
+            device="cuda")))
+        wine_cfg = RunConfig()
+        runs.append((wine_cfg, loaders.data_loader(
+            args.data_path, wine_cfg.vae_type, wine_cfg.missing_rate, 64,
+            wine_cfg.data_type, device="cuda")))
+    for cfg, data in runs:
         out = _run(cfg, data, args.steps, args.trace_dir)
         out["card"] = card
         print(json.dumps(out), flush=True)

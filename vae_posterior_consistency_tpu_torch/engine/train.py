@@ -17,12 +17,17 @@ defaults (betas 0.9/0.999, eps 1e-8) are optax.adam's.
 All noise comes from one source, called as `noise(kind, epoch, step, shape)`
 with `epoch` 0-based and `kind` one of
   "perm"    a permutation of range(shape[0]) (int64), once an epoch (step 0);
-  "mask_p"  uniforms in [0, 1) for the `mask_p` draw (regularized types);
-  "eps"     standard normals, [2, B, L] regularized or [B, L] vanilla;
+  "mask_p"  uniforms in [0, 1) shaped like the batch's mask, for the
+            `mask_p` draw (regularized types);
+  "drop"    uniforms in [0, 1), [2, B, D], for the EDDI drop mask
+            (vanilla `_with_drop` types; ops/masks.eddi_drop_mask);
+  "eps"     standard normals, [2, B, L] regularized or [B, L] vanilla (the
+            gauss reparameterisation noise or the flow's base noise);
   "eps_z"   standard normals [B, L] for `ml_reg`;
-drawn in that order each step. `GeneratorNoise`, the default, draws from a
-`torch.Generator` on the training device; a caller may pass its own source,
-for instance one that replays the JAX package's key stream.
+drawn in that order each step, "mask_p" and "drop" never both.
+`GeneratorNoise`, the default, draws from a `torch.Generator` on the
+training device; a caller may pass its own source, for instance one that
+replays the JAX package's key stream.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ class GeneratorNoise:
         g, dev = self.generator, self.device
         if kind == "perm":
             return torch.randperm(shape[0], generator=g, device=dev)
-        if kind == "mask_p":
+        if kind in ("mask_p", "drop"):
             return torch.rand(shape, generator=g, device=dev)
         if kind in ("eps", "eps_z"):
             return torch.randn(shape, generator=g, device=dev)
@@ -67,12 +72,20 @@ class GeneratorNoise:
 def draw_step(cfg: RunConfig, noise, mask, epoch: int, step: int):
     """The noise of one step and the masks it implies: (eff_mask, mask_p,
     eps, eps_z), eps_z None unless reg_type is 'ml_reg' on a regularized
-    type. The mask dispatch is `ops/masks.train_masks`."""
+    type. The mask dispatch is `ops/masks.train_masks`: a step draws
+    "mask_p" (regularized types) or "drop" (vanilla `_with_drop` types),
+    where the JAX step draws either from its `k_mask`."""
     info = cfg.info
     B = mask.shape[0]
     L = cfg.latent_dim
-    uniforms = (noise("mask_p", epoch, step, tuple(mask.shape)).to(mask.device)
-                if info.regularized else None)
+    if info.regularized:
+        uniforms = noise("mask_p", epoch, step, tuple(mask.shape))
+    elif info.with_drop:
+        uniforms = noise("drop", epoch, step, (2, *mask.shape))
+    else:
+        uniforms = None
+    if uniforms is not None:
+        uniforms = uniforms.to(mask.device)
     eff_mask, mask_p = masks.train_masks(info, cfg, mask, uniforms=uniforms)
     eps = noise("eps", epoch, step, (2, B, L) if info.regularized else (B, L))
     eps_z = (noise("eps_z", epoch, step, (B, L)).to(mask.device)

@@ -18,12 +18,12 @@ split's metrics.
 
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the kernels' plain versions on the CPU. A record
-whose family or training mask the port does not have yet is not run: one
-line names it and the slice that brings it, and the run goes on; the exit
-code is then 1 and the end of the output lists those records. Flags whose
-engine the port lacks (`-mesh`, `-ensemble`, `-seeds` above 1,
-`-checkpoint_every`, `-resume`, `-early_stop`, `-profile`) stop the run
-before it starts, naming their slice.
+whose family the port does not have yet (records 1-6, the MIWAE family) is
+not run: one line names it and the slice that brings it, and the run goes
+on; the exit code is then 1 and the end of the output lists those
+records. Flags whose engine the port lacks (`-mesh`, `-ensemble`, `-seeds`
+above 1, `-checkpoint_every`, `-resume`, `-early_stop`, `-profile`) stop
+the run before it starts, naming their slice.
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ from vae_posterior_consistency_tpu_torch.data import loaders
 from vae_posterior_consistency_tpu_torch.engine import evaluate
 from vae_posterior_consistency_tpu_torch.engine import train as train_engine
 from vae_posterior_consistency_tpu_torch.models import get_model
-from vae_posterior_consistency_tpu_torch.ops import masks
 
 #: the grid, relative to the working directory
 GRID = os.path.join("Data", "imputation_args.json")
@@ -62,7 +61,6 @@ def unported(cfg: RunConfig) -> Optional[str]:
     """Why the port cannot run `cfg` yet (naming the slice), or None."""
     try:
         get_model(cfg)
-        masks.check_ported(cfg.info)
     except NotImplementedError as exc:
         return str(exc)
     return None
@@ -131,8 +129,8 @@ def main(argv=None) -> int:
     print(f"Device: {device} ({name})", flush=True)
     not_run = run_grid(records, probe, argv)
     if not_run:
-        print(f"{len(not_run)} run(s) not made, their family or training "
-              "mask not ported yet:", flush=True)
+        print(f"{len(not_run)} run(s) not made, their family not ported "
+              "yet:", flush=True)
         for vae_type, missing, alpha, reason in not_run:
             print(f"  {vae_type} (missing={missing}, alpha={alpha}): "
                   f"{reason}", flush=True)

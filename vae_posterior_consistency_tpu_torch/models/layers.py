@@ -1,12 +1,15 @@
-"""Encoder/decoder building blocks of the gauss family (port of the JAX
-package's `models/layers.py`, the dense, PointNet and sigmoid-decoder parts).
+"""Encoder/decoder building blocks of the gauss and flow families (port of
+the JAX package's `models/layers.py`, the dense, PointNet, flow-context,
+sigmoid-decoder and flow-decoder parts).
 
-Encoders return (mean, logvar):
+Gauss encoders return (mean, logvar):
 - dense       — MLP on x*mask          (reference: src/models/VAE.py:366-372)
 - dense_mask  — MLP on [x*mask, mask]  (reference: src/models/VAE.py:526-532)
 - pointnet    — EDDI per-feature embed + masked sum-pool + trunk
                                        (reference: src/models/VAE.py:687-741)
 The sigmoid decoder has a fixed observation logvar (models/gauss.decode).
+The flow's context encoder returns the spline conditioning context; its
+decoder (x_mean, x_logvar) with the logvar fixed at FLOW_OBS_LOGVAR.
 """
 
 from __future__ import annotations
@@ -101,6 +104,19 @@ def pointnet_encoder_apply_2masks(params, x, mask_q, mask_p):
     return mean, logvar
 
 
+def flow_context_encoder_init(generator, obs_dim, hid_dim, context_dim=100,
+                              device="cuda"):
+    return core.mlp_init(generator, [2 * obs_dim, hid_dim, hid_dim,
+                                     context_dim], device)
+
+
+def flow_context_encoder_apply(params, x, mask):
+    """ELU trunk over [x*mask, mask] -> spline conditioning context
+    (reference: src/models/VAE.py:1882-1890, 1924-1926)."""
+    return core.mlp_apply(params, torch.cat([x * mask, mask], dim=-1),
+                          hidden_act="elu")
+
+
 def sigmoid_decoder_init(generator, obs_dim, latent_dim, widths=(50, 100),
                          device="cuda"):
     """`widths=(200,500,500)` for the MNIST variant (reference: VAE.py:41-44)."""
@@ -109,3 +125,27 @@ def sigmoid_decoder_init(generator, obs_dim, latent_dim, widths=(50, 100),
 
 def sigmoid_decoder_apply(params, z):
     return core.mlp_apply(params, z, hidden_act="relu", final_act="sigmoid")
+
+
+def flow_decoder_init(generator, obs_dim, latent_dim, hid_dim, device="cuda"):
+    return {
+        "trunk": core.mlp_init(generator, [latent_dim, hid_dim, hid_dim,
+                                           hid_dim, hid_dim], device),
+        "mean": core.mlp_init(generator, [hid_dim, obs_dim], device),
+        "logvar": core.mlp_init(generator, [hid_dim, obs_dim], device),
+    }
+
+
+#: fixed flow-decoder observation logvar (reference: src/models/VAE.py:1874)
+FLOW_OBS_LOGVAR = -8.0
+
+
+def flow_decoder_apply(params, z):
+    """(x_mean, x_logvar): an ELU trunk and a sigmoid mean head; the logvar
+    is FLOW_OBS_LOGVAR in every cell, as the reference runs it. The logvar
+    head, whose output that constant replaces, is not computed: its
+    parameters stay in the model (and the checkpoint) and get no gradient,
+    as in the JAX package."""
+    h = core.mlp_apply(params["trunk"], z, hidden_act="elu", final_act="elu")
+    x_mean = torch.sigmoid(core.dense(params["mean"]["layer0"], h))
+    return x_mean, torch.full_like(x_mean, FLOW_OBS_LOGVAR)

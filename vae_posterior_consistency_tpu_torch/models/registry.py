@@ -1,15 +1,16 @@
 """vae_type -> model implementation dispatch (port of the JAX package's
-`models/registry.py`). The port has the gauss family so far; every other
-family raises NotImplementedError naming the slice that brings it.
+`models/registry.py`). The port has the gauss and flow families so far;
+every other family raises NotImplementedError naming the slice that brings
+it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from vae_posterior_consistency_tpu_torch.config import RunConfig, parse_vae_type
-from vae_posterior_consistency_tpu_torch.models import gauss
+from vae_posterior_consistency_tpu_torch.models import flow_vae, gauss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +26,15 @@ class ModelDef:
     #: 'vae' (rmse, loss, negl, negl_imp) | 'miwae' (rmse only, valid_k
     #: importance samples; comes with the importance-weighted slice)
     eval_kind: str = "vae"
+    #: flow-posterior log-prob hook of the ratio-version AL reward
+    #: (reference: src/experiment_main/evaluate.py:637-708):
+    #: (params, x, mask, eps, cfg) -> [B, L]
+    encode_sample_logprob: Optional[Callable] = None
+
+
+def _flow_sample_logprob(params, x, mask, eps, cfg):
+    _, log_prob = flow_vae.encode(params, x, mask, eps, cfg)
+    return log_prob
 
 
 _GAUSS = ModelDef(
@@ -35,7 +45,18 @@ _GAUSS = ModelDef(
     uses_p_branch=True,  # refined per vae_type in get_model
 )
 
+_FLOW = ModelDef(
+    name="flow",
+    init=flow_vae.init,
+    train_loss=flow_vae.train_loss,
+    eval_step=flow_vae.eval_step,
+    uses_p_branch=True,  # refined per vae_type in get_model
+    encode_sample_logprob=_flow_sample_logprob,
+)
+
 _FAMILY_TO_DEF = {
+    "vanilla_flow": _FLOW,
+    "reg_flow": _FLOW,
     "reg_vae": _GAUSS,
     "reg_EDDI": _GAUSS,
     "vanilla_vae": _GAUSS,
@@ -44,8 +65,6 @@ _FAMILY_TO_DEF = {
 
 #: families not ported yet -> the slice (ROADMAP.md queue A) that ports them
 _LATER = {
-    "vanilla_flow": "slice 6, the flow slice",
-    "reg_flow": "slice 6, the flow slice",
     "reg_notMIWAE": "slice 7, the importance-weighted slice",
     "vanilla_notMIWAE": "slice 7, the importance-weighted slice",
     "reg_MIWAE": "slice 7, the importance-weighted slice",

@@ -1,12 +1,14 @@
 """Missingness masks for training (port of the JAX package's `ops/masks.py`,
-the MCAR part).
+the MCAR and EDDI drop-mask parts).
 
-Semantics (reference: src/utils/utils.py:36-39, src/experiment_main/
-train.py:31-58): a cell is observed (1.0) when its uniform draw u satisfies
-u < 1 - rate/100, with the threshold computed in float32 as the JAX package
-computes it. The uniforms are explicit: each function takes them as a tensor
-(`uniforms`) or draws them from a `torch.Generator` (`generator`), exactly
-one of the two, so a test can hand in the very uniforms JAX drew.
+Semantics (reference: src/utils/utils.py:36-45, src/experiment_main/
+train.py:31-58): an MCAR cell is observed (1.0) when its uniform draw u
+satisfies u < 1 - rate/100, with the threshold computed in float32 as the
+JAX package computes it; an EDDI drop-mask cell is kept when its second
+uniform u2 satisfies u2 < 1 - min(u1, 0.99), u1 its first. The uniforms are
+explicit: each function takes them as a tensor (`uniforms`) or draws them
+from a `torch.Generator` (`generator`), exactly one of the two, so a test
+can hand in the very uniforms JAX drew.
 """
 
 from __future__ import annotations
@@ -43,6 +45,17 @@ def mcar_mask(shape, missing_rate, *, uniforms=None, generator=None,
     return (u < _keep_threshold(missing_rate)).to(torch.float32)
 
 
+def eddi_drop_mask(shape, *, uniforms=None, generator=None,
+                   device="cuda") -> torch.Tensor:
+    """EDDI training dropout mask, float32, 1.0 = kept: each cell is kept
+    with probability 1 - min(U(0,1), 0.99), two uniforms a cell
+    (reference: src/utils/utils.py:42-45). `uniforms` is [2, *shape]: row 0
+    the draw of the keep probability, row 1 the keep draw."""
+    u = _uniforms((2, *shape), device, uniforms, generator)
+    temp = torch.clamp(u[0], max=0.99)
+    return (u[1] < 1.0 - temp).to(torch.float32)
+
+
 def sub_mask(mask, p_missingness, *, uniforms=None, generator=None):
     """The posterior-consistency `mask_p`: `mask` impoverished by an extra
     MCAR draw, mask * Bernoulli(1 - p_missingness/100)
@@ -54,21 +67,16 @@ def sub_mask(mask, p_missingness, *, uniforms=None, generator=None):
 def train_masks(info, cfg, mask, *, uniforms=None, generator=None):
     """The reference's per-batch training-mask dispatch
     (src/experiment_main/train.py:31-58), returning (eff_mask, mask_p):
-      reg families:  mask_p = MCAR(p_missingness) * mask, eff = mask
-      plain vanilla: eff = mask, mask_p = ones (no uniforms are read)
-    `_with_drop` types need the EDDI dropout mask, which comes later."""
+      reg families:      mask_p = MCAR(p_missingness) * mask, eff = mask
+                         (uniforms shaped like `mask`)
+      with_drop vanilla: eff = mask * eddi_drop_mask, mask_p = ones
+                         (uniforms [2, *mask.shape])
+      plain vanilla:     eff = mask, mask_p = ones (no uniforms are read)"""
     if info.regularized:
         return mask, sub_mask(mask, cfg.p_missingness, uniforms=uniforms,
                               generator=generator)
-    check_ported(info)
+    if info.with_drop:
+        drop = eddi_drop_mask(tuple(mask.shape), uniforms=uniforms,
+                              generator=generator, device=mask.device)
+        return mask * drop, torch.ones_like(mask)
     return mask, torch.ones_like(mask)
-
-
-def check_ported(info) -> None:
-    """Raise NotImplementedError for a vanilla `_with_drop` type, whose
-    training mask (`eddi_drop_mask`) the port does not have yet."""
-    if info.with_drop and not info.regularized:
-        raise NotImplementedError(
-            f"vae_type {info.raw!r}: the `_with_drop` training mask "
-            "(eddi_drop_mask) is not ported yet; it comes with the EDDI "
-            "drop-mask item (ROADMAP.md A.5)")

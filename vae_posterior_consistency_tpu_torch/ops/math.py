@@ -28,6 +28,12 @@ def normal_logpdf(x, mean, logvar):
             - _LOG_SQRT_2PI)
 
 
+def std_normal_logpdf(z):
+    """Element-wise log N(z; 0, I): `normal_logpdf(z, 0, 0)` without the
+    zero terms, to the same bits."""
+    return -0.5 * torch.square(z) - _LOG_SQRT_2PI
+
+
 def gaussian_log_likelihood(targets, mean, logvar, dim=None):
     """Sum of element-wise Gaussian log-probs (reference: VAE.py:183-185)."""
     return _sum(normal_logpdf(targets, mean, logvar), dim)
