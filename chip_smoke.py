@@ -43,7 +43,13 @@ Run from the root of a checkout. It drives only the port
    parameters, batch and recorded noise, then 30 epochs, no kernel
    launched; (c) vanilla_EDDI1_with_drop (missing_rate 30): the EDDI drop
    mask drawn on the card once a step, B2f and B2b each launched once a
-   step at S=1, D=13, B1 never;
+   step at S=1, D=13, B1 never; (d) the importance-weighted record 1,
+   reg_MIWAE1 / kl_reg, at its widths (encoder 13-128-128-20, Student-t
+   decoder 10-128-128-39) and train_k=20: its first step's loss and
+   gradients on the card against the CPU, then 30 epochs, no kernel
+   launched; (e) the first steps of notMIWAE, card against CPU:
+   vanilla_notMIWAE1 ('changed' and 'author') and reg_notMIWAE1 ('v2',
+   'both_s', 'sampled_mask');
 8. evaluation, engine/evaluate.eval_vae over both splits: (a) the MNIST
    reg_EDDI1 checkpoint in the repo at full width, M=1, batch 64 (26 train
    and 3 test batches, the last 51 rows padded to 64): B2f launched once a
@@ -57,7 +63,12 @@ Run from the root of a checkout. It drives only the port
    of one batch from torch.profiler ("not measured" where no trace was
    whole); (d) the reg_flow1 of phase 7 at record 12's M=50: no kernel,
    the metrics against the CPU's in the same way, the wall-clock of each
-   split;
+   split; (e) the reg_MIWAE1 of phase 7 (d) at record 1's valid_k=5000
+   importance samples and M=1: no kernel, the metrics on the 17-row test
+   split against the CPU's in the same way, the wall-clock of each split,
+   the peak device memory of the train split's evaluation, and the device's
+   busy share and top operations over one batch of 64 rows under
+   torch.profiler ("not measured" where the trace holds no device event);
 9. timings with CUDA events and the host clock: B2f and B2b as the serving
    and training paths launch them (`EmbedPool.forward` on A and C [D, K],
    `EmbedPool.backward` for A and C only), the standalone `embed_pool_bwd`,
@@ -341,7 +352,10 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    from vae_posterior_consistency_tpu_torch.config import RunConfig
+    from vae_posterior_consistency_tpu_torch.config import (
+        RunConfig,
+        iter_jsonl_configs,
+    )
     from vae_posterior_consistency_tpu_torch.data import loaders
     from vae_posterior_consistency_tpu_torch.engine import (
         artifacts,
@@ -349,6 +363,7 @@ def main() -> int:
         evaluate,
         serve,
     )
+    from vae_posterior_consistency_tpu_torch.engine import profile_train
     from vae_posterior_consistency_tpu_torch.engine import train as trainer
     from vae_posterior_consistency_tpu_torch.models import get_model, layers
     from vae_posterior_consistency_tpu_torch.ops import _build
@@ -743,9 +758,9 @@ def main() -> int:
         def first_step(params, x, m, noise):
             leaves = {k: v.clone().requires_grad_()
                       for k, v in checkpoint.flatten(params).items()}
-            eff, mask_p, eps, eps_z = trainer.draw_step(cfg, noise, m, 0, 0)
+            eff, mask_p, eps, extra = trainer.draw_step(cfg, noise, m, 0, 0)
             loss, _ = model.train_loss(checkpoint.unflatten(leaves), x, eff,
-                                       mask_p, eps, 1.0, cfg, eps_z=eps_z)
+                                       mask_p, eps, 1.0, cfg, **extra)
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
             return loss.detach(), dict(zip(leaves, grads))
@@ -967,6 +982,71 @@ def main() -> int:
               f"{drop_dev_ms:.6f} ms (CUDA events), {drop_host_ms:.6f} ms "
               f"(host clock) [{card}]", flush=True)
 
+    records = list(iter_jsonl_configs(str(REPO / "Data"
+                                          / "imputation_args.json")))
+    # record 1 as the entry point runs it (alpha 1.0, p_missingness 30)
+    miwae_cfg = RunConfig.from_jsonl_record(records[0], seed=SEED,
+                                            epoch=WINE_EPOCHS, alpha=1.0,
+                                            p_missingness=30)
+    if (miwae_cfg.vae_type, miwae_cfg.train_k, miwae_cfg.valid_k,
+            miwae_cfg.M) != ("reg_MIWAE1", 20, 5000, 1):
+        raise AssertionError(f"record 1 is not reg_MIWAE1 at train_k 20, "
+                             f"valid_k 5000, M=1: {miwae_cfg}")
+    with phase(f"training {miwae_cfg.vae_type} / {miwae_cfg.reg_type} on "
+               f"{miwae_cfg.data_type} (d): first step, card vs CPU, "
+               f"train_k={miwae_cfg.train_k}"):
+        miwae_data = loaders.data_loader(str(REPO / "Data"),
+                                         miwae_cfg.vae_type,
+                                         miwae_cfg.missing_rate, 64,
+                                         miwae_cfg.data_type, device="cuda")
+        xb, mb = miwae_data.train.x[:64], miwae_data.train.mask[:64]
+        step_counts = first_step_card_vs_cpu(miwae_cfg, xb, mb,
+                                             miwae_data.obs_dim)
+        if step_counts != no_kernel:
+            raise AssertionError(f"a MIWAE step launched {step_counts}")
+
+    with phase(f"training {miwae_cfg.vae_type} / {miwae_cfg.reg_type} on "
+               f"{miwae_cfg.data_type} (d): {WINE_EPOCHS} epochs"):
+        on_step, miwae_medians = step_timer()
+        miwae_steps = -(-miwae_data.train.n // 64)
+        reset_counts()
+        with no_plain_on_card():
+            miwae_params, miwae_hist = trainer.train(
+                miwae_data, miwae_cfg, save=False, device="cuda",
+                on_step=on_step)
+        miwae_counts = counts()
+        n_steps = WINE_EPOCHS * miwae_steps
+        print(f"{miwae_data.train.n} rows x {miwae_data.obs_dim}, "
+              f"missing_rate {miwae_cfg.missing_rate}, {n_steps} steps; "
+              f"launches {miwae_counts}", flush=True)
+        if miwae_counts != no_kernel:
+            raise AssertionError(f"{n_steps} MIWAE steps launched "
+                                 f"{miwae_counts}")
+        means = [h / miwae_steps for h in miwae_hist]
+        print(f"mean loss, first and last epoch: {means[0]:.6f} -> "
+              f"{means[-1]:.6f}", flush=True)
+        if not (np.isfinite(miwae_hist).all() and means[-1] < means[0]):
+            raise AssertionError(f"the MIWAE loss did not fall: {means}")
+        miwae_dev_ms, miwae_host_ms = miwae_medians()
+        print(f"{miwae_cfg.vae_type} step p50 after the first epoch: "
+              f"{miwae_dev_ms:.6f} ms (CUDA events), {miwae_host_ms:.6f} ms "
+              f"(host clock) [{card}]", flush=True)
+
+    with phase("training notMIWAE (e): first steps, card vs CPU"):
+        for vae_type, variant in (
+                ("vanilla_notMIWAE1", {"not_miwae_type": "changed"}),
+                ("vanilla_notMIWAE1", {"not_miwae_type": "author"}),
+                ("reg_notMIWAE1", {"reg_notmiwae_variant": "v2"}),
+                ("reg_notMIWAE1", {"reg_notmiwae_variant": "both_s"}),
+                ("reg_notMIWAE1", {"reg_notmiwae_variant": "sampled_mask"})):
+            print(f"{vae_type} {variant}:", flush=True)
+            step_counts = first_step_card_vs_cpu(
+                miwae_cfg.replace(vae_type=vae_type, **variant), xb, mb,
+                miwae_data.obs_dim)
+            if step_counts != no_kernel:
+                raise AssertionError(f"a notMIWAE step launched "
+                                     f"{step_counts}")
+
     def recording_noise(seed):
         """The default eval noise on the card, each draw kept for replay."""
         src, kept = trainer.GeneratorNoise(seed, "cuda"), []
@@ -1114,6 +1194,74 @@ def main() -> int:
                           f"{secs[st] / (FLOW_EVAL_M * steps[st]) * 1e3:.6f}"
                           f" ms a batch)" for st in secs)
               + f" [{card}]", flush=True)
+
+    # reg_MIWAE1's evaluation at valid_k=5000 on the card against the CPU.
+    # Its loss, negl and negl_imp are one row value, at alpha 1 KL_reg +
+    # nb_p - reg_like: two logsumexps over 5000 weights and a mean over 5000
+    # samples of sums over 13 cells. A weight sums 13 Student-t
+    # log-densities (an lgamma that CUDA and the CPU round an ulp or two
+    # apart) and two 10-term Gaussian sums, after 128-term dot products
+    # that cuBLAS and the CPU accumulate in other orders: about 1e-6 of its
+    # size. A logsumexp keeps the relative error of its largest weights and
+    # the mean over 5000 samples averages it, so EVAL_LOSS_RTOL (1e-4)
+    # holds; the RMSE weighs the x_means by a softmax of the same weights:
+    # EVAL_RMSE_ATOL (1e-5).
+    with phase(f"evaluation (e): {miwae_cfg.vae_type} of phase 7 (d), "
+               f"valid_k={miwae_cfg.valid_k}, M={miwae_cfg.M}"):
+        cpu_miwae = checkpoint.unflatten(
+            {k: v.cpu() for k, v in checkpoint.flatten(miwae_params).items()})
+        test_only = loaders.Dataset(None, miwae_data.test, miwae_data.obs_dim)
+        eval_card_vs_cpu(f"{miwae_cfg.vae_type} eval, the test split",
+                         test_only, miwae_cfg, miwae_params, cpu_miwae,
+                         no_kernel)
+        secs = split_seconds(miwae_data, miwae_cfg, miwae_params)
+        steps = {sp.stage: -(-sp.n // min(64, sp.n))
+                 for sp in (miwae_data.train, miwae_data.test)}
+        print(f"{miwae_cfg.vae_type} valid_k={miwae_cfg.valid_k} eval, "
+              f"median of {EVAL_TIMING_RUNS}, host clock: "
+              + ", ".join(f"{st} {secs[st]:.6f} s ({miwae_cfg.M} x "
+                          f"{steps[st]} batches, "
+                          f"{secs[st] / (miwae_cfg.M * steps[st]) * 1e3:.6f}"
+                          f" ms a batch)" for st in secs)
+              + f" [{card}]", flush=True)
+        train_only = loaders.Dataset(miwae_data.train, None,
+                                     miwae_data.obs_dim)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        evaluate.eval_vae(train_only, miwae_cfg, params=miwae_params,
+                          save=False, device="cuda")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{miwae_cfg.vae_type} valid_k={miwae_cfg.valid_k} eval of the "
+              f"train split: peak device memory {peak / 2**20:.3f} MiB "
+              f"({(peak - base) / 2**20:.3f} MiB above the "
+              f"{base / 2**20:.3f} MiB held before) [{card}]", flush=True)
+        one = loaders.Dataset(loaders.Split(miwae_data.train.x[:64],
+                                            miwae_data.train.mask[:64],
+                                            "train"), None, miwae_data.obs_dim)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            evaluate.eval_vae(one, miwae_cfg, params=miwae_params,
+                              save=False, device="cuda")
+            torch.cuda.synchronize()
+            batch_ms = (time.perf_counter() - t0) * 1e3
+        on_card = profile_train.device_events(prof)
+        if on_card:
+            busy = profile_train.busy_ms(on_card)
+            top = profile_train.top_device_ms(on_card).most_common(8)
+            print(f"one batch of 64 rows x {miwae_cfg.valid_k} samples: "
+                  f"{batch_ms:.6f} ms (host clock), device busy {busy:.6f} "
+                  f"ms ({busy / batch_ms:.1%}), {len(on_card)} device "
+                  f"operations; top device ms: "
+                  + "; ".join(f"{n} {t:.6f}" for n, t in top)
+                  + f" [{card}]", flush=True)
+        else:
+            print(f"one batch of 64 rows x {miwae_cfg.valid_k} samples: "
+                  f"{batch_ms:.6f} ms (host clock); device busy share not "
+                  "measured, the trace held no device event", flush=True)
 
     times = {}
 

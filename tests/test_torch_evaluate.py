@@ -25,6 +25,7 @@ from vae_posterior_consistency_tpu_torch.engine import artifacts as tart
 from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
 from vae_posterior_consistency_tpu_torch.engine import evaluate as teval
 from vae_posterior_consistency_tpu_torch.engine import inference as tinf
+from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as tfep
 
 #: the port's eval against JAX's under the same key stream: the same float32
@@ -40,21 +41,36 @@ def _t(a):
 
 class JaxEvalKeys:
     """Replays the JAX evaluator's key stream as a port noise source
-    (engine/evaluate.py:95-113, 201-203, then gauss.forward's
-    reparameterize): keys[m] = fold_in(key, m), split into (kperm, kbatch);
-    the batch key fold_in(kbatch, s), split into (k_maskp, k_model); eps =
-    normal(k_model)."""
+    (engine/evaluate.py:95-113, 201-203): keys[m] = fold_in(key, m), split
+    into (kperm, kbatch); the batch key fold_in(kbatch, s), split into
+    (k_maskp, k_model); the batch's mask_p uniforms from k_maskp
+    (ops/masks.sub_mask); eps from k_model, which follows the family of
+    `cfg`: normal(k_model) for gauss (its forward's reparameterize) and the
+    flow (nn/flow.py:185); MIWAE splits it into (kq, kp) and draws
+    [B, K, L] from kq, and from kp for a regularized type's p branch
+    (miwae.py:137, 61-69); notMIWAE draws from kq alone (notmiwae.py:191).
+    Without `cfg`, the gauss and flow stream."""
 
-    def __init__(self, key):
+    def __init__(self, key, cfg=None):
         self.key = key
+        self.family = "gauss" if cfg is None else get_model(cfg).name
+        self.regularized = cfg is not None and cfg.info.regularized
 
     def __call__(self, kind, rep, step, shape):
         kperm, kbatch = jax.random.split(jax.random.fold_in(self.key, rep))
         if kind == "perm":
             return _t(jax.random.permutation(kperm, shape[0])).long()
+        k_maskp, k_model = jax.random.split(jax.random.fold_in(kbatch, step))
+        if kind == "mask_p":
+            return _t(jax.random.uniform(k_maskp, shape))
         assert kind == "eps", kind
-        _k_maskp, k_model = jax.random.split(jax.random.fold_in(kbatch, step))
-        return _t(jax.random.normal(k_model, shape))
+        if self.family in ("gauss", "flow"):
+            return _t(jax.random.normal(k_model, shape))
+        kq, kp = jax.random.split(k_model)
+        if self.family == "miwae" and self.regularized:
+            return _t(jnp.stack([jax.random.normal(k, shape[1:])
+                                 for k in (kq, kp)]))
+        return _t(jax.random.normal(kq, shape))
 
 
 def _datasets(x_tr, m_tr, x_te, m_te):

@@ -1,10 +1,11 @@
 """The port's entry point, `python -m
 vae_posterior_consistency_tpu_torch.experiment_main.imputation`, on the CPU:
 a one-record grid (record 34, the flagship reg_vae1, cut to 2 epochs; also
-record 10, reg_flow1, and record 25, vanilla_EDDI1_with_drop) trains,
-saves a checkpoint the JAX package reads, and writes the artifacts under the
-names the JAX package's entry point gives them; a record the port cannot run
-yet (records 1-6, the MIWAE family) fails by name with its slice, and the
+record 10, reg_flow1, record 25, vanilla_EDDI1_with_drop, and the MIWAE
+records 1, 4 and 6) trains, saves a checkpoint the JAX package reads, and
+writes the artifacts under the names the JAX package's entry point gives
+them; the full grid names no record; a record the port cannot run yet (one
+asking for compute_dtype 'bfloat16') fails by name with its slice, and the
 run exits nonzero."""
 
 import json
@@ -24,6 +25,7 @@ from vae_posterior_consistency_tpu.engine import checkpoint as jckpt
 from vae_posterior_consistency_tpu.engine import train as jtrain
 from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
 from vae_posterior_consistency_tpu_torch.experiment_main import imputation
+from vae_posterior_consistency_tpu_torch.models import get_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECORDS = [json.loads(line) for line in
@@ -31,13 +33,16 @@ RECORDS = [json.loads(line) for line in
            if line.strip()]
 #: 1-based record numbers in Data/imputation_args.json
 FLAGSHIP, REG_FLOW, MIWAE, WITH_DROP = 34, 10, 4, 25
-#: the records the entry point does not run yet (the MIWAE family, slice 7)
-UNPORTED = list(range(1, 7))
+#: the records of the MIWAE family, whose evaluator writes the rmse only
+MIWAE_RECORDS = list(range(1, 7))
 
 
 def _record(number, **defaults):
+    """A copy of grid record `number` with the given defaults; a field the
+    record lacks is added."""
     record = json.loads(json.dumps(RECORDS[number - 1]))
     for key, value in defaults.items():
+        record.setdefault(key, {"type": type(value).__name__, "help": ""})
         record[key]["default"] = value
     return record
 
@@ -77,17 +82,36 @@ def test_flow_and_drop_records_write_what_jax_reads(
 
 
 def test_the_full_grid_names_exactly_records_1_to_6():
-    not_run = []
+    """Records 1-6 (the MIWAE family) were the ones named as not ported;
+    now the full grid names none and runs all 39, and exactly records 1-6
+    evaluate through the MIWAE evaluator."""
+    not_run, miwae = [], []
     for number, record in enumerate(RECORDS, start=1):
         args = imputation.setup_parser(record, "impute_eval").parse_args([])
         cfg = imputation.RunConfig.from_args(args, alpha=1.0,
                                              p_missingness=30)
-        reason = imputation.unported(cfg)
-        if reason is not None:
-            assert "slice 7" in reason and cfg.vae_type in reason
+        if imputation.unported(cfg) is not None:
             not_run.append(number)
-    assert not_run == UNPORTED
-    assert len(RECORDS) - len(not_run) == 33
+        if get_model(cfg).eval_kind == "miwae":
+            miwae.append(number)
+    assert not_run == []
+    assert len(RECORDS) - len(not_run) == 39
+    assert miwae == MIWAE_RECORDS
+
+
+@pytest.mark.parametrize("number,vae_type", [
+    (1, "reg_MIWAE1"), (4, "vanilla_MIWAE1"), (6, "vanilla_MIWAE3")])
+def test_a_miwae_record_trains_evaluates_and_saves_what_jax_reads(
+        tmp_path, monkeypatch, capsys, number, vae_type):
+    """Records 1, 4 and 6 (train_k 20, M=1, missing_rate 50) at 1 epoch and
+    valid_k 50: the CPU cannot afford the records' 5000 importance samples
+    a row in a test. The checkpoint is read by JAX's load_trained; the
+    artifacts are the rmse files at JAX's eval_miwae_paths names."""
+    record = _record(number, epoch=1, valid_k=50)
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    assert imputation.main(["-device", "cpu"]) == 0
+    _check_one_record_run(record, capsys.readouterr().out, (vae_type, 1, 1,
+                                                           50))
 
 
 def _check_one_record_run(record, out, want_cfg):
@@ -96,7 +120,7 @@ def _check_one_record_run(record, out, want_cfg):
     load_trained; JAX's artifact names and nothing else."""
     vae_type, epochs = want_cfg[:2]
     assert f"=== train {vae_type} (missing=30, alpha=1.0) ===" in out
-    assert f"Epoch: [1/{epochs}], Total Loss:" in out
+    assert f"Epoch: [{epochs - 1}/{epochs}], Total Loss:" in out  # the last
     for stage in ("train", "test"):
         line = [ln for ln in out.splitlines()
                 if ln.startswith(f"  [{stage}] ")]
@@ -118,10 +142,14 @@ def _check_one_record_run(record, out, want_cfg):
     assert sorted(loaded) == sorted(saved)
     for key, value in saved.items():
         np.testing.assert_array_equal(loaded[key], value, err_msg=key)
-    # the artifacts: JAX's names, nothing else but metrics.jsonl
+    # the artifacts: JAX's names, nothing else but metrics.jsonl; the MIWAE
+    # evaluator writes the rmse only
+    paths = (jart.eval_miwae_paths if get_model(imputation.RunConfig.from_args(
+        imputation.setup_parser(record, "impute_eval").parse_args([]))
+    ).eval_kind == "miwae" else jart.eval_vae_paths)
     want = {ckpt}
     for stage in ("train", "test"):
-        want |= set(jart.eval_vae_paths(jc, stage, "experiments").values())
+        want |= set(paths(jc, stage, "experiments").values())
     metrics = os.path.join("experiments", jc.experiment_type, jc.data_type,
                            "metrics.jsonl")
     want.add(metrics)
@@ -129,7 +157,7 @@ def _check_one_record_run(record, out, want_cfg):
                for f in files}
     assert written == want
     for stage in ("train", "test"):
-        for path in jart.eval_vae_paths(jc, stage, "experiments").values():
+        for path in paths(jc, stage, "experiments").values():
             value = torch.load(path, weights_only=False)
             assert value.dtype == torch.float64 and value.shape == ()
             assert np.isfinite(value.item())
@@ -140,12 +168,16 @@ def _check_one_record_run(record, out, want_cfg):
 
 
 @pytest.mark.parametrize("number,names", [
-    (1, ("reg_MIWAE1", "slice 7")),
-    (MIWAE, ("vanilla_MIWAE1", "slice 7")),
-    (6, ("vanilla_MIWAE3", "slice 7"))])
+    (1, ("reg_MIWAE1", "bfloat16")),
+    (MIWAE, ("vanilla_MIWAE1", "bfloat16")),
+    (6, ("vanilla_MIWAE3", "bfloat16"))])
 def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
         tmp_path, monkeypatch, capsys, number, names):
-    monkeypatch.chdir(_workdir(tmp_path, [_record(number, epoch=1)]))
+    """Every family runs; what the port still lacks is compute_dtype
+    'bfloat16' (slice 11): records 1, 4 and 6 asking for it are named, not
+    run, and the exit code is 1."""
+    record = _record(number, epoch=1, compute_dtype="bfloat16")
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
     assert imputation.main(["-device", "cpu"]) == 1
     out = capsys.readouterr().out
     assert "Traceback" not in out
@@ -156,10 +188,11 @@ def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
 
 
 def test_the_module_runs_from_the_command_line(tmp_path):
-    """A MIWAE record beside the flagship, each at 1 epoch: the flagship
-    runs, the MIWAE record is named, the exit code is 1. A flag whose
-    engine is not ported stops the run before it starts."""
-    work = _workdir(tmp_path, [_record(MIWAE, epoch=1),
+    """Record 10 asking for compute_dtype 'bfloat16' beside the flagship,
+    each at 1 epoch: the flagship runs, record 10 is named, the exit code is
+    1. A flag whose engine is not ported stops the run before it starts."""
+    work = _workdir(tmp_path, [_record(REG_FLOW, epoch=1,
+                                       compute_dtype="bfloat16"),
                                _record(FLAGSHIP, epoch=1, M=1)])
     env = dict(os.environ, PYTHONPATH=REPO)
     cmd = [sys.executable, "-m",
@@ -168,9 +201,10 @@ def test_the_module_runs_from_the_command_line(tmp_path):
     proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 1, proc.stderr
-    assert "=== not run: vanilla_MIWAE1" in proc.stdout
+    assert "=== not run: reg_flow1" in proc.stdout
     assert "  [test] loss=" in proc.stdout
-    assert "vanilla_MIWAE1 (missing=30, alpha=1.0): vae_type" in proc.stdout
+    assert ("reg_flow1 (missing=30, alpha=1.0): compute_dtype='bfloat16'"
+            in proc.stdout)
     proc = subprocess.run(cmd + ["-seeds", "3"], cwd=work, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 1

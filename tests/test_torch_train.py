@@ -132,20 +132,44 @@ def test_reg_eddi_two_mask_path_matches_jax_live_at_mnist_widths():
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+def model_noise(k_model, cfg, kind, shape):
+    """The draw of noise `kind` (ModelDef.train_noise) that the JAX model
+    makes from its key `k_model`, which follows the family: gauss splits it
+    in three, (kq, kp, kz), and draws eps [2, B, L] or [B, L] from kq
+    (gauss.py:163, 185, 196, 215) and eps_z from kz; the flow splits it in
+    two, (kq, kp), and draws [B, L] from each (flow_vae.py:96,
+    nn/flow.py:185); MIWAE splits it in two and draws [B, K, L] from each
+    (miwae.py:61-69, 102); notMIWAE splits it in three, (kq, kp, ks), draws
+    [B, K, L] from kq and kp and the 'sampled_mask' uniforms [B, D] from ks
+    (notmiwae.py:69-78, 142, 156-158; bernoulli(ks, p) is
+    uniform(ks, p.shape) < p). A regularized type stacks its q and p
+    draws, [2, ...], except gauss, which draws [2, B, L] in one."""
+    family = get_model(cfg).name
+    keys = jax.random.split(k_model, 3 if family in ("gauss", "notmiwae")
+                            else 2)
+    if kind == "eps_z":
+        assert family == "gauss"
+        return _t(jax.random.normal(keys[2], shape))
+    if kind == "mask_s":
+        assert family == "notmiwae"
+        return _t(jax.random.uniform(keys[2], shape))
+    assert kind == "eps", kind
+    if family == "gauss" or not cfg.info.regularized:
+        return _t(jax.random.normal(keys[0], shape))
+    return _t(jnp.stack([jax.random.normal(k, shape[1:])
+                         for k in keys[:2]]))
+
+
 class JaxKeyStream:
     """Replays the JAX trainer's key stream as a port noise source:
     engine/train.py:150-176 (per-epoch fold_in, permutation, per-step
     fold_in and split into (k_mask, k_model)), then the masks from k_mask
     (ops/masks.py:28-29 for mask_p; :38-40 for the drop mask, two uniforms
-    from split(k_mask)) and the model's noise from k_model, which follows
-    the family: gauss splits it in three, (kq, kp, kz), and draws eps
-    [2, B, L] or [B, L] from kq (gauss.py:163, 185, 196, 215); the flow
-    splits it in two, (kq, kp), and draws [B, L] from each
-    (flow_vae.py:96, nn/flow.py:185)."""
+    from split(k_mask)) and the model's noise from k_model (`model_noise`)."""
 
-    def __init__(self, k_run, flow=False):
+    def __init__(self, k_run, cfg):
         self.k_run = k_run
-        self.flow = flow
+        self.cfg = cfg
 
     def __call__(self, kind, epoch, step, shape):
         kperm, kstep = jax.random.split(jax.random.fold_in(self.k_run, epoch))
@@ -157,18 +181,7 @@ class JaxKeyStream:
         if kind == "drop":
             return _t(jnp.stack([jax.random.uniform(k, shape[1:])
                                  for k in jax.random.split(k_mask)]))
-        if self.flow:
-            assert kind == "eps", kind
-            kq, kp = jax.random.split(k_model)
-            if len(shape) == 2:
-                return _t(jax.random.normal(kq, shape))
-            return _t(jnp.stack([jax.random.normal(k, shape[1:])
-                                 for k in (kq, kp)]))
-        kq, _kp, kz = jax.random.split(k_model, 3)
-        if kind == "eps":
-            return _t(jax.random.normal(kq, shape))
-        assert kind == "eps_z"
-        return _t(jax.random.normal(kz, shape))
+        return model_noise(k_model, self.cfg, kind, shape)
 
 
 def _tiny_datasets(n, obs_dim, seed):
@@ -207,7 +220,7 @@ def train_against_jax(vae_type, reg_type="kl_reg", **extra):
     init = jget_model(jc).init(k_init, jc, obs_dim)
     got_params, got_hist = ttrain.train(
         tds, tc, save=False, device="cpu",
-        noise=JaxKeyStream(k_run, flow="flow" in vae_type),
+        noise=JaxKeyStream(k_run, tc),
         params=tckpt.params_from_jax(jckpt._flatten(init), "cpu"))
     assert len(got_hist) == len(want_hist) == 2
     np.testing.assert_allclose(got_hist, want_hist, rtol=1e-4)

@@ -1,13 +1,13 @@
 """Result artifacts: the reference's paths and `.pt` scalars, and a
 structured `metrics.jsonl` (port of the JAX package's `engine/artifacts.py`,
-the MCAR part).
+the MCAR part: the VAE and MIWAE evaluators' paths).
 
 The reference writes every headline metric as a torch-saved tensor in a
 deep, name-mangled directory tree (reference:
 src/experiment_main/evaluate.py:247-297). The paths here are the JAX
 package's character for character, and each file holds what the JAX package
-writes there: a 0-d float64 tensor for a Python float. The MIWAE, MNAR and
-active-learning paths come with their families.
+writes there: a 0-d float64 tensor for a Python float. The MNAR and
+active-learning paths come with their slice.
 """
 
 from __future__ import annotations
@@ -95,3 +95,18 @@ def eval_vae_paths(cfg: RunConfig, stage: str,
         "negll_imp": os.path.join(
             rest, fam, f"{stage}_{cfg.vae_type}_negative_llh_q_imputed{tail}"),
     }
+
+
+def eval_miwae_paths(cfg: RunConfig, stage: str,
+                     root: str = "experiments") -> dict:
+    """The MIWAE evaluator's one artifact of a split, its rmse (reference:
+    src/experiment_main/evaluate.py:120-133, with the hard-coded
+    '50_missing_rate' of both branches)."""
+    fam = family_dir(cfg.vae_type)
+    rest = _base(cfg, root, "rest")
+    if "vanilla" in cfg.vae_type:
+        name = f"{stage}_{cfg.vae_type}_rmse_50_missing_rate_test.pt"
+    else:
+        name = (f"{stage}_{cfg.vae_type}_rmse_{cfg.alpha}_{cfg.p_missingness}"
+                f"_{cfg.reg_type}_full_reg_50_missing_rate_test.pt")
+    return {"rmse": os.path.join(rest, fam, name)}

@@ -10,7 +10,8 @@ them as `tools/convert_reference_checkpoint.py` does for the JAX package.
 
 A list in the parameters (the flow's `actnorm`, one dict a spline layer) is
 keyed by its indices, as JAX's tree paths key it: "actnorm/0/log_scale",
-"actnorm/0/shift", "actnorm/1/log_scale", ...
+"actnorm/0/shift", "actnorm/1/log_scale", ...; a top-level leaf (the
+notMIWAE missing process's "W" and "b") by its name alone.
 """
 
 from __future__ import annotations

@@ -13,21 +13,31 @@ over the batches of a rep, then the mean over the reps, in that order.
 The JAX package fuses this into one program; here the batches run one by
 one, eagerly, with every statistic kept on the device and read once a
 split. The ensemble and sharded evaluators come with slices 9 and 10 (the
-entry point refuses their flags), the MIWAE evaluator with slice 7.
+entry point refuses their flags).
 
-It serves the families whose `eval_kind` is 'vae': gauss and flow.
-All noise comes from one source, called as `noise(kind, rep, step, shape)`:
-  "perm"  a permutation of range(shape[0]) (int64), once a rep (step 0);
-  "eps"   standard normals [bsz, latent_dim], once a batch: the gauss
-          reparameterisation noise or the flow's base noise, each drawn
-          by JAX as normal(k_model, (bsz, latent_dim)).
-The JAX package also draws a fresh `mask_p` each batch, but neither
-family's `eval_step` reads it, so nothing is drawn for it here; a family
-that reads it adds the draw. The default source is
-`train.GeneratorNoise(cfg.seed + 1, device)`, made anew for each split, as
-the JAX package derives both splits' keys from the same PRNGKey(seed + 1).
-A given source serves both splits as it is: a stateless one (for instance
-one that replays the JAX key stream) then gives both the same draws.
+It serves every family. Those whose `eval_kind` is 'miwae' (MIWAE and
+notMIWAE) evaluate with cfg.valid_k importance samples a row and save only
+the rmse artifact (`artifacts.eval_miwae_paths`); every family's four
+metrics go to metrics.jsonl. All noise comes from one source, called as
+`noise(kind, rep, step, shape)`:
+  "perm"    a permutation of range(shape[0]) (int64), once a rep (step 0);
+then, once a batch, the family's draws (`ModelDef.eval_noise`):
+  "mask_p"  uniforms [bsz, D] of the batch's fresh `mask_p`, drawn only
+            where `eval_step` reads it (regularized MIWAE types), as JAX
+            draws it from k_maskp;
+  "eps"     standard normals: [bsz, latent_dim] for the gauss
+            reparameterisation noise or the flow's base noise, drawn by
+            JAX as normal(k_model, ...); [bsz, K, latent_dim] for the
+            notMIWAE q branch and a vanilla MIWAE type, and [2, bsz, K,
+            latent_dim] for a regularized MIWAE type's q and p branches,
+            K = cfg.valid_k, drawn by JAX from split(k_model).
+The JAX package draws a fresh `mask_p` for every batch of every family;
+where `eval_step` does not read it nothing is drawn for it here. The
+default source is `train.GeneratorNoise(cfg.seed + 1, device)`, made anew
+for each split, as the JAX package derives both splits' keys from the same
+PRNGKey(seed + 1). A given source serves both splits as it is: a stateless
+one (for instance one that replays the JAX key stream) then gives both the
+same draws.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from vae_posterior_consistency_tpu_torch.engine.train import (
     load_trained,
 )
 from vae_posterior_consistency_tpu_torch.models import get_model
+from vae_posterior_consistency_tpu_torch.ops import masks
 
 #: the metrics of one split, in the order the per-batch statistics stack
 METRICS = ("rmse", "loss", "negl", "negl_imp")
@@ -72,8 +83,12 @@ def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
         for s in range(steps):
             rows = slice(s * bsz, (s + 1) * bsz)
             x_b, m_b, w_b = x_rep[rows], m_rep[rows], valid[rows]
-            eps = noise("eps", m, s, (bsz, cfg.latent_dim)).to(device)
-            out = model.eval_step(params, x_b, m_b, None, eps, cfg)
+            drawn = {kind: noise(kind, m, s, shape).to(device) for kind, shape
+                     in model.eval_noise(cfg, bsz, x.shape[1]).items()}
+            mask_p = (masks.sub_mask(m_b, cfg.p_missingness,
+                                     uniforms=drawn["mask_p"])
+                      if "mask_p" in drawn else None)
+            out = model.eval_step(params, x_b, m_b, mask_p, drawn["eps"], cfg)
             hole = (1.0 - m_b) * w_b[:, None]
             se = torch.sum(torch.square((out["x_imputed"] - x_b) * hole))
             cnt = torch.sum(w_b)
@@ -90,15 +105,20 @@ def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
     return dict(sorted(zip(METRICS, agg)))
 
 
-def _save_eval_artifacts(cfg: RunConfig, stage: str, agg: dict,
+def _save_eval_artifacts(cfg: RunConfig, model, stage: str, agg: dict,
                          experiments_root: str) -> None:
     """One split's reference-named artifacts and metrics.jsonl records
-    (reference: evaluate.py:247-297)."""
-    paths = artifacts.eval_vae_paths(cfg, stage, experiments_root)
-    artifacts.save_tensor(agg["rmse"], paths["rmse"])
-    artifacts.save_tensor(agg["loss"], paths["elbo"])
-    artifacts.save_tensor(agg["negl"], paths["negll"])
-    artifacts.save_tensor(agg["negl_imp"], paths["negll_imp"])
+    (reference: evaluate.py:247-297; the MIWAE families' rmse only,
+    evaluate.py:120-133)."""
+    if model.eval_kind == "miwae":
+        paths = artifacts.eval_miwae_paths(cfg, stage, experiments_root)
+        artifacts.save_tensor(agg["rmse"], paths["rmse"])
+    else:
+        paths = artifacts.eval_vae_paths(cfg, stage, experiments_root)
+        artifacts.save_tensor(agg["rmse"], paths["rmse"])
+        artifacts.save_tensor(agg["loss"], paths["elbo"])
+        artifacts.save_tensor(agg["negl"], paths["negll"])
+        artifacts.save_tensor(agg["negl_imp"], paths["negll_imp"])
     for name, val in agg.items():
         artifacts.log_metric(cfg, name, val, stage, experiments_root)
 
@@ -111,10 +131,6 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
     (`train.load_trained`). Returns {stage: {rmse, loss, negl, negl_imp}}."""
     device = check_device(device)
     model = get_model(cfg)
-    if model.eval_kind == "miwae":
-        raise NotImplementedError(
-            f"vae_type {cfg.vae_type!r}: the MIWAE evaluator is not ported "
-            "yet; it comes with slice 7, the importance-weighted slice")
     if params is None:
         params = load_trained(dataset, cfg, experiments_root, device=device)
     params = checkpoint.unflatten({
@@ -134,5 +150,6 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
                 split.mask.to(device=device, dtype=torch.float32), src)
             results[split.stage] = agg
             if save:
-                _save_eval_artifacts(cfg, split.stage, agg, experiments_root)
+                _save_eval_artifacts(cfg, model, split.stage, agg,
+                                     experiments_root)
     return results

@@ -1,9 +1,13 @@
 """Full-budget statistical parity of the port against the JAX package: a
 `vae_type` (the flagship `reg_vae1` by default; also `reg_flow1`,
-`vanilla_flow1`, ...) with `kl_reg` on Data/wine split 1, trained and
-evaluated as `tools/parity_check.py:run_ours` does for the JAX row (3000
-epochs, batch 64, missing_rate 30, M=2, alpha 1.0, p_missingness 30, seeds
-0-3, the other fields at their `RunConfig` defaults).
+`vanilla_flow1`, `vanilla_MIWAE1`, `reg_MIWAE1`, ...) with `kl_reg` on
+Data/wine split 1, trained and evaluated as `tools/parity_check.py:run_ours`
+does for the JAX row (3000 epochs, batch 64, missing_rate 30, M=2, alpha
+1.0, p_missingness 30, seeds 0-3; for the MIWAE rows train_k 10 and valid_k
+50, tools/parity_check.py:488-490; the other fields at their `RunConfig`
+defaults). The notMIWAE row (`reg_notMIWAE1`) is an MNAR run of the JAX
+package (`run_ours_mnar`), which the port cannot make yet: the script
+refuses it by name.
 
     python -m vae_posterior_consistency_tpu_torch.engine.parity_full_budget \
         [--vae_type reg_vae1] [--epochs 3000] [--seeds 4] [--device cuda] \
@@ -39,6 +43,7 @@ import torch
 from vae_posterior_consistency_tpu_torch.config import RunConfig
 from vae_posterior_consistency_tpu_torch.data import loaders
 from vae_posterior_consistency_tpu_torch.engine import evaluate, train
+from vae_posterior_consistency_tpu_torch.models import get_model
 
 REPO = Path(__file__).resolve().parents[2]
 JAX_ROWS = REPO / "tools" / "parity_full_budget.jsonl"
@@ -46,6 +51,8 @@ JAX_ROWS = REPO / "tools" / "parity_full_budget.jsonl"
 #: all but the vae_type
 CONFIG = dict(reg_type="kl_reg", data_type="wine", batch_size=64,
               missing_rate=30, M=2, alpha=1.0, p_missingness=30)
+#: the importance samples of the MIWAE rows (tools/parity_check.py:488-490)
+IW_SAMPLES = dict(train_k=10, valid_k=50)
 BAND = 0.03
 METRICS = ("rmse", "loss", "negl", "negl_imp")
 
@@ -61,6 +68,20 @@ def jax_row(config: dict) -> dict:
                 return rec
     raise LookupError(f"no {config['vae_type']} / {config['reg_type']} row "
                       f"in {JAX_ROWS}")
+
+
+def row_config(vae_type: str) -> dict:
+    """The configuration of `vae_type`'s JAX row; raises for the notMIWAE
+    row, an MNAR run."""
+    family = get_model(RunConfig(vae_type=vae_type)).name
+    if family == "notmiwae":
+        raise NotImplementedError(
+            f"{vae_type}: the JAX row is an MNAR run (tools/parity_check.py "
+            "run_ours_mnar); MNAR loading and evaluation come with slice 8")
+    config = dict(vae_type=vae_type, **CONFIG)
+    if family == "miwae":
+        config.update(IW_SAMPLES)
+    return config
 
 
 def card_name() -> str:
@@ -114,10 +135,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
+    try:
+        config = row_config(args.vae_type)
+    except NotImplementedError as exc:
+        print(f"parity_full_budget: {exc}", file=sys.stderr)
+        return 2
     device = train.check_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    config = dict(vae_type=args.vae_type, **CONFIG)
     row = jax_row(config)
     jax_test = row["report"]["test"]["rmse"]
     card = card_name()

@@ -10,12 +10,13 @@ Runs two configurations at full width: MNIST `reg_EDDI1` / `kl_reg` (the
 EDDI two-mask path, kernels B1, B2f and B2b) and the flagship wine
 `reg_vae1` / `kl_reg` (dense path, kernel B1), batch 64, from seeded random
 parameters. `--vae_type` runs the named types on wine instead, at their
-grid records' settings (missing_rate 30, hid_dim 500, latent 10), for
-instance `reg_flow1` (the flow posterior, no kernel) or
-`vanilla_EDDI1_with_drop` (B2f and B2b at S=1). Each gets 20 warm-up
-steps, then `--steps` steps timed on the host clock between two
-synchronisations, then the same number of steps under the profiler. Needs a CUDA card; `--trace-dir` also writes a Chrome
-trace per configuration.
+grid records' settings (missing_rate 30, hid_dim 500, latent 10, train_k
+20), for instance `reg_flow1` (the flow posterior, no kernel),
+`vanilla_EDDI1_with_drop` (B2f and B2b at S=1) or `reg_MIWAE1` (record 1's
+step: 20 importance samples a row, both branches, no kernel). Each gets 20
+warm-up steps, then `--steps` steps timed on the host clock between two
+synchronisations, then the same number of steps under the profiler. Needs a
+CUDA card; `--trace-dir` also writes a Chrome trace per configuration.
 """
 
 from __future__ import annotations
@@ -37,6 +38,33 @@ from vae_posterior_consistency_tpu_torch.engine import checkpoint, train
 from vae_posterior_consistency_tpu_torch.models import get_model
 
 WARMUP_STEPS = 20
+
+
+def device_events(prof):
+    """The device work of a profile: kernels, copies and fills on the
+    card's timeline (not the ranges the profiler draws there for
+    annotations like Optimizer.step, which span their kernels and the gaps
+    between them)."""
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_ms(events) -> float:
+    """The card's busy time (ms): the union of the events' intervals."""
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy_us / 1e3
+
+
+def top_device_ms(events, per=1) -> collections.Counter:
+    """Device time (ms) by operation name, divided by `per`."""
+    by_name = collections.Counter()
+    for e in events:
+        by_name[e.name[:70]] += e.time_range.elapsed_us() / 1e3 / per
+    return by_name
 
 
 def _run(cfg: RunConfig, data: loaders.Dataset, steps: int, trace_dir):
@@ -78,21 +106,9 @@ def _run(cfg: RunConfig, data: loaders.Dataset, steps: int, trace_dir):
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             trace_dir, f"train_{cfg.vae_type}_{cfg.data_type}.json"))
-    # device work: kernels, copies and fills on the card's timeline (not
-    # the ranges the profiler draws there for annotations like
-    # Optimizer.step, which span their kernels and the gaps between them)
-    on_card = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in on_card):
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    device_ms = busy_us / 1e3 / steps
-    by_name = collections.Counter()
-    for e in on_card:
-        by_name[e.name[:70]] += e.time_range.elapsed_us() / 1e3 / steps
+    on_card = device_events(prof)
+    device_ms = busy_ms(on_card) / steps
+    by_name = top_device_ms(on_card, steps)
     events = prof.key_averages()
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",

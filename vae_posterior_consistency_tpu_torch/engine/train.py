@@ -21,9 +21,14 @@ with `epoch` 0-based and `kind` one of
             `mask_p` draw (regularized types);
   "drop"    uniforms in [0, 1), [2, B, D], for the EDDI drop mask
             (vanilla `_with_drop` types; ops/masks.eddi_drop_mask);
-  "eps"     standard normals, [2, B, L] regularized or [B, L] vanilla (the
-            gauss reparameterisation noise or the flow's base noise);
-  "eps_z"   standard normals [B, L] for `ml_reg`;
+then the model family's draws, `ModelDef.train_noise`:
+  "eps"     standard normals: the gauss reparameterisation noise or the
+            flow's base noise, [2, B, L] regularized or [B, L] vanilla;
+            the importance samples of MIWAE and notMIWAE, [2, B, K, L] or
+            [B, K, L] with K = cfg.train_k;
+  "eps_z"   standard normals [B, L] for the gauss family's `ml_reg`;
+  "mask_s"  uniforms in [0, 1), [B, D], for the Bernoulli mask of the
+            notMIWAE 'sampled_mask' variant;
 drawn in that order each step, "mask_p" and "drop" never both.
 `GeneratorNoise`, the default, draws from a `torch.Generator` on the
 training device; a caller may pass its own source, for instance one that
@@ -62,22 +67,23 @@ class GeneratorNoise:
         g, dev = self.generator, self.device
         if kind == "perm":
             return torch.randperm(shape[0], generator=g, device=dev)
-        if kind in ("mask_p", "drop"):
+        if kind in ("mask_p", "drop", "mask_s"):
             return torch.rand(shape, generator=g, device=dev)
         if kind in ("eps", "eps_z"):
             return torch.randn(shape, generator=g, device=dev)
         raise ValueError(f"unknown noise kind {kind!r}")
 
 
-def draw_step(cfg: RunConfig, noise, mask, epoch: int, step: int):
+def draw_step(cfg: RunConfig, noise, mask, epoch: int, step: int,
+              model=None):
     """The noise of one step and the masks it implies: (eff_mask, mask_p,
-    eps, eps_z), eps_z None unless reg_type is 'ml_reg' on a regularized
-    type. The mask dispatch is `ops/masks.train_masks`: a step draws
-    "mask_p" (regularized types) or "drop" (vanilla `_with_drop` types),
-    where the JAX step draws either from its `k_mask`."""
+    eps, extra), `extra` the family's other draws by kind (`eps_z`,
+    `mask_s`), the keyword arguments of its `train_loss`. The mask dispatch
+    is `ops/masks.train_masks`: a step draws "mask_p" (regularized types)
+    or "drop" (vanilla `_with_drop` types), where the JAX step draws either
+    from its `k_mask`."""
+    model = model or get_model(cfg)
     info = cfg.info
-    B = mask.shape[0]
-    L = cfg.latent_dim
     if info.regularized:
         uniforms = noise("mask_p", epoch, step, tuple(mask.shape))
     elif info.with_drop:
@@ -87,10 +93,9 @@ def draw_step(cfg: RunConfig, noise, mask, epoch: int, step: int):
     if uniforms is not None:
         uniforms = uniforms.to(mask.device)
     eff_mask, mask_p = masks.train_masks(info, cfg, mask, uniforms=uniforms)
-    eps = noise("eps", epoch, step, (2, B, L) if info.regularized else (B, L))
-    eps_z = (noise("eps_z", epoch, step, (B, L)).to(mask.device)
-             if info.regularized and cfg.reg_type == "ml_reg" else None)
-    return eff_mask, mask_p, eps.to(mask.device), eps_z
+    drawn = {kind: noise(kind, epoch, step, shape).to(mask.device)
+             for kind, shape in model.train_noise(cfg, *mask.shape).items()}
+    return eff_mask, mask_p, drawn.pop("eps"), drawn
 
 
 def make_optimizer(params) -> torch.optim.Adam:
@@ -108,10 +113,11 @@ def make_train_step(cfg: RunConfig, model=None) -> Callable:
     model = model or get_model(cfg)
 
     def train_step(params, optimizer, x, mask, noise, epoch, step):
-        eff_mask, mask_p, eps, eps_z = draw_step(cfg, noise, mask, epoch, step)
+        eff_mask, mask_p, eps, extra = draw_step(cfg, noise, mask, epoch,
+                                                 step, model)
         optimizer.zero_grad(set_to_none=True)
         loss, _aux = model.train_loss(params, x, eff_mask, mask_p, eps,
-                                      float(epoch + 1), cfg, eps_z=eps_z)
+                                      float(epoch + 1), cfg, **extra)
         loss.backward()
         optimizer.step()
         return loss.detach()

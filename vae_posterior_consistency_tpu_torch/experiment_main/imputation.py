@@ -17,10 +17,11 @@ and 1.0, as the reference hard-codes them) it loads the data, trains with
 split's metrics.
 
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
-or, with `-device cpu`, the kernels' plain versions on the CPU. A record
-whose family the port does not have yet (records 1-6, the MIWAE family) is
-not run: one line names it and the slice that brings it, and the run goes
-on; the exit code is then 1 and the end of the output lists those
+or, with `-device cpu`, the kernels' plain versions on the CPU. Every
+record of the grid runs: the gauss, flow, MIWAE and notMIWAE families. A
+record the port cannot run yet (one whose `compute_dtype` is 'bfloat16')
+is not run: one line names it and the slice that brings it, and the run
+goes on; the exit code is then 1 and the end of the output lists those
 records. Flags whose engine the port lacks (`-mesh`, `-ensemble`, `-seeds`
 above 1, `-checkpoint_every`, `-resume`, `-early_stop`, `-profile`) stop
 the run before it starts, naming their slice.
@@ -129,8 +130,8 @@ def main(argv=None) -> int:
     print(f"Device: {device} ({name})", flush=True)
     not_run = run_grid(records, probe, argv)
     if not_run:
-        print(f"{len(not_run)} run(s) not made, their family not ported "
-              "yet:", flush=True)
+        print(f"{len(not_run)} run(s) not made, not ported yet:",
+              flush=True)
         for vae_type, missing, alpha, reason in not_run:
             print(f"  {vae_type} (missing={missing}, alpha={alpha}): "
                   f"{reason}", flush=True)

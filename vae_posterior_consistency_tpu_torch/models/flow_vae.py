@@ -28,6 +28,19 @@ from vae_posterior_consistency_tpu_torch.ops.math import (
 )
 
 
+def train_noise(cfg, B, D):
+    """The noise a training step draws: {kind: shape}."""
+    del D
+    L = cfg.latent_dim
+    return {"eps": (2, B, L) if cfg.info.regularized else (B, L)}
+
+
+def eval_noise(cfg, B, D):
+    """The noise an evaluation batch draws: {kind: shape}."""
+    del D
+    return {"eps": (B, cfg.latent_dim)}
+
+
 def init(generator, cfg, obs_dim, device="cuda"):
     params = {
         "encoder": layers.flow_context_encoder_init(
@@ -92,11 +105,11 @@ def _re_terms(x, x_mean, x_logvar, m, dim=None):
     return cells.sum() if dim is None else cells.sum(dim=dim)
 
 
-def train_loss(params, x, mask, mask_p, eps, epoch, cfg, eps_z=None):
+def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
     """Training loss (reference: VAE.py:1950-1966 vanilla; VAE.py:2075-2103
-    reg); returns (loss, aux). `epoch` and `eps_z` are unused: the flow
-    family anneals nothing and has no `ml_reg` term."""
-    del epoch, eps_z
+    reg); returns (loss, aux). `epoch` is unused: the flow family anneals
+    nothing and has no `ml_reg` term."""
+    del epoch
     B = x.shape[0]
     L = cfg.latent_dim
 

@@ -65,6 +65,25 @@ def _decoder_widths(cfg):
     return (200, 500, 500) if cfg.data_type == "mnist" else (50, 100)
 
 
+def train_noise(cfg, B, D):
+    """The noise a training step draws: {kind: shape}; `eps_z` for a
+    regularized type under `ml_reg`."""
+    del D
+    L = cfg.latent_dim
+    if not cfg.info.regularized:
+        return {"eps": (B, L)}
+    shapes = {"eps": (2, B, L)}
+    if cfg.reg_type == "ml_reg":
+        shapes["eps_z"] = (B, L)
+    return shapes
+
+
+def eval_noise(cfg, B, D):
+    """The noise an evaluation batch draws: {kind: shape}."""
+    del D
+    return {"eps": (B, cfg.latent_dim)}
+
+
 def init(generator, cfg, obs_dim, device="cuda"):
     enc_init, _ = _encoder_fns(cfg)
     return {

@@ -1,6 +1,5 @@
-"""Encoder/decoder building blocks of the gauss and flow families (port of
-the JAX package's `models/layers.py`, the dense, PointNet, flow-context,
-sigmoid-decoder and flow-decoder parts).
+"""Encoder/decoder building blocks of the model families (port of the JAX
+package's `models/layers.py`).
 
 Gauss encoders return (mean, logvar):
 - dense       — MLP on x*mask          (reference: src/models/VAE.py:366-372)
@@ -10,6 +9,10 @@ Gauss encoders return (mean, logvar):
 The sigmoid decoder has a fixed observation logvar (models/gauss.decode).
 The flow's context encoder returns the spline conditioning context; its
 decoder (x_mean, x_logvar) with the logvar fixed at FLOW_OBS_LOGVAR.
+The importance-weighted families: the MIWAE encoder returns (mean, scale),
+its Student-t decoder (mean, scale, df); the notMIWAE encoder returns
+(mean, logvar) and its decoder (x_mean, x_logvar), each in the `changed`
+or the `author` variant.
 """
 
 from __future__ import annotations
@@ -104,6 +107,40 @@ def pointnet_encoder_apply_2masks(params, x, mask_q, mask_p):
     return mean, logvar
 
 
+def miwae_encoder_init(generator, obs_dim, latent_dim, device="cuda"):
+    return core.mlp_init(generator, [obs_dim, 128, 128, 2 * latent_dim],
+                         device)
+
+
+def miwae_encoder_apply(params, x, mask):
+    """(mean, scale), a softplus scale (reference: VAE.py:3047-3059)."""
+    h = core.mlp_apply(params, x * mask, hidden_act="relu")
+    mean, pre_scale = h.chunk(2, dim=-1)
+    return mean, torch.nn.functional.softplus(pre_scale)
+
+
+def notmiwae_encoder_init(generator, obs_dim, latent_dim, device="cuda"):
+    return {
+        "trunk": core.mlp_init(generator, [obs_dim, 128, 128], device),
+        "q_mu": core.mlp_init(generator, [128, latent_dim], device),
+        "q_logstd": core.mlp_init(generator, [128, latent_dim], device),
+    }
+
+
+def notmiwae_encoder_apply(params, x, mask, variant="changed"):
+    """(mean, logvar). `changed`: ELU trunk, no clipping (reference:
+    VAE.py:2748-2763); `author`: Tanh trunk, hardtanh(-10, 10) on the
+    log-std head (reference: VAE.py:2865-2922)."""
+    act = "elu" if variant == "changed" else "tanh"
+    h = core.mlp_apply(params["trunk"], x * mask, hidden_act=act,
+                       final_act=act)
+    mean = core.dense(params["q_mu"]["layer0"], h)
+    logvar = core.dense(params["q_logstd"]["layer0"], h)
+    if variant == "author":
+        logvar = core.hardtanh(logvar, -10.0, 10.0)
+    return mean, logvar
+
+
 def flow_context_encoder_init(generator, obs_dim, hid_dim, context_dim=100,
                               device="cuda"):
     return core.mlp_init(generator, [2 * obs_dim, hid_dim, hid_dim,
@@ -125,6 +162,49 @@ def sigmoid_decoder_init(generator, obs_dim, latent_dim, widths=(50, 100),
 
 def sigmoid_decoder_apply(params, z):
     return core.mlp_apply(params, z, hidden_act="relu", final_act="sigmoid")
+
+
+def notmiwae_decoder_init(generator, obs_dim, latent_dim, device="cuda"):
+    return {
+        "trunk": core.mlp_init(generator, [latent_dim, 128, 128], device),
+        "x_mean": core.mlp_init(generator, [128, obs_dim], device),
+        "x_logvar": core.mlp_init(generator, [128, obs_dim], device),
+    }
+
+
+def notmiwae_decoder_apply(params, z, variant="changed"):
+    """(x_mean, x_logvar). `changed`: ELU trunk, sigmoid mean,
+    hardtanh(-10, 0) logvar (reference: VAE.py:2726-2770); `author`: Tanh
+    trunk, linear mean, a softplus std with logvar = log(std^2)
+    (reference: VAE.py:2885-2928)."""
+    if variant == "changed":
+        h = core.mlp_apply(params["trunk"], z, hidden_act="elu",
+                           final_act="elu")
+        x_mean = torch.sigmoid(core.dense(params["x_mean"]["layer0"], h))
+        x_logvar = core.hardtanh(core.dense(params["x_logvar"]["layer0"], h),
+                                 -10.0, 0.0)
+    else:
+        h = core.mlp_apply(params["trunk"], z, hidden_act="tanh",
+                           final_act="tanh")
+        x_mean = core.dense(params["x_mean"]["layer0"], h)
+        x_std = torch.nn.functional.softplus(
+            core.dense(params["x_logvar"]["layer0"], h))
+        x_logvar = torch.log(torch.square(x_std))
+    return x_mean, x_logvar
+
+
+def student_t_decoder_init(generator, obs_dim, latent_dim, device="cuda"):
+    return core.mlp_init(generator, [latent_dim, 128, 128, 3 * obs_dim],
+                         device)
+
+
+def student_t_decoder_apply(params, z):
+    """(mean, scale, df): a sigmoid mean, softplus + 0.001 scale and
+    softplus + 3 degrees of freedom (reference: VAE.py:3061-3066)."""
+    h = core.mlp_apply(params, z, hidden_act="relu")
+    mean, scale, df = h.chunk(3, dim=-1)
+    softplus = torch.nn.functional.softplus
+    return torch.sigmoid(mean), softplus(scale) + 0.001, softplus(df) + 3.0
 
 
 def flow_decoder_init(generator, obs_dim, latent_dim, hid_dim, device="cuda"):

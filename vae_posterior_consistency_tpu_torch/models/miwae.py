@@ -1,0 +1,180 @@
+"""MIWAE family: MIWAE and Reg_MIWAE (port of the JAX package's
+`models/miwae.py`; reference: src/models/VAE.py:3011-3301).
+
+The Student-t decoder likelihood and an importance-weighted bound over K
+samples on a [B, K, ...] axis from one encoder pass. The JAX package's
+deliberate deviations from the reference are kept (PARITY.md deviation 2):
+- one z feeds both the decoder and the importance weights (the reference
+  redraws z for log p(z) - log q(z), VAE.py:3086-3091);
+- the [B, K] axes stay aligned (the reference's reshape round trip,
+  VAE.py:3078-3081, scrambles them whenever K != B);
+- the bound has no -log K (VAE.py:3092);
+- the regularizer's KL is the mean over all elements (VAE.py:3270-3275).
+And the reference quirks as JAX has them: a vanilla type's `row_negl`
+divides by the hard-coded 5000 (VAE.py:3099), and a regularized type's
+`row_negl` and `row_negl_imp` are its `row_loss`.
+
+Where the JAX functions take a PRNG key, these take the standard normal
+noise: `eps` [B, K, latent_dim] for `forward` and for a vanilla type's
+`train_loss` and `eval_step`; [2, B, K, latent_dim] (row 0 the q branch,
+row 1 the p branch) for a regularized type's, which runs both branches as
+one stacked [2B] stream through the encoder and the decoder. K is the
+noise's sample axis: cfg.train_k in training and cfg.valid_k in
+evaluation, as `train_noise` and `eval_noise` give the engine.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vae_posterior_consistency_tpu_torch.models import layers
+from vae_posterior_consistency_tpu_torch.ops.math import (
+    kl_diag_diag_scale_elems,
+    normal_logpdf_scale,
+    std_normal_logpdf,
+    student_t_logpdf,
+)
+
+#: the reference's hard-coded divisor of a vanilla type's `row_negl`
+#: (src/models/VAE.py:3099)
+NEGL_DIVISOR = 5000.0
+
+
+def _eps_shape(cfg, B, K):
+    L = cfg.latent_dim
+    return (2, B, K, L) if cfg.info.regularized else (B, K, L)
+
+
+def train_noise(cfg, B, D):
+    """The noise a training step draws: {kind: shape}."""
+    del D
+    return {"eps": _eps_shape(cfg, B, cfg.train_k)}
+
+
+def eval_noise(cfg, B, D):
+    """The noise an evaluation batch draws: {kind: shape}; a regularized
+    type's `eval_step` reads a fresh `mask_p` (uniforms [B, D])."""
+    shapes = {"mask_p": (B, D)} if cfg.info.regularized else {}
+    shapes["eps"] = _eps_shape(cfg, B, cfg.valid_k)
+    return shapes
+
+
+def init(generator, cfg, obs_dim, device="cuda"):
+    return {
+        "encoder": layers.miwae_encoder_init(generator, obs_dim,
+                                             cfg.latent_dim, device),
+        "decoder": layers.student_t_decoder_init(generator, obs_dim,
+                                                 cfg.latent_dim, device),
+    }
+
+
+def encode(params, x, mask, cfg):
+    """(mean, scale) of q(z|x,mask); scale is a softplus std
+    (reference: VAE.py:3047-3059)."""
+    del cfg
+    return layers.miwae_encoder_apply(params["encoder"], x, mask)
+
+
+def forward(params, x, mask, eps, cfg):
+    """K importance samples for noise `eps` [B, K, L]; a dict of [B, K, ...]
+    tensors and the [B, L] posterior statistics."""
+    mean, scale = encode(params, x, mask, cfg)
+    z = mean[:, None, :] + scale[:, None, :] * eps
+    x_mean, x_scale, df = layers.student_t_decoder_apply(params["decoder"], z)
+    return {"mean": mean, "scale": scale, "z": z, "x_mean": x_mean,
+            "x_scale": x_scale, "df": df}
+
+
+def _branch_terms(out, x, mask):
+    """(logpxobs [B,K], log_w [B,K], logpx_imp [B,K], log p(x|z) [B,K,D])
+    for one encoder branch (reference bound terms: VAE.py:3073-3092)."""
+    m = mask[:, None, :]
+    log_pxz = student_t_logpdf(x[:, None, :], out["x_mean"], out["x_scale"],
+                               out["df"])
+    logpxobs = torch.sum(log_pxz * m, dim=-1)
+    logpx_imp = torch.sum(log_pxz * (1.0 - m), dim=-1)
+    logpz = torch.sum(std_normal_logpdf(out["z"]), dim=-1)
+    logq = torch.sum(normal_logpdf_scale(out["z"], out["mean"][:, None, :],
+                                         out["scale"][:, None, :]), dim=-1)
+    return logpxobs, logpxobs + logpz - logq, logpx_imp, log_pxz
+
+
+def _both_branches(params, x, mask, mask_p, eps, cfg):
+    """The q (rows :B) and p (rows B:) branches as one stacked stream:
+    (forward's dict, log_w [2B,K], log p(x|z) [2B,K,D])."""
+    B = x.shape[0]
+    x2, m2 = torch.cat([x, x]), torch.cat([mask, mask_p])
+    out = forward(params, x2, m2, eps.reshape(2 * B, *eps.shape[2:]), cfg)
+    _, log_w, _, log_pxz = _branch_terms(out, x2, m2)
+    return out, log_w, log_pxz
+
+
+def _neg_bound(log_w):
+    """-mean_B(logsumexp_K(log_w)), no -log K, as the reference
+    (VAE.py:3092)."""
+    return -torch.mean(torch.logsumexp(log_w, dim=1))
+
+
+def _reg_terms(out, log_pxz, mask, mask_p, B):
+    """Per row: the extra likelihood reward on the cells hidden from the p
+    branch (reference: VAE.py:3244-3246), its mean over K, and the mean
+    over L of the elementwise q/p KL."""
+    extra = (mask * (1.0 - mask_p))[:, None, :]
+    row_reg_like = torch.mean(torch.sum(log_pxz[:B] * extra, dim=-1), dim=1)
+    row_kl_reg = torch.mean(kl_diag_diag_scale_elems(
+        out["mean"][:B], out["scale"][:B], out["mean"][B:],
+        out["scale"][B:]), dim=-1)
+    return row_reg_like, row_kl_reg
+
+
+def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
+    """IWAE negative bound; for a regularized type the consistency
+    composite (reference: VAE.py:3197-3251). Returns (loss, aux). `epoch`
+    is unused: the family anneals nothing."""
+    del epoch
+    if not cfg.info.regularized:
+        out_q = forward(params, x, mask, eps, cfg)
+        _, log_w_q, _, _ = _branch_terms(out_q, x, mask)
+        neg_bound_q = _neg_bound(log_w_q)
+        return neg_bound_q, {"neg_bound": neg_bound_q}
+
+    B = x.shape[0]
+    out, log_w, log_pxz = _both_branches(params, x, mask, mask_p, eps, cfg)
+    neg_bound_q, neg_bound_p = _neg_bound(log_w[:B]), _neg_bound(log_w[B:])
+    row_reg_like, row_kl_reg = _reg_terms(out, log_pxz, mask, mask_p, B)
+    # the means over all elements: rows of equal length, so the mean of the
+    # row means
+    reg_like = torch.mean(row_reg_like)
+    KL_reg = torch.mean(row_kl_reg)
+    loss = neg_bound_q + cfg.alpha * (KL_reg - neg_bound_q + neg_bound_p
+                                      - reg_like)
+    return loss, {"neg_bound_q": neg_bound_q, "neg_bound_p": neg_bound_p,
+                  "KL_reg": KL_reg}
+
+
+def eval_step(params, x, mask, mask_p, eps, cfg):
+    """llh_eval semantics (reference: VAE.py:3095-3099, 3254-3258), per row:
+    the importance-weighted imputation xm = sum_k w_k x_mean_k and the
+    bound. `mean(row_*)` equals the reference's batch scalars. `mask_p` is
+    read by regularized types only."""
+    B = x.shape[0]
+    if not cfg.info.regularized:
+        out_q = forward(params, x, mask, eps, cfg)
+        _, log_w_q, logpx_imp, _ = _branch_terms(out_q, x, mask)
+        xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w_q, dim=1),
+                          out_q["x_mean"])
+        row_negl = torch.sum(logpx_imp, dim=1) / NEGL_DIVISOR
+        return {"x_imputed": xm,
+                "row_loss": -torch.logsumexp(log_w_q, dim=1),
+                "row_negl": row_negl, "row_negl_imp": row_negl}
+
+    out, log_w, log_pxz = _both_branches(params, x, mask, mask_p, eps, cfg)
+    xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w[:B], dim=1),
+                      out["x_mean"][:B])
+    row_neg_bound_q = -torch.logsumexp(log_w[:B], dim=1)
+    row_neg_bound_p = -torch.logsumexp(log_w[B:], dim=1)
+    row_reg_like, row_kl_reg = _reg_terms(out, log_pxz, mask, mask_p, B)
+    row_loss = row_neg_bound_q + cfg.alpha * (
+        row_kl_reg - row_neg_bound_q + row_neg_bound_p - row_reg_like)
+    return {"x_imputed": xm, "row_loss": row_loss, "row_negl": row_loss,
+            "row_negl_imp": row_loss}

@@ -1,7 +1,7 @@
 """vae_type -> model implementation dispatch (port of the JAX package's
-`models/registry.py`). The port has the gauss and flow families so far;
-every other family raises NotImplementedError naming the slice that brings
-it.
+`models/registry.py`): the gauss, flow, MIWAE and notMIWAE families.
+`compute_dtype='bfloat16'` raises NotImplementedError naming the slice
+that brings it.
 """
 
 from __future__ import annotations
@@ -10,7 +10,12 @@ import dataclasses
 from typing import Callable, Optional
 
 from vae_posterior_consistency_tpu_torch.config import RunConfig, parse_vae_type
-from vae_posterior_consistency_tpu_torch.models import flow_vae, gauss
+from vae_posterior_consistency_tpu_torch.models import (
+    flow_vae,
+    gauss,
+    miwae,
+    notmiwae,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,12 +24,18 @@ class ModelDef:
 
     name: str
     init: Callable  # (generator, cfg, obs_dim, device) -> params
-    #: (params, x, mask, mask_p, eps, epoch, cfg, eps_z=None) -> (loss, aux)
+    #: (params, x, mask, mask_p, eps, epoch, cfg, **extra) -> (loss, aux),
+    #: `extra` the kinds of `train_noise` other than "eps"
     train_loss: Callable
     eval_step: Callable  # (params, x, mask, mask_p, eps, cfg) -> dict
+    #: (cfg, B, D) -> {noise kind: shape}, the draws of a training step
+    #: (always "eps") and of an evaluation batch ("eps", and "mask_p"
+    #: where `eval_step` reads a mask_p), in the order they are drawn
+    train_noise: Callable
+    eval_noise: Callable
     uses_p_branch: bool
-    #: 'vae' (rmse, loss, negl, negl_imp) | 'miwae' (rmse only, valid_k
-    #: importance samples; comes with the importance-weighted slice)
+    #: 'vae' (four artifacts a split) | 'miwae' (the rmse artifact only,
+    #: cfg.valid_k importance samples)
     eval_kind: str = "vae"
     #: flow-posterior log-prob hook of the ratio-version AL reward
     #: (reference: src/experiment_main/evaluate.py:637-708):
@@ -37,22 +48,20 @@ def _flow_sample_logprob(params, x, mask, eps, cfg):
     return log_prob
 
 
-_GAUSS = ModelDef(
-    name="gauss",
-    init=gauss.init,
-    train_loss=gauss.train_loss,
-    eval_step=gauss.eval_step,
-    uses_p_branch=True,  # refined per vae_type in get_model
-)
+def _def(name, module, **kw):
+    return ModelDef(name=name, init=module.init,
+                    train_loss=module.train_loss,
+                    eval_step=module.eval_step,
+                    train_noise=module.train_noise,
+                    eval_noise=module.eval_noise,
+                    uses_p_branch=True,  # refined per vae_type in get_model
+                    **kw)
 
-_FLOW = ModelDef(
-    name="flow",
-    init=flow_vae.init,
-    train_loss=flow_vae.train_loss,
-    eval_step=flow_vae.eval_step,
-    uses_p_branch=True,  # refined per vae_type in get_model
-    encode_sample_logprob=_flow_sample_logprob,
-)
+
+_GAUSS = _def("gauss", gauss)
+_FLOW = _def("flow", flow_vae, encode_sample_logprob=_flow_sample_logprob)
+_MIWAE = _def("miwae", miwae, eval_kind="miwae")
+_NOTMIWAE = _def("notmiwae", notmiwae, eval_kind="miwae")
 
 _FAMILY_TO_DEF = {
     "vanilla_flow": _FLOW,
@@ -61,23 +70,16 @@ _FAMILY_TO_DEF = {
     "reg_EDDI": _GAUSS,
     "vanilla_vae": _GAUSS,
     "vanilla_EDDI": _GAUSS,
-}
-
-#: families not ported yet -> the slice (ROADMAP.md queue A) that ports them
-_LATER = {
-    "reg_notMIWAE": "slice 7, the importance-weighted slice",
-    "vanilla_notMIWAE": "slice 7, the importance-weighted slice",
-    "reg_MIWAE": "slice 7, the importance-weighted slice",
-    "MIWAE": "slice 7, the importance-weighted slice",
+    "reg_notMIWAE": _NOTMIWAE,
+    "vanilla_notMIWAE": _NOTMIWAE,
+    "reg_MIWAE": _MIWAE,
+    # vanilla_MIWAE falls back to the MIWAE family (config.parse_vae_type)
+    "MIWAE": _MIWAE,
 }
 
 
 def get_model(cfg: RunConfig) -> ModelDef:
     info = parse_vae_type(cfg.vae_type)
-    if info.family in _LATER:
-        raise NotImplementedError(
-            f"vae_type {cfg.vae_type!r} (family {info.family}) is not ported "
-            f"yet; it comes with {_LATER[info.family]}")
     if cfg.compute_dtype == "bfloat16":
         raise NotImplementedError(
             "compute_dtype='bfloat16' is not ported yet; it comes with the "

@@ -47,6 +47,16 @@ def dense(params: Params, x):
     return torch.matmul(x, params["w"]) + params["b"]
 
 
+def hardtanh(x, min_val: float, max_val: float):
+    """torch.nn.Hardtanh with jnp.clip's gradient: 1 inside, 0.5 at a
+    bound, 0 outside (`torch.clamp` and `F.hardtanh` pass all of it at a
+    bound). The bounds are 0-d CPU tensors, which a CUDA op takes as
+    scalars (reference: src/models/VAE.py:2363)."""
+    lo = torch.tensor(min_val, dtype=x.dtype)
+    hi = torch.tensor(max_val, dtype=x.dtype)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 ACTIVATIONS: dict[str, Callable] = {
     "relu": torch.relu,
     "elu": torch.nn.functional.elu,

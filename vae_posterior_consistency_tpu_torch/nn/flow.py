@@ -13,8 +13,8 @@ consistent log-det sign of `flow_log_prob` are the JAX package's
 
 Where the JAX function takes a PRNG key, `flow_forward` takes the standard
 normal base noise `eps` itself. Bins are read with `torch.gather`. The
-clips that carry a gradient are `minimum(maximum(x, lo), hi)`, whose
-gradient at a bound is 0.5 as `jnp.clip`'s is (`torch.clamp` gives 1).
+clips that carry a gradient are `core.hardtanh`, whose gradient at a bound
+is 0.5 as `jnp.clip`'s is (`torch.clamp` gives 1).
 """
 
 from __future__ import annotations
@@ -23,18 +23,11 @@ import math
 
 import torch
 
+from vae_posterior_consistency_tpu_torch.nn import core
 from vae_posterior_consistency_tpu_torch.ops.math import std_normal_logpdf
 
 NUM_LAYERS = 3
 TAIL_BOUND = 1.0
-
-
-def _clip(x, lo: float, hi: float):
-    """jnp.clip with its gradient: 1 inside, 0.5 at a bound, 0 outside. The
-    bounds are 0-d CPU tensors, which a CUDA op takes as scalars."""
-    lo_t = torch.tensor(lo, dtype=x.dtype)
-    hi_t = torch.tensor(hi, dtype=x.dtype)
-    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 def _normalize_pdf(unnormalized_pdf):
@@ -72,7 +65,7 @@ def linear_spline_forward(inputs, unnormalized_pdf, left=-1.0, right=1.0,
 
     input_pdfs = _gather_bins(pdf, bin_idx)
     cdf_left = _gather_bins(cdf[..., :-1], bin_idx)
-    outputs = _clip(cdf_left + alpha * input_pdfs, 0.0, 1.0)
+    outputs = core.hardtanh(cdf_left + alpha * input_pdfs, 0.0, 1.0)
     logabsdet = torch.log(input_pdfs) - math.log(1.0 / num_bins)
     return outputs * (top - bottom) + bottom, logabsdet
 
@@ -97,7 +90,7 @@ def linear_spline_inverse(inputs, unnormalized_pdf, left=-1.0, right=1.0,
 
     input_slopes = _gather_bins(slopes, inv_bin_idx)
     input_offsets = _gather_bins(offsets, inv_bin_idx)
-    outputs = _clip((y - input_offsets) / input_slopes, 0.0, 1.0)
+    outputs = core.hardtanh((y - input_offsets) / input_slopes, 0.0, 1.0)
     logabsdet = -torch.log(input_slopes)
     return outputs * (right - left) + left, logabsdet
 
