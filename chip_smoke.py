@@ -79,7 +79,29 @@ Run from the root of a checkout. It drives only the port
    (`FusedPosterior.backward` for the four statistics, through autograd),
    at [64, 10] and at a diagnostic [4096, 10]; each figure with
    the number of device operations one call makes, counted in a CUDA graph
-   captured from one call, which must be 1 for each B1 kernel.
+   captured from one call, which must be 1 for each B1 kernel;
+10. serving (b), every family at the wine width (D=13) from seeded
+   parameters, buckets 1, 8 and 64: vanilla_MIWAE1 and record 1's
+   reg_MIWAE1 at its valid_k=5000 importance samples a row,
+   vanilla_notMIWAE1 at the same valid_k, and record 10's reg_flow1 with
+   ActNorm (non-identity affines): observed cells unchanged, every output
+   finite, no kernel launched, no plain version on a CUDA tensor; a CPU
+   server fed the card's recorded noise must agree; the p50 latency of a
+   request of 64 rows and the peak device memory of each;
+11. MNAR evaluation (a): engine/evaluate.eval_vae_mnar on the 178 rows of
+   the MNAR wine table (data_loader_mnar: rows permuted, target column
+   dropped) for both records of Data/imputation_args_mnar.json
+   (vanilla_notMIWAE1, reg_notMIWAE1) from seeded parameters, at M=2 and
+   valid_k cut from 10000 to 500: no kernel, the RMSE against a CPU
+   eval_vae_mnar fed the card's recorded noise;
+12. MNAR grid (b): the entry point experiment_main/imputation_mnar.py in a
+   temporary directory with Data linked in, over both records as they
+   stand (epoch 1, batch 128, valid_k 10000, M=1, p_missingness 50): both
+   run, no kernel, each RMSE finite and equal to its artifact at its
+   eval_mnar_paths name, each checkpoint at its reference name; each
+   record's wall-clock, and of its valid_k=10000 evaluation (1.78 M
+   decoder rows in one eval_step) the peak device memory and, under
+   torch.profiler, the device's busy share and top operations.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
@@ -98,6 +120,7 @@ faulthandler.dump_traceback_later(300, exit=True)
 import collections  # noqa: E402
 import contextlib  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -153,6 +176,20 @@ EVAL_LOSS_RTOL = 1e-4
 WINE_EVAL_M = 50
 FLOW_EVAL_M = 50
 EVAL_TIMING_RUNS = 5
+#: serving (b): the buckets, and the card's row scores against the CPU's.
+#: A row score is a logsumexp over valid_k=5000 importance weights (MIWAE,
+#: notMIWAE) or a flow's sums, each a sum over 13 cells after 128- to
+#: 500-term dot products that cuBLAS and the CPU accumulate in other
+#: orders: about 1e-6 of its size, so rtol 1e-4; atol 1e-5 for a score
+#: near 0, where its terms of about 1 still round at about 1e-6
+SERVE_B_BUCKETS = (1, 8, 64)
+SERVE_B_SCORE_RTOL = 1e-4
+SERVE_B_SCORE_ATOL = 1e-5
+#: MNAR evaluation (a): the records' valid_k (10000) cut to 500 and M
+#: raised to 2 for the CPU run that checks the card's
+MNAR_CHECK_K = 500
+MNAR_CHECK_M = 2
+MNAR_RMSE_ATOL = 1e-5
 #: a marker kernel's busy-wait (clock cycles) around a profiled call, and
 #: the host time (s) that pads the profiler's window on each side
 MARK_CYCLES = 1000
@@ -639,8 +676,8 @@ def main() -> int:
         card_noise = serve.GeneratorNoise(cfg.seed + 9, "cuda")
         drawn = []
 
-        def recording_noise(ctr, shape):
-            eps = card_noise(ctr, shape)
+        def recording_noise(kind, ctr, shape):
+            eps = card_noise(kind, ctr, shape)
             drawn.append(eps)
             return eps
 
@@ -659,8 +696,9 @@ def main() -> int:
                                  f"launched {serve_counts}")
 
         replay = iter([e.cpu() for e in drawn])
-        cpu_srv = serve.ImputationServer(params, cfg, 784, device="cpu",
-                                         noise=lambda ctr, shape: next(replay))
+        cpu_srv = serve.ImputationServer(
+            params, cfg, 784, device="cpu",
+            noise=lambda kind, ctr, shape: next(replay))
         for n, (filled, score) in zip(REQUEST_ROWS, outs):
             if filled.shape != (n, 784) or score.shape != (n,):
                 raise AssertionError(f"bad shapes {filled.shape} "
@@ -1426,6 +1464,249 @@ def main() -> int:
             print(f"request of {n} rows (bucket {bucket}): p50 "
                   f"{statistics.median(lat):.6f} ms over {TIMING_RUNS} "
                   f"[{card}]", flush=True)
+
+    def seeded(cfg, obs_dim, seed=SEED):
+        """Seeded parameters of `cfg`'s model on the CPU and their copy on
+        the card; an ActNorm's affines made non-identity, so the layers do
+        something."""
+        cpu_p = get_model(cfg).init(torch.Generator().manual_seed(seed), cfg,
+                                    obs_dim, device="cpu")
+        if cfg.flow_actnorm:
+            g = torch.Generator().manual_seed(SEED + 3)
+            cpu_p["actnorm"] = [
+                {k: 0.1 * torch.randn(v.shape, generator=g)
+                 for k, v in layer.items()} for layer in cpu_p["actnorm"]]
+        card_p = checkpoint.unflatten(
+            {k: v.cuda() for k, v in checkpoint.flatten(cpu_p).items()})
+        return cpu_p, card_p
+
+    # the families that serve K = valid_k importance samples a row, and the
+    # flow with its list of ActNorm parameters, at the wine width
+    serve_cfgs = (miwae_cfg.replace(vae_type="vanilla_MIWAE1"), miwae_cfg,
+                  miwae_cfg.replace(vae_type="vanilla_notMIWAE1"),
+                  flow_cfg.replace(flow_actnorm=True))
+    serve_b = {}
+    with phase(f"serving (b): every family at the wine width, valid_k="
+               f"{miwae_cfg.valid_k}, card vs CPU"):
+        wm = miwae_data.train.mask[:64].cpu().numpy()
+        wx = miwae_data.train.x[:64].cpu().numpy() * wm
+        for scfg in serve_cfgs:
+            label = scfg.vae_type + (" (ActNorm)" if scfg.flow_actnorm
+                                     else "")
+            cpu_p, card_p = seeded(scfg, WINE_D)
+            src, kept = serve.GeneratorNoise(scfg.seed + 9, "cuda"), []
+
+            def rec(kind, ctr, shape, _src=src, _kept=kept):
+                t = _src(kind, ctr, shape)
+                _kept.append(t)
+                return t
+
+            srv = serve.ImputationServer(card_p, scfg, WINE_D,
+                                         buckets=SERVE_B_BUCKETS,
+                                         device="cuda", noise=rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            with no_plain_on_card():
+                outs = [srv.impute(wx[:n], wm[:n]) for n in SERVE_B_BUCKETS]
+            launched = counts()
+            peak = torch.cuda.max_memory_allocated()
+            if launched != no_kernel:
+                raise AssertionError(f"serving {label} launched {launched}")
+            replay = iter([t.cpu() for t in kept])
+            cpu_srv = serve.ImputationServer(
+                cpu_p, scfg, WINE_D, buckets=SERVE_B_BUCKETS, device="cpu",
+                noise=lambda kind, ctr, shape: next(replay))
+            worst_f = worst_s = 0.0
+            for n, (filled, score) in zip(SERVE_B_BUCKETS, outs):
+                if filled.shape != (n, WINE_D) or score.shape != (n,):
+                    raise AssertionError(f"{label}: bad shapes "
+                                         f"{filled.shape} {score.shape}")
+                if not (np.isfinite(filled).all()
+                        and np.isfinite(score).all()):
+                    raise AssertionError(f"{label}: non-finite output for "
+                                         f"{n} rows")
+                np.testing.assert_array_equal(filled * wm[:n], wx[:n])
+                c_filled, c_score = cpu_srv.impute(wx[:n], wm[:n])
+                np.testing.assert_allclose(filled, c_filled, rtol=0,
+                                           atol=SERVE_ATOL)
+                np.testing.assert_allclose(score, c_score,
+                                           rtol=SERVE_B_SCORE_RTOL,
+                                           atol=SERVE_B_SCORE_ATOL)
+                worst_f = max(worst_f, float(np.abs(filled - c_filled).max()))
+                worst_s = max(worst_s, float(
+                    (np.abs(score - c_score) / np.abs(c_score)).max()))
+            if next(replay, None) is not None:
+                raise AssertionError(f"{label}: the CPU drew less noise")
+            timed_b = serve.ImputationServer(card_p, scfg, WINE_D,
+                                             buckets=SERVE_B_BUCKETS,
+                                             device="cuda").warmup()
+            lat = []
+            for _ in range(TIMING_RUNS):
+                t0 = time.perf_counter()
+                timed_b.impute(wx, wm)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            serve_b[label] = dict(p50_ms=statistics.median(lat),
+                                  peak_mib=peak / 2**20,
+                                  above_mib=(peak - base) / 2**20)
+            print(f"{label}: requests of {SERVE_B_BUCKETS} rows, card vs CPU "
+                  f"max abs diff imputed {worst_f:.3e}, max relative diff "
+                  f"row score {worst_s:.3e}; launches {launched}; peak device "
+                  f"memory {peak / 2**20:.3f} MiB ({(peak - base) / 2**20:.3f}"
+                  f" MiB above the {base / 2**20:.3f} MiB held before); "
+                  f"request of 64 rows (bucket 64): p50 "
+                  f"{serve_b[label]['p50_ms']:.6f} ms over {TIMING_RUNS} "
+                  f"[{card}]", flush=True)
+
+    mnar_records = list(iter_jsonl_configs(str(
+        REPO / "Data" / "imputation_args_mnar.json")))
+    # the records as the MNAR entry point runs them: its sweep's
+    # p_missingness 50 and alpha 1.0, its pinned transform and notMIWAE type
+    mnar_cfgs = [RunConfig.from_jsonl_record(
+        r, seed=SEED, alpha=1.0, p_missingness=50, data_transform="minmax",
+        not_miwae_type="changed") for r in mnar_records]
+    if [(c.vae_type, c.epoch, c.batch_size, c.valid_k, c.M)
+            for c in mnar_cfgs] != [(v, 1, 128, 10000, 1) for v in (
+                "vanilla_notMIWAE1", "reg_notMIWAE1")]:
+        raise AssertionError(f"Data/imputation_args_mnar.json is not "
+                             f"vanilla_notMIWAE1 and reg_notMIWAE1 at epoch "
+                             f"1, batch 128, valid_k 10000, M=1: {mnar_cfgs}")
+    # MNAR_RMSE_ATOL: a sum over the 178 x 12 cells (1043 holes) of squared
+    # errors of values in [0, 1], each imputation a softmax-weighted mean
+    # over valid_k samples of decoder outputs after 128-term dot products
+    # that cuBLAS and the CPU accumulate in other orders (about 1e-6 of
+    # each); its square root keeps that relative error: atol 1e-5 on an
+    # RMSE of about 0.2
+    with phase(f"MNAR evaluation (a): eval_vae_mnar on the 178 wine rows, "
+               f"M={MNAR_CHECK_M}, valid_k={MNAR_CHECK_K}, card vs CPU"):
+        mnar = loaders.data_loader_mnar(str(REPO / "Data"),
+                                        mnar_cfgs[0].vae_type, 50, 128,
+                                        "wine", device="cuda")
+        for i, mcfg in enumerate(mnar_cfgs):
+            ecfg = mcfg.replace(M=MNAR_CHECK_M, valid_k=MNAR_CHECK_K)
+            # both records evaluate the same q branch: other parameters
+            # for each, so the two checks differ
+            cpu_p, card_p = seeded(ecfg, mnar.obs_dim, seed=SEED + i)
+            noise, kept = recording_noise(ecfg.seed + 2)
+            reset_counts()
+            with no_plain_on_card():
+                got = evaluate.eval_vae_mnar(
+                    mnar.train.x, mnar.train.mask, ecfg, params=card_p,
+                    noise=noise, save=False, device="cuda")
+            launched = counts()
+            if launched != no_kernel:
+                raise AssertionError(f"MNAR eval of {ecfg.vae_type} "
+                                     f"launched {launched}")
+            replay = iter([t.cpu() for t in kept])
+            want = evaluate.eval_vae_mnar(
+                mnar.train.x.cpu(), mnar.train.mask.cpu(), ecfg,
+                params=cpu_p, save=False, device="cpu",
+                noise=lambda kind, rep, step, shape: next(replay))
+            if next(replay, None) is not None:
+                raise AssertionError(f"MNAR eval of {ecfg.vae_type}: the "
+                                     "CPU drew less noise")
+            if not (np.isfinite(got) and abs(got - want) <= MNAR_RMSE_ATOL):
+                raise AssertionError(f"MNAR eval of {ecfg.vae_type}: card "
+                                     f"{got!r}, CPU {want!r}, tolerance "
+                                     f"{MNAR_RMSE_ATOL}")
+            print(f"{ecfg.vae_type} MNAR RMSE over {mnar.train.n} rows x "
+                  f"{mnar.obs_dim}: card {got:.6f}, CPU {want:.6f} (diff "
+                  f"{abs(got - want):.3e}); launches {launched}", flush=True)
+
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation_mnar,
+    )
+    with phase("MNAR grid (b): experiment_main/imputation_mnar.py over both "
+               "records of Data/imputation_args_mnar.json as they stand"):
+        real_train, real_eval = trainer.train, evaluate.eval_vae_mnar
+        per_record = []
+
+        def timed_train(dataset, cfg, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_train(dataset, cfg, *args, **kw)
+            torch.cuda.synchronize()
+            per_record.append({"cfg": cfg,
+                               "train_s": time.perf_counter() - t0})
+            return out
+
+        def measured_eval(*args, **kw):
+            """The entry point's evaluation, its peak device memory and a
+            trace of it under torch.profiler."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                rmse = real_eval(*args, **kw)
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+            per_record[-1].update(
+                eval_s=eval_s, rmse=rmse, base=base,
+                peak=torch.cuda.max_memory_allocated(),
+                on_card=profile_train.device_events(prof))
+            return rmse
+
+        with tempfile.TemporaryDirectory() as tmp:
+            os.symlink(REPO / "Data", Path(tmp) / "Data")
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            trainer.train, evaluate.eval_vae_mnar = timed_train, measured_eval
+            reset_counts()
+            try:
+                with no_plain_on_card():
+                    rc = imputation_mnar.main([])
+            finally:
+                trainer.train, evaluate.eval_vae_mnar = real_train, real_eval
+                os.chdir(cwd)
+            grid_counts = counts()
+            if rc != 0 or grid_counts != no_kernel:
+                raise AssertionError(f"the MNAR grid returned {rc}, launched "
+                                     f"{grid_counts}")
+            if [r["cfg"].vae_type for r in per_record] != [
+                    c.vae_type for c in mnar_cfgs]:
+                raise AssertionError(f"the MNAR grid ran "
+                                     f"{[r['cfg'] for r in per_record]}")
+            for r, mcfg in zip(per_record, mnar_cfgs):
+                if r["cfg"] != mcfg:
+                    raise AssertionError(f"the MNAR grid ran {r['cfg']}, "
+                                         f"not {mcfg}")
+                root = str(Path(tmp) / "experiments")
+                saved = torch.load(
+                    artifacts.eval_mnar_paths(mcfg, root)["rmse"],
+                    weights_only=False)
+                if not (np.isfinite(r["rmse"]) and saved.item() == r["rmse"]
+                        and Path(checkpoint.checkpoint_path(mcfg,
+                                                            root)).is_file()):
+                    raise AssertionError(f"{mcfg.vae_type}: RMSE "
+                                         f"{r['rmse']!r}, artifact "
+                                         f"{saved.item()!r}")
+                on_card = r["on_card"]
+                ms = r["eval_s"] * 1e3
+                wall = r["train_s"] + r["eval_s"]
+                line = (f"{mcfg.vae_type}: wall-clock {wall:.6f} s (train "
+                        f"{r['train_s']:.6f} s, eval {ms:.6f} ms, "
+                        f"the eval under torch.profiler); RMSE "
+                        f"{r['rmse']:.6f}, artifact and checkpoint at their "
+                        f"reference names; eval at valid_k {mcfg.valid_k} "
+                        f"over {mcfg.M} rep of 178 rows: peak device memory "
+                        f"{r['peak'] / 2**20:.3f} MiB "
+                        f"({(r['peak'] - r['base']) / 2**20:.3f} MiB above "
+                        f"the {r['base'] / 2**20:.3f} MiB held before)")
+                if on_card:
+                    busy = profile_train.busy_ms(on_card)
+                    top = profile_train.top_device_ms(on_card).most_common(6)
+                    line += (f"; device busy {busy:.6f} ms ({busy / ms:.1%}"
+                             f"), {len(on_card)} device operations; top "
+                             "device ms: " + "; ".join(
+                                 f"{n} {t:.6f}" for n, t in top))
+                else:
+                    line += ("; device busy share not measured, the trace "
+                             "held no device event")
+                print(line + f" [{card}]", flush=True)
 
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"

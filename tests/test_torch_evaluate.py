@@ -64,6 +64,10 @@ class JaxEvalKeys:
         if kind == "mask_p":
             return _t(jax.random.uniform(k_maskp, shape))
         assert kind == "eps", kind
+        return self.eps(k_model, shape)
+
+    def eps(self, k_model, shape):
+        """The eps the family's JAX `eval_step` draws from its key."""
         if self.family in ("gauss", "flow"):
             return _t(jax.random.normal(k_model, shape))
         kq, kp = jax.random.split(k_model)
@@ -238,26 +242,43 @@ def test_eval_vae_loads_the_trained_checkpoint(tmp_path):
             teval.eval_vae(tds, tc, params=tparams, save=False)
 
 
-@pytest.mark.parametrize("vae_type", ["reg_vae1", "vanilla_EDDI1"])
-def test_completion_matches_jax(vae_type):
-    jc = jcfg.RunConfig(vae_type=vae_type, seed=2)
-    tc = tcfg.RunConfig(vae_type=vae_type, seed=2)
-    jparams, tparams = _params(jc, 6)
+@pytest.mark.parametrize("kw", [
+    dict(vae_type="reg_vae1"), dict(vae_type="vanilla_EDDI1"),
+    dict(vae_type="vanilla_MIWAE1", valid_k=7),
+    dict(vae_type="reg_MIWAE1", valid_k=7),
+    dict(vae_type="vanilla_notMIWAE1", valid_k=7),
+    dict(vae_type="reg_flow1", flow_actnorm=True, latent_dim=4, hid_dim=16),
+], ids=lambda kw: kw["vae_type"])
+def test_completion_matches_jax(kw):
+    """Sample m replays JAX's key split(key, M)[m] through the family's
+    eval_step draws: K = valid_k importance samples a row for MIWAE and
+    notMIWAE, reg_MIWAE1's p branch under the given mask_p, the flow with
+    its ActNorm list of parameters."""
+    jc = jcfg.RunConfig(seed=2, **kw)
+    tc = tcfg.RunConfig(seed=2, **kw)
+    jparams = jget_model(jc).init(jax.random.PRNGKey(7), jc, 6)
+    if jc.flow_actnorm:
+        from test_torch_flow_vae import _random_actnorm
+        jparams = _random_actnorm(jparams, jc.latent_dim)
+    tparams = tckpt.params_from_jax(jckpt._flatten(jparams), "cpu")
     rng = np.random.default_rng(11)
     x = rng.uniform(0.0, 1.0, (5, 6)).astype(np.float32)
     mask = (rng.random((5, 6)) < 0.7).astype(np.float32)
+    mask_p = mask * (rng.random((5, 6)) < 0.7).astype(np.float32)
     key = jax.random.PRNGKey(4)
     want = np.asarray(jinf.completion(jparams, jnp.asarray(x),
-                                      jnp.asarray(mask), jnp.asarray(mask), 3,
-                                      jc, key=key))
-    eps = torch.stack([_t(jax.random.normal(k, (5, jc.latent_dim)))
-                       for k in jax.random.split(key, 3)])
-    got = tinf.completion(tparams, torch.from_numpy(x), torch.from_numpy(mask),
-                          torch.from_numpy(mask), 3, tc, eps=eps)
+                                      jnp.asarray(mask), jnp.asarray(mask_p),
+                                      3, jc, key=key))
+    shape = get_model(tc).eval_noise(tc, 5, 6)["eps"]
+    eps = {"eps": torch.stack([JaxEvalKeys(None, tc).eps(k, shape)
+                               for k in jax.random.split(key, 3)])}
+    args = (torch.from_numpy(x), torch.from_numpy(mask),
+            torch.from_numpy(mask_p), 3, tc)
+    got = tinf.completion(tparams, *args, eps=eps)
     assert got.shape == (3, 5, 6)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
-    drawn = tinf.completion(tparams, torch.from_numpy(x),
-                            torch.from_numpy(mask), None, 3, tc)
-    again = tinf.completion(tparams, torch.from_numpy(x),
-                            torch.from_numpy(mask), None, 3, tc)
+    drawn = tinf.completion(tparams, *args)
+    again = tinf.completion(tparams, *args)
     assert torch.equal(drawn, again) and drawn.shape == (3, 5, 6)
+    with pytest.raises(ValueError, match="eps of shapes"):
+        tinf.completion(tparams, *args, eps={"eps": eps["eps"][:2]})

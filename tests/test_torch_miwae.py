@@ -512,11 +512,52 @@ def test_full_budget_script_reads_the_miwae_rows_and_runs(vae_type, capsys):
     assert np.isfinite(result["seeds"][0]["test_rmse"])
 
 
-def test_full_budget_script_refuses_the_mnar_notmiwae_row(capsys):
+def test_full_budget_script_runs_the_mnar_notmiwae_row_as_jax_ran_it(
+        capsys, monkeypatch):
+    """reg_notMIWAE1's JAX row is an MNAR run: the port's configuration and
+    loader call are those of tools/parity_check.py:run_ours_mnar (called
+    with the row's batch size and the :488-490 importance samples, caught
+    at its train call), and the row is found although it records
+    missing_rate 30 for a run at 50."""
+    import tools.parity_check as parity_check
+    from vae_posterior_consistency_tpu.data import loaders as jloaders
+    from vae_posterior_consistency_tpu.engine import train as jtrain
     from vae_posterior_consistency_tpu_torch.engine import parity_full_budget
-    with pytest.raises(NotImplementedError, match="MNAR.*slice 8"):
-        parity_full_budget.row_config("reg_notMIWAE1")
-    assert parity_full_budget.main(["--vae_type", "reg_notMIWAE1",
-                                    "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "reg_notMIWAE1" in err and "MNAR" in err
+
+    class Caught(Exception):
+        pass
+
+    calls = []
+
+    def loader(*args, **kw):
+        calls.append((args, kw))
+        return jload(*args, **kw)
+
+    def train(ds, cfg, **kw):
+        raise Caught(cfg)
+
+    jload = jloaders.data_loader_mnar
+    monkeypatch.setattr(jloaders, "data_loader_mnar", loader)
+    monkeypatch.setattr(jtrain, "train", train)
+    config = parity_full_budget.row_config("reg_notMIWAE1")
+    row = parity_full_budget.jax_row(config)
+    with pytest.raises(Caught) as caught:
+        parity_check.run_ours_mnar("reg_notMIWAE1", row["data_type"], 1,
+                                   row["batch_size"], 0, 10, 50)
+    jax_cfg = caught.value.args[0]
+    assert config == {k: getattr(jax_cfg, k) for k in config}
+    assert calls == [(("Data", "reg_notMIWAE1", 50, config["batch_size"],
+                       config["data_type"]), {})]
+    assert (row["vae_type"], row["missing_rate"], row["epochs"],
+            row["seeds"]) == ("reg_notMIWAE1", 30, 3000, 4)
+    monkeypatch.undo()
+
+    rc = parity_full_budget.main(["--vae_type", "reg_notMIWAE1", "--epochs",
+                                  "1", "--seeds", "1", "--device", "cpu"])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["config"] == config and result["epochs"] == 1
+    assert result["test_rmse"]["jax_mean"] == row["report"]["test"]["rmse"][
+        "ours_mean"] == 0.319674476981163
+    assert rc == (0 if result["verdict"] == "PARITY OK" else 1)
+    assert list(result["means"]) == ["test_rmse"]
+    assert np.isfinite(result["seeds"][0]["test_rmse"])

@@ -1,10 +1,12 @@
 """Dataset loading into tensors on one device (port of the JAX package's
-`data/loaders.py`: the UCI MCAR pipeline and MNIST).
+`data/loaders.py`: the UCI MCAR and MNAR pipelines and MNIST).
 
 Reads the same artifacts as the JAX package with `torch.load`: `data.pt`,
 `mask_{rate}_missing{i}.pt` and the `{train,test}_index{i}.csv` split
-indices for UCI tables (reference: src/utils/loaders.py:319-354), and the
-prebuilt `experiment_{train,test}_{data,mask}.pt` for MNIST (reference:
+indices for UCI tables (reference: src/utils/loaders.py:319-354), the
+`rand_perm{i}.pt` row order and `mnar_mask_missing{i}.pt` of the MNAR
+pipeline (reference: src/utils/loaders.py:357-384), and the prebuilt
+`experiment_{train,test}_{data,mask}.pt` for MNIST (reference:
 src/utils/loaders.py:249-316). Normalisation runs in numpy on the host, as
 in the JAX package, so both packages see the same float32 values.
 """
@@ -90,6 +92,30 @@ def data_loader(data_path, vae_type, missing_rate, batch_size, data_type,
 
     return Dataset(train=split(tr, "train"), test=split(te, "test"),
                    obs_dim=data.shape[1])
+
+
+def data_loader_mnar(data_path, vae_type, missing_rate, batch_size, data_type,
+                     data_transform="minmax", device="cuda") -> Dataset:
+    """The MNAR pipeline (reference: src/utils/loaders.py:357-384): the
+    table's rows in `rand_perm{i}.pt` order with the last (target) column
+    dropped, and `mnar_mask_missing{i}.pt`, its last column dropped. The
+    mask file was built from the permuted table (the JAX package's
+    data/generate.py), so it is not permuted again. One split, 'train'; no
+    test split. `missing_rate` and `batch_size` are unused, as in the JAX
+    package."""
+    index = parse_vae_type(vae_type).split_index or "1"
+    base = os.path.join(data_path, data_type)
+    data = _load_np(os.path.join(base, "data.pt")).astype(np.float32)
+    perm = _load_np(os.path.join(base, f"rand_perm{index}.pt")).astype(
+        np.int64)
+    data = data[perm, :][:, :-1]
+    mask = _load_np(os.path.join(
+        base, f"mnar_mask_missing{index}.pt")).astype(np.float32)[:, :-1]
+    data = _transform(data, data_transform)
+    train = Split(torch.from_numpy(np.ascontiguousarray(data)).to(device),
+                  torch.from_numpy(np.ascontiguousarray(mask)).to(device),
+                  "train")
+    return Dataset(train=train, test=None, obs_dim=data.shape[1])
 
 
 def data_loader_mnist(data_path, vae_type, missing_rate, batch_size,

@@ -1,13 +1,13 @@
 """Result artifacts: the reference's paths and `.pt` scalars, and a
-structured `metrics.jsonl` (port of the JAX package's `engine/artifacts.py`,
-the MCAR part: the VAE and MIWAE evaluators' paths).
+structured `metrics.jsonl` (port of the JAX package's `engine/artifacts.py`:
+the VAE, MIWAE and MNAR evaluators' paths).
 
 The reference writes every headline metric as a torch-saved tensor in a
 deep, name-mangled directory tree (reference:
-src/experiment_main/evaluate.py:247-297). The paths here are the JAX
+src/experiment_main/evaluate.py:247-297, 58-69). The paths here are the JAX
 package's character for character, and each file holds what the JAX package
-writes there: a 0-d float64 tensor for a Python float. The MNAR and
-active-learning paths come with their slice.
+writes there: a 0-d float64 tensor for a Python float. The active-learning
+paths come with their slice.
 """
 
 from __future__ import annotations
@@ -109,4 +109,19 @@ def eval_miwae_paths(cfg: RunConfig, stage: str,
     else:
         name = (f"{stage}_{cfg.vae_type}_rmse_{cfg.alpha}_{cfg.p_missingness}"
                 f"_{cfg.reg_type}_full_reg_50_missing_rate_test.pt")
+    return {"rmse": os.path.join(rest, fam, name)}
+
+
+def eval_mnar_paths(cfg: RunConfig, root: str = "experiments") -> dict:
+    """The MNAR evaluator's one artifact, its rmse (reference:
+    src/experiment_main/evaluate.py:58-69). Its folder is the whole
+    vae_type with every digit stripped, where the other savers use
+    `family_dir`."""
+    fam = strip_digits(cfg.vae_type)
+    rest = _base(cfg, root, "rest")
+    if "vanilla" in cfg.vae_type:
+        name = f"{cfg.vae_type}_rmse_{cfg.not_miwae_type}_large_batch_test.pt"
+    else:
+        name = (f"{cfg.vae_type}_rmse_{cfg.alpha}_{cfg.p_missingness}_"
+                f"{cfg.reg_type}_full_reg_large_batch_v2_test.pt")
     return {"rmse": os.path.join(rest, fam, name)}

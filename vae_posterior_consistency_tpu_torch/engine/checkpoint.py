@@ -89,6 +89,13 @@ def unflatten(flat: dict) -> dict:
     return _lists(params)
 
 
+def on_device(params, device) -> dict:
+    """A detached float32 copy of nested parameters (dicts, lists) on
+    `device`."""
+    return unflatten({k: v.detach().to(device=device, dtype=torch.float32)
+                      for k, v in flatten(params).items()})
+
+
 def params_from_jax(flat: dict, device) -> dict:
     """The JAX package's flat parameters {"encoder/layer0/w": ndarray, ...}
     (its checkpoint contents) -> the port's nested dict of tensors on

@@ -1,5 +1,6 @@
-"""MCAR evaluation (port of the JAX package's `engine/evaluate.py`: `eval_vae`
-with `_pad_batches` and `_save_eval_artifacts`).
+"""MCAR and MNAR evaluation (port of the JAX package's `engine/evaluate.py`:
+`eval_vae` with `_pad_batches` and `_save_eval_artifacts`, and
+`eval_vae_mnar` with its one-rep function).
 
 Reference behaviour (src/experiment_main/evaluate.py:136-297), as the JAX
 package has it: both splits, train then test, each over cfg.M Monte-Carlo
@@ -38,6 +39,15 @@ for each split, as the JAX package derives both splits' keys from the same
 PRNGKey(seed + 1). A given source serves both splits as it is: a stateless
 one (for instance one that replays the JAX key stream) then gives both the
 same draws.
+
+MNAR (reference: src/experiment_main/evaluate.py:13-69), as the JAX package
+has it: cfg.M reps, each one `eval_step` over the whole matrix (K =
+cfg.valid_k importance samples a row for the 'miwae' families), its RMSE
+sqrt(se / #holes) over all the holes, unclamped; the mean over the reps.
+Its noise comes from a source called as `noise(kind, rep, 0, shape)` for
+the family's `eval_noise(cfg, N, D)` draws, "mask_p" only where the family
+lists it, as in `eval_vae`; the default is `train.GeneratorNoise(cfg.seed +
+2, device)`, as the JAX package keys it PRNGKey(seed + 2).
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ from typing import Optional
 import torch
 
 from vae_posterior_consistency_tpu_torch.config import RunConfig
-from vae_posterior_consistency_tpu_torch.data.loaders import Dataset
+from vae_posterior_consistency_tpu_torch.data.loaders import Dataset, Split
 from vae_posterior_consistency_tpu_torch.engine import artifacts, checkpoint
 from vae_posterior_consistency_tpu_torch.engine.train import (
     GeneratorNoise,
@@ -67,6 +77,16 @@ def _pad_batches(n: int, bsz: int):
     return steps, steps * bsz - n
 
 
+def _draw(model, cfg: RunConfig, noise, rep: int, step: int, x, mask):
+    """A batch's draws, `ModelDef.eval_noise`: (mask_p or None, eps)."""
+    drawn = {kind: noise(kind, rep, step, shape).to(x.device) for kind, shape
+             in model.eval_noise(cfg, *x.shape).items()}
+    mask_p = (masks.sub_mask(mask, cfg.p_missingness,
+                             uniforms=drawn["mask_p"])
+              if "mask_p" in drawn else None)
+    return mask_p, drawn["eps"]
+
+
 def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
     """One split over cfg.M reps -> {metric: float}; one host sync."""
     device = x.device
@@ -83,12 +103,8 @@ def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
         for s in range(steps):
             rows = slice(s * bsz, (s + 1) * bsz)
             x_b, m_b, w_b = x_rep[rows], m_rep[rows], valid[rows]
-            drawn = {kind: noise(kind, m, s, shape).to(device) for kind, shape
-                     in model.eval_noise(cfg, bsz, x.shape[1]).items()}
-            mask_p = (masks.sub_mask(m_b, cfg.p_missingness,
-                                     uniforms=drawn["mask_p"])
-                      if "mask_p" in drawn else None)
-            out = model.eval_step(params, x_b, m_b, mask_p, drawn["eps"], cfg)
+            mask_p, eps = _draw(model, cfg, noise, m, s, x_b, m_b)
+            out = model.eval_step(params, x_b, m_b, mask_p, eps, cfg)
             hole = (1.0 - m_b) * w_b[:, None]
             se = torch.sum(torch.square((out["x_imputed"] - x_b) * hole))
             cnt = torch.sum(w_b)
@@ -133,9 +149,7 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
     model = get_model(cfg)
     if params is None:
         params = load_trained(dataset, cfg, experiments_root, device=device)
-    params = checkpoint.unflatten({
-        k: v.detach().to(device=device, dtype=torch.float32)
-        for k, v in checkpoint.flatten(params).items()})
+    params = checkpoint.on_device(params, device)
 
     results = {}
     with torch.no_grad():
@@ -153,3 +167,43 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
                 _save_eval_artifacts(cfg, model, split.stage, agg,
                                      experiments_root)
     return results
+
+
+def _mnar_rep(model, cfg: RunConfig, params, x, mask, noise, rep: int):
+    """One MNAR rep: one `eval_step` over the whole matrix, and its RMSE
+    over all the holes (a 0-d tensor on the device)."""
+    mask_p, eps = _draw(model, cfg, noise, rep, 0, x, mask)
+    out = model.eval_step(params, x, mask, mask_p, eps, cfg)
+    hole = 1.0 - mask
+    se = torch.sum(torch.square(out["x_imputed"] * hole - x * hole))
+    return torch.sqrt(se / torch.sum(hole))
+
+
+def eval_vae_mnar(data, mask, cfg: RunConfig, params: Optional[dict] = None,
+                  experiments_root: str = "experiments", noise=None,
+                  save: bool = True, device="cuda") -> float:
+    """MNAR evaluation of the matrix `data` [N, D] under `mask` (reference:
+    evaluate.py:13-69): the mean over cfg.M reps of the full-matrix RMSE,
+    read from the device once; with `save`, its artifact
+    (`artifacts.eval_mnar_paths`) and an "rmse_mnar" metric at stage
+    "test". `params=None` loads the trained checkpoint."""
+    device = check_device(device)
+    model = get_model(cfg)
+    x = torch.as_tensor(data).to(device=device, dtype=torch.float32)
+    mask = torch.as_tensor(mask).to(device=device, dtype=torch.float32)
+    if params is None:
+        dataset = Dataset(train=Split(x, mask, "train"), test=None,
+                          obs_dim=x.shape[1])
+        params = load_trained(dataset, cfg, experiments_root, device=device)
+    params = checkpoint.on_device(params, device)
+    noise = GeneratorNoise(cfg.seed + 2, device) if noise is None else noise
+    with torch.no_grad():
+        # one rep at a time, as the JAX package maps over them
+        reps = [_mnar_rep(model, cfg, params, x, mask, noise, m)
+                for m in range(cfg.M)]
+        rmse = torch.stack(reps).mean().item()  # the one host sync
+    if save:
+        paths = artifacts.eval_mnar_paths(cfg, experiments_root)
+        artifacts.save_tensor(rmse, paths["rmse"])
+        artifacts.log_metric(cfg, "rmse_mnar", rmse, "test", experiments_root)
+    return rmse

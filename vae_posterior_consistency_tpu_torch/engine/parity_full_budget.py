@@ -1,13 +1,17 @@
 """Full-budget statistical parity of the port against the JAX package: a
 `vae_type` (the flagship `reg_vae1` by default; also `reg_flow1`,
-`vanilla_flow1`, `vanilla_MIWAE1`, `reg_MIWAE1`, ...) with `kl_reg` on
-Data/wine split 1, trained and evaluated as `tools/parity_check.py:run_ours`
-does for the JAX row (3000 epochs, batch 64, missing_rate 30, M=2, alpha
-1.0, p_missingness 30, seeds 0-3; for the MIWAE rows train_k 10 and valid_k
-50, tools/parity_check.py:488-490; the other fields at their `RunConfig`
-defaults). The notMIWAE row (`reg_notMIWAE1`) is an MNAR run of the JAX
-package (`run_ours_mnar`), which the port cannot make yet: the script
-refuses it by name.
+`vanilla_flow1`, `vanilla_MIWAE1`, `reg_MIWAE1`, `reg_notMIWAE1`, ...) with
+`kl_reg` on Data/wine split 1, trained and evaluated as
+`tools/parity_check.py` does for the JAX row. An MCAR row runs as `run_ours`
+ran it (3000 epochs, batch 64, missing_rate 30, M=2, alpha 1.0,
+p_missingness 30, seeds 0-3; for the MIWAE rows train_k 10 and valid_k 50,
+tools/parity_check.py:488-490; the other fields at their `RunConfig`
+defaults), its score the test split's RMSE of `eval_vae`. The notMIWAE row
+is an MNAR run, as `run_ours_mnar` ran it (tools/parity_check.py:325-343):
+`data_loader_mnar` on the permuted table, missing_rate 50, p_missingness
+50, M=2, alpha 1.0, train_k 10, valid_k 50, `not_miwae_type` 'changed',
+`reg_notmiwae_variant` 'v2'; its score, the "test RMSE" of the JAX row, is
+`eval_vae_mnar`'s full-matrix RMSE.
 
     python -m vae_posterior_consistency_tpu_torch.engine.parity_full_budget \
         [--vae_type reg_vae1] [--epochs 3000] [--seeds 4] [--device cuda] \
@@ -21,10 +25,10 @@ with the 3% band of the full-budget rows:
     |port_mean - jax_mean| <= 3 * (sigma_jax + sigma_port) + 0.03 * |jax_mean|
 
 on the test RMSE over the seeds (sigma the population std, as
-tools/parity_check.py computes it). It prints each seed's train and test
-metrics and wall-clock, the means, the tolerance, the verdict and the card's
-name and power limit, and as its last line one JSON object of all of them
-(also written to `--out`). The exit code is 0 for PARITY OK, 1 otherwise.
+tools/parity_check.py computes it). It prints each seed's metrics and
+wall-clock, the means, the tolerance, the verdict and the card's name and
+power limit, and as its last line one JSON object of all of them (also
+written to `--out`). The exit code is 0 for PARITY OK, 1 otherwise.
 """
 
 from __future__ import annotations
@@ -51,18 +55,35 @@ JAX_ROWS = REPO / "tools" / "parity_full_budget.jsonl"
 #: all but the vae_type
 CONFIG = dict(reg_type="kl_reg", data_type="wine", batch_size=64,
               missing_rate=30, M=2, alpha=1.0, p_missingness=30)
-#: the importance samples of the MIWAE rows (tools/parity_check.py:488-490)
+#: the importance samples of the MIWAE and notMIWAE rows
+#: (tools/parity_check.py:488-490)
 IW_SAMPLES = dict(train_k=10, valid_k=50)
+#: the MNAR row's configuration (tools/parity_check.py:run_ours_mnar), all
+#: but the vae_type
+MNAR_CONFIG = dict(reg_type="kl_reg", data_type="wine", batch_size=64,
+                   missing_rate=50, M=2, alpha=1.0, p_missingness=50,
+                   **IW_SAMPLES, not_miwae_type="changed",
+                   reg_notmiwae_variant="v2")
+#: the missing_rate the JSONL gives the MNAR row: the recorder's
+#: --missing_rate default, not the 50 that run_ours_mnar runs at
+MNAR_ROW_MISSING_RATE = 30
 BAND = 0.03
 METRICS = ("rmse", "loss", "negl", "negl_imp")
 
 
+def is_mnar(config: dict) -> bool:
+    return get_model(RunConfig(vae_type=config["vae_type"])).name == "notmiwae"
+
+
 def jax_row(config: dict) -> dict:
     """The JAX package's full-budget record of `config`."""
+    want = dict(config)
+    if is_mnar(config):
+        want["missing_rate"] = MNAR_ROW_MISSING_RATE
     with open(JAX_ROWS) as fh:
         for line in fh:
             rec = json.loads(line)
-            if all(rec.get(k) == config[k] for k in
+            if all(rec.get(k) == want[k] for k in
                    ("vae_type", "reg_type", "data_type", "batch_size",
                     "missing_rate")):
                 return rec
@@ -71,13 +92,10 @@ def jax_row(config: dict) -> dict:
 
 
 def row_config(vae_type: str) -> dict:
-    """The configuration of `vae_type`'s JAX row; raises for the notMIWAE
-    row, an MNAR run."""
+    """The configuration of `vae_type`'s JAX row."""
     family = get_model(RunConfig(vae_type=vae_type)).name
     if family == "notmiwae":
-        raise NotImplementedError(
-            f"{vae_type}: the JAX row is an MNAR run (tools/parity_check.py "
-            "run_ours_mnar); MNAR loading and evaluation come with slice 8")
+        return dict(vae_type=vae_type, **MNAR_CONFIG)
     config = dict(vae_type=vae_type, **CONFIG)
     if family == "miwae":
         config.update(IW_SAMPLES)
@@ -94,22 +112,37 @@ def card_name() -> str:
         return "nvidia-smi not available"
 
 
+def metric_names(config: dict) -> list:
+    """The metrics a seed reports: an MNAR run's one RMSE, as the test
+    RMSE; each split's four of `eval_vae` for an MCAR run."""
+    if is_mnar(config):
+        return ["test_rmse"]
+    return [f"{stage}_{k}" for stage in ("train", "test") for k in METRICS]
+
+
 def run_seed(config: dict, seed: int, epochs: int, device) -> dict:
-    """Train and evaluate one seed; its metrics per split and wall-clock."""
+    """Train and evaluate one seed; its metrics and wall-clock."""
     cfg = RunConfig(**config, epoch=epochs, seed=seed)
-    ds = loaders.data_loader(str(REPO / cfg.data_path), cfg.vae_type,
-                             cfg.missing_rate, cfg.batch_size, cfg.data_type,
-                             device=device)
+    load = loaders.data_loader_mnar if is_mnar(config) else loaders.data_loader
+    ds = load(str(REPO / cfg.data_path), cfg.vae_type, cfg.missing_rate,
+              cfg.batch_size, cfg.data_type, device=device)
     t0 = time.perf_counter()
     # train() reads each epoch's loss on the host: the card is done here
     params, history = train.train(ds, cfg, save=False, device=device)
     t_train = time.perf_counter() - t0
-    res = evaluate.eval_vae(ds, cfg, params=params, save=False, device=device)
+    if is_mnar(config):
+        metrics = {"test_rmse": evaluate.eval_vae_mnar(
+            ds.train.x, ds.train.mask, cfg, params=params, save=False,
+            device=device)}
+    else:
+        res = evaluate.eval_vae(ds, cfg, params=params, save=False,
+                                device=device)
+        metrics = {f"{stage}_{k}": res[stage][k] for stage in res
+                   for k in METRICS}
     t_all = time.perf_counter() - t0
     return {"seed": seed, "train_s": t_train, "eval_s": t_all - t_train,
             "first_epoch_loss": history[0], "last_epoch_loss": history[-1],
-            **{f"{stage}_{k}": res[stage][k] for stage in res
-               for k in METRICS}}
+            **metrics}
 
 
 def verdict(port: list, jax_mean: float, jax_std: float):
@@ -135,11 +168,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    try:
-        config = row_config(args.vae_type)
-    except NotImplementedError as exc:
-        print(f"parity_full_budget: {exc}", file=sys.stderr)
-        return 2
+    config = row_config(args.vae_type)
+    names = metric_names(config)
     device = train.check_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,15 +187,12 @@ def main(argv=None) -> int:
         print(f"seed {seed}: train {r['train_s']:.3f} s, eval "
               f"{r['eval_s']:.3f} s; loss {r['first_epoch_loss']:.6f} -> "
               f"{r['last_epoch_loss']:.6f}", flush=True)
-        for stage in ("train", "test"):
-            print(f"  [{stage}] " + "  ".join(
-                f"{k}={r[f'{stage}_{k}']:.6f}" for k in METRICS), flush=True)
+        print("  " + "  ".join(f"{k}={r[k]:.6f}" for k in names), flush=True)
 
     port_test = [r["test_rmse"] for r in seeds]
     mean, std, diff, tol, word = verdict(port_test, jax_test["ours_mean"],
                                          jax_test["ours_std"])
-    means = {f"{stage}_{k}": float(np.mean([r[f"{stage}_{k}"] for r in seeds]))
-             for stage in ("train", "test") for k in METRICS}
+    means = {k: float(np.mean([r[k] for r in seeds])) for k in names}
     print(f"means over {args.seeds} seeds: " + "  ".join(
         f"{k}={v:.6f}" for k, v in means.items()), flush=True)
     print(f"test RMSE: port {mean:.6f} +- {std:.6f}, JAX "

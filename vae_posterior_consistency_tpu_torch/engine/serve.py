@@ -8,11 +8,17 @@ HTTP endpoint (port of the JAX package's `engine/serve.py`).
 - `make_http_server` / `serve_http`: POST /impute with JSON
   {"x": [[...]], "mask": [[...]]}.
 
-The posterior sample's noise comes from a `torch.Generator` on the server's
-device seeded with `cfg.seed + 9`, as the JAX server seeds its key. A caller
-may pass its own noise source instead: `noise(ctr, shape)` returns the
-standard-normal eps, a float32 tensor of `shape`, for request number `ctr`
-(1, 2, ...).
+It serves every family. A request draws the family's evaluation noise,
+`ModelDef.eval_noise(cfg, bucket, D)` without "mask_p": the server hands
+`eval_step` an all-ones `mask_p`, as the JAX server does. That is "eps",
+standard normals of [bucket, latent_dim] for gauss and the flow,
+[bucket, valid_k, latent_dim] for notMIWAE and a vanilla MIWAE type, and
+[2, bucket, valid_k, latent_dim] for a regularized MIWAE type's q and p
+branches (K = cfg.valid_k, as the JAX `eval_step` takes it). The noise comes
+from a `torch.Generator` on the server's device seeded with `cfg.seed + 9`,
+as the JAX server seeds its key. A caller may pass its own noise source
+instead: `noise(kind, ctr, shape)` returns the draw of `kind`, a float32
+tensor of `shape`, for request number `ctr` (1, 2, ...).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from vae_posterior_consistency_tpu_torch.config import RunConfig
+from vae_posterior_consistency_tpu_torch.engine import checkpoint
 from vae_posterior_consistency_tpu_torch.models import get_model
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
@@ -37,8 +44,10 @@ class GeneratorNoise:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-    def __call__(self, ctr: int, shape):
-        del ctr  # the generator's own state advances request by request
+    def __call__(self, kind: str, ctr: int, shape):
+        # every kind a server draws is standard normal; the generator's own
+        # state advances draw by draw
+        del kind, ctr
         return torch.randn(shape, generator=self.generator, device=self.device)
 
 
@@ -53,7 +62,7 @@ class ImputationServer:
         self.model = get_model(cfg)
         self.obs_dim = obs_dim
         self.buckets = tuple(sorted(buckets))
-        self.params = _to(params, self.device)
+        self.params = checkpoint.on_device(params, self.device)
         self._noise = (GeneratorNoise(cfg.seed + 9, self.device)
                        if noise is None else noise)
         # itertools counters are atomic under the GIL, so concurrent
@@ -86,28 +95,29 @@ class ImputationServer:
             x = np.concatenate([x, np.zeros((pad, x.shape[1]), np.float32)])
             mask = np.concatenate(
                 [mask, np.ones((pad, mask.shape[1]), np.float32)])
-        shape = (bucket, self.cfg.latent_dim)
-        eps = self._noise(next(self._ctr), shape)
-        if tuple(eps.shape) != shape or eps.dtype != torch.float32:
-            raise ValueError(f"noise source gave {eps.dtype} "
-                             f"{tuple(eps.shape)}, want float32 {shape}")
+        ctr = next(self._ctr)
+        drawn = {}
+        for kind, shape in self.model.eval_noise(self.cfg, bucket,
+                                                 self.obs_dim).items():
+            if kind == "mask_p":
+                continue
+            t = self._noise(kind, ctr, shape)
+            if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
+                raise ValueError(f"noise source gave {kind} {t.dtype} "
+                                 f"{tuple(t.shape)}, want float32 {shape}")
+            drawn[kind] = t.to(self.device)
         with torch.inference_mode():
             x_t = torch.from_numpy(x).to(self.device)
             m_t = torch.from_numpy(mask).to(self.device)
-            eps = eps.to(self.device)
             out = self.model.eval_step(self.params, x_t, m_t,
-                                       torch.ones_like(m_t), eps, self.cfg)
+                                       torch.ones_like(m_t), drawn["eps"],
+                                       self.cfg)
             # fill only the missing cells; keep observed values verbatim
             filled = x_t * m_t + out["x_imputed"] * (1.0 - m_t)
             # quality score: the per-row negative evidence bound
             both = torch.cat([filled, out["row_loss"][:, None]], dim=1)
             both = both[:n].cpu().numpy()  # one device->host copy
         return both[:, :-1], both[:, -1]
-
-
-def _to(params, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in params.items()}
 
 
 def make_http_server(server: ImputationServer, host: str = "127.0.0.1",

@@ -113,13 +113,15 @@ def run_grid(records, probe, argv) -> list:
     return not_run
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if not os.path.isfile(GRID):
+def open_grid(grid: str, argv):
+    """The records of the JSONL `grid` and the parse of `argv` against the
+    first; flags whose engine the port lacks are refused and the device is
+    checked and printed before anything runs."""
+    if not os.path.isfile(grid):
         raise FileNotFoundError(
-            f"{os.path.abspath(GRID)} not found: run from the directory that "
-            "holds Data/imputation_args.json")
-    records = list(iter_jsonl_configs(GRID))
+            f"{os.path.abspath(grid)} not found: run from the directory that "
+            f"holds {grid}")
+    records = list(iter_jsonl_configs(grid))
     probe = setup_parser(records[0], "impute_eval").parse_args(argv)
     check_unported(probe)
     restart_opts(probe)
@@ -128,6 +130,12 @@ def main(argv=None) -> int:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the kernels' plain versions")
     print(f"Device: {device} ({name})", flush=True)
+    return records, probe
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    records, probe = open_grid(GRID, argv)
     not_run = run_grid(records, probe, argv)
     if not_run:
         print(f"{len(not_run)} run(s) not made, not ported yet:",

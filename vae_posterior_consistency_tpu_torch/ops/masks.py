@@ -1,5 +1,5 @@
-"""Missingness masks for training (port of the JAX package's `ops/masks.py`,
-the MCAR and EDDI drop-mask parts).
+"""Missingness masks (port of the JAX package's `ops/masks.py`: the MCAR and
+EDDI drop masks of training, and the MNAR generators).
 
 Semantics (reference: src/utils/utils.py:36-45, src/experiment_main/
 train.py:31-58): an MCAR cell is observed (1.0) when its uniform draw u
@@ -8,7 +8,8 @@ JAX package computes it; an EDDI drop-mask cell is kept when its second
 uniform u2 satisfies u2 < 1 - min(u1, 0.99), u1 its first. The uniforms are
 explicit: each function takes them as a tensor (`uniforms`) or draws them
 from a `torch.Generator` (`generator`), exactly one of the two, so a test
-can hand in the very uniforms JAX drew.
+can hand in the very uniforms JAX drew. The MNAR generators draw nothing:
+they are functions of the data (reference: src/utils/utils.py:48-105).
 """
 
 from __future__ import annotations
@@ -80,3 +81,49 @@ def train_masks(info, cfg, mask, *, uniforms=None, generator=None):
                               generator=generator, device=mask.device)
         return mask * drop, torch.ones_like(mask)
     return mask, torch.ones_like(mask)
+
+
+def _mnar_threshold(x, stat: str, half: bool) -> torch.Tensor:
+    """Hide (0.0) the cells above their column's statistic, the mean or the
+    variance with ddof=1, in the first D//2 columns (`half`) or in all of
+    them; the other cells are observed (1.0)."""
+    n, d = x.shape
+    d_sel = d // 2 if half else d
+    cols = x[:, :d_sel]
+    thresh = (torch.mean(cols, dim=0) if stat == "mean"
+              else torch.var(cols, dim=0, correction=1))
+    mask = torch.ones((n, d), dtype=torch.float32, device=x.device)
+    mask[:, :d_sel] = (~(cols > thresh)).to(torch.float32)
+    return mask
+
+
+def mnar_mask_mean_half(x) -> torch.Tensor:
+    """Hide cells above the column mean in the first D/2 features
+    (reference: src/utils/utils.py:48-60)."""
+    return _mnar_threshold(x, "mean", half=True)
+
+
+def mnar_mask_mean_all(x) -> torch.Tensor:
+    """Hide cells above the column mean in all features
+    (reference: src/utils/utils.py:63-75)."""
+    return _mnar_threshold(x, "mean", half=False)
+
+
+def mnar_mask_var_all(x) -> torch.Tensor:
+    """Hide cells above the column variance in all features
+    (reference: src/utils/utils.py:78-90)."""
+    return _mnar_threshold(x, "var", half=False)
+
+
+def mnar_mask_var_half(x) -> torch.Tensor:
+    """Hide cells above the column variance in the first D/2 features
+    (reference: src/utils/utils.py:93-105)."""
+    return _mnar_threshold(x, "var", half=True)
+
+
+MNAR_GENERATORS = {
+    "half_features_mnar_mean": mnar_mask_mean_half,
+    "all_features_mnar_mean": mnar_mask_mean_all,
+    "all_features_mnar_var": mnar_mask_var_all,
+    "half_features_mnar_var": mnar_mask_var_half,
+}
