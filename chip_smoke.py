@@ -12,7 +12,8 @@ Run from the root of a checkout. It drives only the port
    nvcc (plain C interface, loaded with ctypes), all sources at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving and training paths give it and beyond them (three masks, 64
-   features; and at the wine width, D=13, S=1 and 2, B=64 and 17): B2f
+   features; and at the wine width, D=13, S=1 and 2, B=64 and 17, and the
+   active-learning episode's S=1, B=10200): B2f
    (embed+pool forward), B2b (its backward, with and without the dmasks
    output), B1 (the posterior tail's forward, one launch of one
    block at every size) and B1's backward (strided
@@ -101,12 +102,32 @@ Run from the root of a checkout. It drives only the port
    eval_mnar_paths name, each checkpoint at its reference name; each
    record's wall-clock, and of its valid_k=10000 evaluation (1.78 M
    decoder rows in one eval_step) the peak device memory and, under
-   torch.profiler, the device's busy share and top operations.
+   torch.profiler, the device's busy share and top operations;
+13. active learning (a): engine/active_learning.al_step on the CPU against
+   the card, step by step from the card episode's masks and its recorded
+   noise, for grid records 34 (reg_vae1), 37 (reg_EDDI1, with the
+   `_with_drop` run's parameters: one pointnet model), 10 (reg_flow1) and
+   1 (reg_MIWAE1, valid_k 5000) with the parameters phase 7 trained, on
+   the 17 wine test rows, M cut to 5: rewards, imputations and the
+   predictive-MSE curve within their tolerances, the reveals equal
+   wherever a row's top two rewards clear the tolerance, B2f launched
+   1 + 6 (D-1) = 73 times on the EDDI episode and no other kernel;
+14. active learning (b): the entry point experiment_main/active_learning.py
+   in a temporary directory holding those records as they stand (M=50;
+   valid_k 5000 and M=1 for reg_MIWAE1) and their checkpoints: every
+   artifact at its reference name with the JAX package's shape and dtype,
+   each row revealing each feature once; B2f exactly 73 times on the
+   reg_EDDI1 episode (its largest call over M (D-1) 17 = 10200 rows), no
+   kernel on the others, no plain version on a CUDA tensor; each episode's
+   wall-clock, launches and, under torch.profiler, busy share and top
+   device operations; then B2f timed at its episode's largest shape.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
 and B2b also their launches on the `_with_drop` run and their times at its
-shape), then, as its last line,
+shape; for every kernel its launches on the active-learning grid,
+`al_launches`, and for B2f its time at the episode's largest shape), then,
+as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 300 s. It writes nothing in the checkout but the kernels' build
@@ -120,6 +141,7 @@ faulthandler.dump_traceback_later(300, exit=True)
 import collections  # noqa: E402
 import contextlib  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -190,6 +212,33 @@ SERVE_B_SCORE_ATOL = 1e-5
 MNAR_CHECK_K = 500
 MNAR_CHECK_M = 2
 MNAR_RMSE_ATOL = 1e-5
+#: active learning: the grid records the AL phases run (reg_vae1, reg_EDDI1,
+#: reg_flow1 at M=50; reg_MIWAE1 at M=1, valid_k 5000), the records' M, and
+#: the M of the card-vs-CPU steps (a), cut for the CPU's sake
+AL_RECORDS = (34, 37, 10, 1)
+AL_M = 50
+#: the rows of the wine test split, where an episode runs
+AL_ROWS = 17
+AL_CHECK_M = 5
+#: al_step on the card against the CPU, same mask and noise. A Gaussian-KL
+#: reward cancels ten O(1) terms of the chaini 'KL' (variance ratios, -1,
+#: log-variances) computed from statistics after 50- to 100-wide layers
+#: that cuBLAS and the CPU accumulate in other orders (about 1e-6 of each):
+#: atol 1e-5; a reward of size R keeps about 1e-5 R more through exp:
+#: rtol 1e-4. A flow reward sums twenty |log q| differences of O(1-10)
+#: log-densities after 500-wide layers: atol 1e-4, except where a z lies
+#: within rounding of a spline knot and takes the adjacent bin on one side
+#: (ROADMAP C.4.6), which moves its reward by the log-ratio of the two bins'
+#: densities over M: at most 1% of the rewards, each by at most 1.
+#: Imputations and the predictive-MSE curve: SERVE_ATOL and EVAL_LOSS_RTOL's
+#: reasons.
+AL_REWARD_ATOL = 1e-5
+AL_REWARD_RTOL = 1e-4
+AL_FLOW_ATOL = 1e-4
+AL_FLOW_KNOT_SHARE = 0.01
+AL_FLOW_KNOT_ATOL = 1.0
+AL_IM_ATOL = 1e-4
+AL_CURVE_RTOL = 1e-4
 #: a marker kernel's busy-wait (clock cycles) around a profiled call, and
 #: the host time (s) that pads the profiler's window on each side
 MARK_CYCLES = 1000
@@ -576,6 +625,21 @@ def main() -> int:
             print(f"B2f/B2b S={S} B={B} D={WINE_D} K={K}: max abs diff "
                   f"{', '.join(errs)}; the same bits on two calls",
                   flush=True)
+        # the active-learning episode's largest B2f call: the candidate
+        # posteriors of a wine EDDI record at M=50, over M x (D-1) x 17 rows
+        B = AL_M * (WINE_D - 1) * AL_ROWS
+        args = inputs(1, B, D=WINE_D)
+        got = fep.embed_pool(*args)
+        torch.cuda.synchronize()
+        want = fep.embed_pool_reference(*args)
+        torch.testing.assert_close(got, want, **KERNEL_TOL)
+        err = max_abs(got, want)
+        max_err["embed_pool_fwd"] = max(max_err["embed_pool_fwd"], err)
+        if not torch.equal(got, fep.embed_pool(*args)):
+            raise AssertionError(f"B2f S=1 B={B} D={WINE_D} gave other bits "
+                                 "on a second call")
+        print(f"B2f S=1 B={B} D={WINE_D} K={K} (active learning): max abs "
+              f"diff {err:.3e}; the same bits on two calls", flush=True)
         # B1: one launch of one block at every size
         for B, L in [(64, 10), (7, 3), (4096, 10), (1, 1)]:
             args = stats(B, L, strided=B == 64)
@@ -993,9 +1057,9 @@ def main() -> int:
         drop_steps = -(-drop_data.train.n // 64)
         reset_counts()
         with no_plain_on_card():
-            _, drop_hist = trainer.train(drop_data, drop_cfg, save=False,
-                                         device="cuda", noise=drop_noise,
-                                         on_step=on_step)
+            drop_params, drop_hist = trainer.train(
+                drop_data, drop_cfg, save=False, device="cuda",
+                noise=drop_noise, on_step=on_step)
         drop_counts = counts()
         n_steps = WINE_EPOCHS * drop_steps
         print(f"{drop_data.train.n} rows x {drop_data.obs_dim}, {n_steps} "
@@ -1708,6 +1772,277 @@ def main() -> int:
                              "held no device event")
                 print(line + f" [{card}]", flush=True)
 
+    from vae_posterior_consistency_tpu_torch.engine import (
+        active_learning as al,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        active_learning as al_main,
+    )
+    # the AL records as the entry point runs them (alpha 1.0, p_missingness
+    # 30), with the parameters phase 7 trained for each (the
+    # vanilla_EDDI1_with_drop run's for reg_EDDI1: one pointnet encoder and
+    # decoder, K=10 in both)
+    al_cfgs = [RunConfig.from_jsonl_record(records[i - 1], seed=SEED,
+                                           alpha=1.0, p_missingness=30)
+               for i in AL_RECORDS]
+    if [(c.vae_type, c.M, c.K) for c in al_cfgs] != [
+            ("reg_vae1", 50, 10), ("reg_EDDI1", 50, 10),
+            ("reg_flow1", 50, 20), ("reg_MIWAE1", 1, 10)] or (
+                al_cfgs[3].valid_k != 5000):
+        raise AssertionError(f"records {AL_RECORDS} are not reg_vae1, "
+                             f"reg_EDDI1, reg_flow1 at M=50 and reg_MIWAE1 "
+                             f"at M=1, valid_k 5000: {al_cfgs}")
+    al_params = {"reg_vae1": wine_params, "reg_EDDI1": drop_params,
+                 "reg_flow1": flow_params, "reg_MIWAE1": miwae_params}
+
+    def al_tol(cfg, R):
+        return (AL_FLOW_ATOL if get_model(cfg).encode_stats is None
+                else AL_REWARD_ATOL + AL_REWARD_RTOL * R.abs())
+
+    def reveal_mask(actions, t, D):
+        """The mask before step t of an episode whose reveals are
+        `actions` [n, D-1]."""
+        return torch.nn.functional.one_hot(actions[:, :t].long(), D).sum(
+            1).float()
+
+    with phase(f"active learning (a): al_step card vs CPU from the card's "
+               f"masks and noise, M cut to {AL_CHECK_M}, records "
+               f"{AL_RECORDS}"):
+        for acfg in al_cfgs:
+            acfg = acfg.replace(M=min(acfg.M, AL_CHECK_M))
+            model = get_model(acfg)
+            data = loaders.data_loader(str(REPO / "Data"), acfg.vae_type,
+                                       acfg.missing_rate, 64, acfg.data_type,
+                                       device="cuda")
+            x = data.test.x
+            n, D = x.shape
+            src, kept = al.default_noise(acfg, "cuda"), {}
+
+            def noise(kind, repeat, step, shape, _src=src, _kept=kept):
+                t = _src(kind, repeat, step, shape)
+                _kept[(kind, repeat, step)] = t
+                return t
+
+            card_p = al_params[acfg.vae_type]
+            reset_counts()
+            with no_plain_on_card(), torch.no_grad():
+                ep = al.run_episode(model, card_p, acfg, x, noise)
+            launched = counts()
+            want_b2f = 1 + 6 * (D - 1) if "EDDI" in acfg.vae_type else 0
+            if launched != {**no_kernel, "embed_pool_fwd": want_b2f}:
+                raise AssertionError(f"the {acfg.vae_type} episode launched "
+                                     f"{launched}")
+            cpu_p = checkpoint.unflatten(
+                {k: v.cpu() for k, v in checkpoint.flatten(card_p).items()})
+            xc = x.cpu()
+
+            def replay(kind, repeat, step, shape, _kept=kept):
+                t = _kept[(kind, repeat, step)]
+                if tuple(t.shape) != tuple(shape):
+                    raise AssertionError(f"{kind} {step}: {tuple(t.shape)}, "
+                                         f"not {tuple(shape)}")
+                return t.cpu()
+
+            curve = ep["information_curve"][0].cpu()
+            actions = ep["action"].cpu()
+            with torch.no_grad():
+                mse0 = al.predictive_mse(acfg, cpu_p, xc, torch.zeros_like(xc),
+                                         replay("init", 0, 0, kept[
+                                             ("init", 0, 0)].shape))
+            worst = {"R": 0.0, "im": 0.0, "mse": abs(mse0.item()
+                                                     - curve[0].item())}
+            knot, compared, n_R = 0, 0, 0
+            for t in range(D - 1):
+                mask = reveal_mask(actions, t, D)
+                with torch.no_grad():
+                    out = al.al_step(model, cpu_p, acfg, xc, mask, replay, 0,
+                                     t)
+                R_card = ep["R_hist"][t].cpu()
+                hidden = mask[:, :D - 1] == 0
+                err = (out["R"] - R_card).abs()[hidden]
+                tol = al_tol(acfg, out["R"])
+                tol = tol[hidden] if isinstance(tol, torch.Tensor) else tol
+                off = err > tol
+                if get_model(acfg).encode_stats is None:
+                    knot += int(off.sum())
+                    if err.max() > AL_FLOW_KNOT_ATOL:
+                        raise AssertionError(f"{acfg.vae_type} step {t}: a "
+                                             f"reward {err.max().item()} "
+                                             "from the card's")
+                elif off.any():
+                    raise AssertionError(f"{acfg.vae_type} step {t}: rewards "
+                                         f"{err.max().item()} from the "
+                                         "card's")
+                n_R += int(hidden.sum())
+                worst["R"] = max(worst["R"], err.max().item())
+                worst["im"] = max(worst["im"], max_abs(out["im"],
+                                                       ep["im"][t].cpu()))
+                worst["mse"] = max(worst["mse"], abs(out["mse"].item()
+                                                     - curve[t + 1].item()))
+                # the reveal must agree wherever the top two hidden
+                # rewards of a row stand further apart than the tolerance
+                top = torch.where(hidden, out["R"], -math.inf).topk(
+                    min(2, D - 1 - t), dim=1).values
+                clear = (torch.ones(n, dtype=torch.bool) if top.shape[1] < 2
+                         else top[:, 0] - top[:, 1] > (
+                             al_tol(acfg, top[:, 0])))
+                if not torch.equal(out["action"][clear],
+                                   actions[clear, t]):
+                    raise AssertionError(f"{acfg.vae_type} step {t}: the "
+                                         "CPU reveals other features")
+                compared += int(clear.sum())
+            if (worst["im"] > AL_IM_ATOL or worst["mse"] > AL_CURVE_RTOL
+                    * curve.abs().max().item()
+                    or knot > AL_FLOW_KNOT_SHARE * n_R):
+                raise AssertionError(f"{acfg.vae_type}: card against CPU "
+                                     f"{worst}, {knot} rewards off")
+            print(f"{acfg.vae_type} M={acfg.M}: {D - 1} steps on {n} rows, "
+                  f"card vs CPU: rewards {worst['R']:.3e}"
+                  + (f" ({knot} of {n_R} at a spline knot)" if knot else "")
+                  + f", imputations {worst['im']:.3e}, curve "
+                  f"{worst['mse']:.3e}; reveals equal on {compared} of "
+                  f"{n * (D - 1)} (row, step) pairs whose top two rewards "
+                  f"clear the tolerance; launches {launched}", flush=True)
+
+    with phase(f"active learning (b): experiment_main/active_learning.py "
+               f"over records {AL_RECORDS} as they stand"):
+        real_al, real_fwd = al.active_learning_func, fep._embed_pool_fwd_kernel
+        per_record, b2f_shapes = [], []
+
+        def shaped_fwd(x, masks, A, C, S, B, D, K, plan=None):
+            b2f_shapes.append((S, B, D, K))
+            return real_fwd(x, masks, A, C, S, B, D, K, plan)
+
+        def measured_al(*args, **kw):
+            """The entry point's episode: once under torch.profiler, not
+            saved (it also warms up), then as the entry point asks, timed,
+            its launches and B2f's shapes read."""
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                real_al(*args, **{**kw, "save": False})
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t0) * 1e3
+            reset_counts()
+            b2f_shapes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_al(*args, **kw)
+            torch.cuda.synchronize()
+            per_record.append({
+                "cfg": args[3], "wall_s": time.perf_counter() - t0,
+                "counts": counts(), "shapes": list(b2f_shapes),
+                "prof_ms": prof_ms,
+                "on_card": profile_train.device_events(prof)})
+            return out
+
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            (root / "Data").mkdir()
+            os.symlink(REPO / "Data" / "wine", root / "Data" / "wine")
+            with open(root / "Data" / "imputation_args.json", "w") as fh:
+                for i in AL_RECORDS:
+                    fh.write(json.dumps(records[i - 1]) + "\n")
+            for acfg in al_cfgs:
+                checkpoint.save(al_params[acfg.vae_type],
+                                checkpoint.checkpoint_path(
+                                    acfg, str(root / "experiments")))
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            al.active_learning_func = measured_al
+            fep._embed_pool_fwd_kernel = shaped_fwd
+            try:
+                with no_plain_on_card():
+                    rc = al_main.main([])
+            finally:
+                al.active_learning_func = real_al
+                fep._embed_pool_fwd_kernel = real_fwd
+                os.chdir(cwd)
+            if rc != 0 or [r["cfg"] for r in per_record] != al_cfgs:
+                raise AssertionError(f"the AL grid returned {rc}, ran "
+                                     f"{[r['cfg'] for r in per_record]}")
+            al_counts = collections.Counter()
+            for r in per_record:
+                acfg = r["cfg"]
+                al_counts.update(r["counts"])
+                n, D = AL_ROWS, WINE_D
+                # B2f's launches an EDDI episode: the empty-mask predictive
+                # MSE's imputations, then each of the D-1 steps' imputations,
+                # q(x, mask), q(target revealed) over the M samples, the two
+                # candidate posteriors over the M x (D-1) stack, and the
+                # predictive MSE after the reveal: 1 + 6 (D-1)
+                eddi = "EDDI" in acfg.vae_type
+                want = {**no_kernel,
+                        "embed_pool_fwd": 1 + 6 * (D - 1) if eddi else 0}
+                if r["counts"] != want:
+                    raise AssertionError(f"the {acfg.vae_type} episode "
+                                         f"launched {r['counts']}, want "
+                                         f"{want}")
+                if eddi and max(b for _, b, _, _ in r["shapes"]) != (
+                        acfg.M * (D - 1) * n):
+                    raise AssertionError(f"B2f's shapes in the episode: "
+                                         f"{sorted(set(r['shapes']))}")
+                paths = artifacts.active_learning_paths(
+                    acfg, str(root / "experiments"))
+                saved = {k: torch.load(p, weights_only=True)
+                         for k, p in paths.items()}
+                shapes = {"information_curve": (1, n, D),
+                          "action": (1, n, D - 1),
+                          "R_hist": (1, D - 1, n, D - 1),
+                          "im": (1, D - 1, acfg.M, n, D)}
+                for k, shape in shapes.items():
+                    if (saved[k].shape != shape
+                            or saved[k].dtype != torch.float32
+                            or not torch.isfinite(saved[k]).all()):
+                        raise AssertionError(f"{acfg.vae_type} {k}: "
+                                             f"{saved[k].dtype} "
+                                             f"{tuple(saved[k].shape)}")
+                for row in saved["action"][0].long():
+                    if sorted(row.tolist()) != list(range(D - 1)):
+                        raise AssertionError(f"{acfg.vae_type}: a row "
+                                             f"revealed {row.tolist()}")
+                r["curve"] = saved["information_curve"][0, 0]
+                on_card = r["on_card"]
+                line = (f"{acfg.vae_type} M={acfg.M}"
+                        + (f" valid_k={acfg.valid_k}"
+                           if "MIWAE" in acfg.vae_type else "")
+                        + f": episode {r['wall_s'] * 1e3:.6f} ms (host "
+                        f"clock), launches {r['counts']}; target MSE "
+                        f"{r['curve'][0]:.6f} -> {r['curve'][-1]:.6f}; "
+                        f"under torch.profiler {r['prof_ms']:.6f} ms")
+                if on_card:
+                    busy = profile_train.busy_ms(on_card)
+                    top = profile_train.top_device_ms(on_card).most_common(5)
+                    line += (f", device busy {busy:.6f} ms "
+                             f"({busy / r['prof_ms']:.1%}), {len(on_card)} "
+                             "device operations; top device ms: "
+                             + "; ".join(f"{nm} {t:.6f}" for nm, t in top))
+                else:
+                    line += (", device operations and busy share not "
+                             "measured, the trace held no device event")
+                print(line + f" [{card}]", flush=True)
+
+        # B2f at the episode's largest shape: the candidate posteriors of
+        # reg_EDDI1 at M=50, one mask a row over M x (D-1) x 17 rows
+        Bal = AL_M * (WINE_D - 1) * AL_ROWS
+        Aal, Cal = layers._pointnet_affine(drop_params["encoder"])
+        xal = torch.rand(Bal, WINE_D, device="cuda", generator=gen)
+        mal = (torch.rand(1, Bal, WINE_D, device="cuda", generator=gen)
+               < 0.5).float()
+        with torch.no_grad():
+            times["embed_pool_fwd_al"] = timed(
+                f"B2f EmbedPool.forward S=1 B={Bal} D={WINE_D} (active "
+                "learning, the candidate posteriors)",
+                lambda: fep.embed_pool(xal, mal, Aal, Cal),
+                lambda: fep.embed_pool_reference(xal, mal, Aal, Cal),
+                embed_pool_bound_ms(1, Bal, WINE_D, K))
+            torch.testing.assert_close(
+                fep.embed_pool(xal, mal, Aal, Cal),
+                fep.embed_pool_reference(xal, mal, Aal, Cal), **KERNEL_TOL)
+
+
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -1745,6 +2080,14 @@ def main() -> int:
             w_ms, w_plain, w_bound, _, _ = times[k["name"] + "_wine"]
             k.update(drop_launches=drop_counts[k["name"]], wine_ms=w_ms,
                      wine_plain_ms=w_plain, wine_bound_ms=w_bound)
+    # launches on the active-learning grid of phase (b), and B2f's time at
+    # the episode's largest shape (S=1, B=M x (D-1) x 17, D=13)
+    a_ms, a_plain, a_bound, _, _ = times["embed_pool_fwd_al"]
+    for k in kernels:
+        k["al_launches"] = al_counts[k["name"]]
+        if k["name"] == "embed_pool_fwd":
+            k.update(al_ms=a_ms, al_plain_ms=a_plain, al_bound_ms=a_bound,
+                     al_shape=[1, AL_M * (WINE_D - 1) * AL_ROWS, WINE_D, K])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,103 @@
+"""The port's active-learning entry point, `python -m
+vae_posterior_consistency_tpu_torch.experiment_main.active_learning`, on
+the CPU: after the imputation entry point trains a one-record grid (record
+37, reg_EDDI1, and record 22, vanilla_vae1, each cut to 2 epochs and M=2)
+in a temporary directory, it runs one episode a record on the 17 wine test
+rows, prints the JAX package's lines, writes the four artifacts at the JAX
+package's paths with its shapes and dtypes and appends `al_final_mse`;
+it refuses the flags whose engine the port lacks and stops with the path
+of a checkpoint never trained."""
+
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from vae_posterior_consistency_tpu import config as jcfg
+from vae_posterior_consistency_tpu.engine import artifacts as jart
+from vae_posterior_consistency_tpu.engine import checkpoint as jckpt
+from vae_posterior_consistency_tpu_torch.experiment_main import (
+    active_learning,
+    imputation,
+)
+from test_torch_imputation_entry import _record, _workdir
+
+#: 1-based record numbers in Data/imputation_args.json
+REG_EDDI, VANILLA_VAE = 37, 22
+#: the wine width and test split's size
+D, N = 13, 17
+
+
+def _trained(tmp_path, monkeypatch, number):
+    record = _record(number, epoch=2, M=2)
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    assert imputation.main(["-device", "cpu"]) == 0
+    return record
+
+
+@pytest.mark.parametrize("number", [REG_EDDI, VANILLA_VAE])
+def test_one_record_episode_writes_what_jax_writes(tmp_path, monkeypatch,
+                                                   capsys, number):
+    record = _trained(tmp_path, monkeypatch, number)
+    capsys.readouterr()
+    assert active_learning.main(["-device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    vae_type = record["vae_type"]["default"]
+    assert f"=== active learning {vae_type} ===" in out
+    curve = re.search(r"info curve \(target MSE per #revealed\): (.*)",
+                      out).group(1).split()
+    assert len(curve) == D and all(np.isfinite(float(v)) for v in curve)
+    assert re.search(r"\[timing\] episode \d+\.\ds", out)
+
+    # the JAX entry point's config of this record: p_missingness 30,
+    # alpha 1.0, and its artifact paths
+    jc = jcfg.RunConfig.from_jsonl_record(record, alpha=1.0,
+                                          p_missingness=30)
+    paths = jart.active_learning_paths(jc, "experiments")
+    M = jc.M
+    shapes = {"information_curve": (1, N, D), "action": (1, N, D - 1),
+              "R_hist": (1, D - 1, N, D - 1), "im": (1, D - 1, M, N, D)}
+    for name, shape in shapes.items():
+        saved = torch.load(paths[name], weights_only=True)
+        assert saved.dtype == torch.float32 and saved.shape == shape, name
+    saved_curve = torch.load(paths["information_curve"], weights_only=True)
+    np.testing.assert_allclose(saved_curve[0, 0].numpy(),
+                               np.array(curve, np.float64), atol=5e-5)
+    actions = torch.load(paths["action"], weights_only=True)[0]
+    for row in actions.numpy().astype(int):
+        assert sorted(row.tolist()) == list(range(D - 1))
+    with open(os.path.join("experiments", jc.experiment_type, jc.data_type,
+                           "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    final = [r for r in recs if r["metric"] == "al_final_mse"]
+    assert len(final) == 1 and final[0]["stage"] == "test"
+    assert final[0]["value"] == pytest.approx(
+        float(saved_curve[0, 0, -1]), rel=1e-6)
+    # the checkpoint the episode read is the one the grid trained
+    assert os.path.isfile(jckpt.checkpoint_path(jc, "experiments"))
+
+
+@pytest.mark.parametrize("flags,slice_name", [
+    (["-mesh", "dp=2"], "slice 10"),
+    (["-ensemble", "true"], "slice 9"),
+    (["-seeds", "2"], "slice 9"),
+])
+def test_unported_flags_are_refused(tmp_path, monkeypatch, flags,
+                                    slice_name):
+    monkeypatch.chdir(_workdir(tmp_path, [_record(VANILLA_VAE)]))
+    with pytest.raises(NotImplementedError, match=slice_name):
+        active_learning.main(flags + ["-device", "cpu"])
+
+
+def test_a_missing_checkpoint_stops_the_run_with_its_path(tmp_path,
+                                                          monkeypatch):
+    record = _record(VANILLA_VAE, M=2)
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    jc = jcfg.RunConfig.from_jsonl_record(record, alpha=1.0,
+                                          p_missingness=30)
+    path = jckpt.checkpoint_path(jc, "experiments")
+    with pytest.raises(FileNotFoundError, match=re.escape(path)):
+        active_learning.main(["-device", "cpu"])

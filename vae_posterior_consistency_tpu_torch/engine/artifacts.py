@@ -1,13 +1,13 @@
 """Result artifacts: the reference's paths and `.pt` scalars, and a
 structured `metrics.jsonl` (port of the JAX package's `engine/artifacts.py`:
-the VAE, MIWAE and MNAR evaluators' paths).
+the VAE, MIWAE and MNAR evaluators' paths and the active-learning ones).
 
 The reference writes every headline metric as a torch-saved tensor in a
 deep, name-mangled directory tree (reference:
 src/experiment_main/evaluate.py:247-297, 58-69). The paths here are the JAX
 package's character for character, and each file holds what the JAX package
-writes there: a 0-d float64 tensor for a Python float. The active-learning
-paths come with their slice.
+writes there: a 0-d float64 tensor for a Python float, and the float32
+tensors of an active-learning episode (`active_learning_paths`).
 """
 
 from __future__ import annotations
@@ -125,3 +125,26 @@ def eval_mnar_paths(cfg: RunConfig, root: str = "experiments") -> dict:
         name = (f"{cfg.vae_type}_rmse_{cfg.alpha}_{cfg.p_missingness}_"
                 f"{cfg.reg_type}_full_reg_large_batch_v2_test.pt")
     return {"rmse": os.path.join(rest, fam, name)}
+
+
+def active_learning_paths(cfg: RunConfig, root: str = "experiments") -> dict:
+    """The four tensors of an active-learning episode: information_curve,
+    action, R_hist, im (reference: src/experiment_main/evaluate.py:
+    460-511)."""
+    fam = family_dir(cfg.vae_type)
+    rest = os.path.join(_base(cfg, root, "rest"), fam)
+    if "vanilla" in cfg.vae_type:
+        pre = f"{cfg.vae_type}_{cfg.missing_rate}_missing_rate"
+        return {
+            "information_curve": os.path.join(
+                rest, f"{pre}_UCI_information_curve_CHAI_default_test.pt"),
+            "action": os.path.join(
+                rest, f"{pre}__UCI_action_CHAI_default_test.pt"),
+            "R_hist": os.path.join(
+                rest, f"{pre}__UCI_R_hist_CHAI_default_test.pt"),
+            "im": os.path.join(rest, f"{pre}__UCI_im_CHAI_default_test.pt"),
+        }
+    mid = (f"_{cfg.alpha}_{cfg.p_missingness}_{cfg.reg_type}_"
+           f"{cfg.missing_rate}_missing_rate_default_full_reg_test.pt")
+    return {name: os.path.join(rest, f"{cfg.vae_type}_UCI_{name}_CHAI{mid}")
+            for name in ("information_curve", "action", "R_hist", "im")}

@@ -9,6 +9,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import torch
+
 from vae_posterior_consistency_tpu_torch.config import RunConfig, parse_vae_type
 from vae_posterior_consistency_tpu_torch.models import (
     flow_vae,
@@ -37,10 +39,23 @@ class ModelDef:
     #: 'vae' (four artifacts a split) | 'miwae' (the rmse artifact only,
     #: cfg.valid_k importance samples)
     eval_kind: str = "vae"
+    #: Gaussian posterior statistics of the AL information reward and the
+    #: MI diagnostics (reference: src/experiment_main/evaluate.py:546-634):
+    #: (params, x, mask, cfg) -> (mean, logvar), both [B, L]
+    encode_stats: Optional[Callable] = None
     #: flow-posterior log-prob hook of the ratio-version AL reward
     #: (reference: src/experiment_main/evaluate.py:637-708):
     #: (params, x, mask, eps, cfg) -> [B, L]
     encode_sample_logprob: Optional[Callable] = None
+
+
+def _miwae_encode_stats(params, x, mask, cfg):
+    """The MIWAE encoder's statistics as (mean, logvar): its softplus std
+    becomes logvar = 2 log scale. (The reference feeds the scale itself
+    where a logvar is expected, evaluate.py:562-564 with VAE.py:3175-3188;
+    the JAX package implements the intent, and so does the port.)"""
+    mean, scale = miwae.encode(params, x, mask, cfg)
+    return mean, 2.0 * torch.log(scale)
 
 
 def _flow_sample_logprob(params, x, mask, eps, cfg):
@@ -58,10 +73,12 @@ def _def(name, module, **kw):
                     **kw)
 
 
-_GAUSS = _def("gauss", gauss)
+_GAUSS = _def("gauss", gauss, encode_stats=gauss.encode)
 _FLOW = _def("flow", flow_vae, encode_sample_logprob=_flow_sample_logprob)
-_MIWAE = _def("miwae", miwae, eval_kind="miwae")
-_NOTMIWAE = _def("notmiwae", notmiwae, eval_kind="miwae")
+_MIWAE = _def("miwae", miwae, eval_kind="miwae",
+              encode_stats=_miwae_encode_stats)
+_NOTMIWAE = _def("notmiwae", notmiwae, eval_kind="miwae",
+                 encode_stats=notmiwae.encode)
 
 _FAMILY_TO_DEF = {
     "vanilla_flow": _FLOW,
