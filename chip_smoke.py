@@ -120,14 +120,43 @@ Run from the root of a checkout. It drives only the port
    reg_EDDI1 episode (its largest call over M (D-1) 17 = 10200 rows), no
    kernel on the others, no plain version on a CUDA tensor; each episode's
    wall-clock, launches and, under torch.profiler, busy share and top
-   device operations; then B2f timed at its episode's largest shape.
+   device operations; then B2f timed at its episode's largest shape;
+15. resume and early stopping (a): the entry point
+   experiment_main/imputation.py on record 34 (reg_vae1) in a temporary
+   directory, -epoch 20 -checkpoint_every 5 straight through, and stopped
+   at 10 then resumed with -resume true: the two checkpoints equal bit for
+   bit, each resume file at epoch 20 holding the final parameters, B1 and
+   its backward once a step; then -early_stop true -patience 1 with a check
+   every 5 epochs (train's chunk_epochs): it stops before its 300 epochs,
+   and the checkpoint saved is the best check's parameters;
+16. AIS (b): engine/ais.ais_step on the CPU against the card, one
+   temperature at a time from the card chain's states and draws, for
+   records 34 (reg_vae1), 10 (reg_flow1) and 1 (reg_MIWAE1) with the
+   parameters phase 7 trained and vanilla_notMIWAE1 from seeded
+   parameters, on the 17 wine test rows at the records' linear T=50 and 40
+   chains: z, eps and logw within their tolerances, a decision flipped
+   only within the rounding of its Hamiltonians and in at most 1% of
+   them, no kernel;
+17. AIS (c): the entry point experiment_main/ais_eval.py over those three
+   records as they stand, with their checkpoints, -bdmc true on record
+   34: every artifact at its reference name, shape and dtype and finite,
+   the printed lines the artifacts', the flow's warning printed, no kernel
+   and no plain version on a CUDA tensor; each split's wall-clock, peak
+   device memory and, under torch.profiler over its first 4
+   temperatures, device operations and busy share;
+18. AIS (d): engine/ais.eval_ais on the committed MNIST reg_EDDI1
+   checkpoint, both splits (1618 x 40 = 64,720 and 179 x 40 = 7,160
+   chains), linear T=50: no kernel; each split's wall-clock, peak device
+   memory and decoder-matmul rate, and the test split's busy share and top
+   device operations under torch.profiler over its first 4 temperatures.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
 and B2b also their launches on the `_with_drop` run and their times at its
 shape; for every kernel its launches on the active-learning grid,
-`al_launches`, and for B2f its time at the episode's largest shape), then,
-as its last line,
+`al_launches`, and for B2f its time at the episode's largest shape; and
+its launches on the AIS phases, `ais_launches`, 0), then, as its last
+line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 300 s. It writes nothing in the checkout but the kernels' build
@@ -140,6 +169,7 @@ faulthandler.dump_traceback_later(300, exit=True)
 
 import collections  # noqa: E402
 import contextlib  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -246,6 +276,36 @@ MARK_PAD_S = 0.02
 #: CUgraphNodeType of the graph nodes that are device operations: a kernel,
 #: a copy, a fill
 GRAPH_OP_NODES = (0, 1, 2)
+#: resume and early stopping (a): record 34 through the imputation entry
+#: point, straight to RESUME_EPOCHS and stopped at RESUME_STOP then resumed,
+#: a resume file every RESUME_EVERY epochs; early stopping at patience 1
+#: with a check every STOP_CHUNK epochs, at most STOP_EPOCHS
+RESUME_RECORD = 34
+RESUME_EPOCHS = 20
+RESUME_STOP = 10
+RESUME_EVERY = 5
+STOP_EPOCHS = 300
+STOP_CHUNK = 5
+#: AIS: the grid records of phases (b) and (c) (reg_vae1, reg_flow1,
+#: reg_MIWAE1; all at linear T=50, 40 chains a row)
+AIS_RECORDS = (34, 10, 1)
+#: ais_step on the card against the CPU from the same state and draws. z
+#: and eps after ten leapfrog steps through decoders of 50-500 wide layers,
+#: whose sums cuBLAS and the CPU run in other orders (about 1e-6 of each,
+#: amplified along the trajectory): atol 1e-4 on |z| of O(1). The weight
+#: increment (t1 - t0) log p(x|z) of size up to 1e3 (the flow's obs_logvar
+#: -8): atol 1e-4 plus rtol 1e-5 on logw. An accept decision may flip where
+#: |log prob - log u| lies within the rounding of the Hamiltonians, about
+#: 1e-5 of the chain's energy -log f(z) plus 1e-4: at most 1% of the
+#: decisions, each within that gap.
+AIS_Z_ATOL = 1e-4
+AIS_LOGW_ATOL = 1e-4
+AIS_LOGW_RTOL = 1e-5
+AIS_FLIP_GAP_RTOL = 1e-5
+AIS_FLIP_GAP_ATOL = 1e-4
+AIS_FLIP_SHARE = 0.01
+#: the temperatures of a split traced under torch.profiler (AIS (c), (d))
+AIS_PROFILE_TEMPS = 4
 REQUEST_ROWS = (1, 8, 64, 179)
 TIMING_RUNS = 100
 MNIST_EPOCHS = 3
@@ -2043,6 +2103,442 @@ def main() -> int:
                 fep.embed_pool_reference(xal, mal, Aal, Cal), **KERNEL_TOL)
 
 
+    # ------------------------------------------------------------------
+    # restartable training, early stopping, AIS and BDMC
+    # ------------------------------------------------------------------
+    from vae_posterior_consistency_tpu_torch.engine import ais
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        ais_eval as ais_main,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation as imputation_main,
+    )
+    from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
+        EarlyStopping,
+    )
+
+    @contextlib.contextmanager
+    def grid_dir(recs):
+        """A temporary working directory holding Data/ with `recs` as its
+        imputation_args.json and Data/wine linked in."""
+        with tempfile.TemporaryDirectory() as tmp:
+            (Path(tmp) / "Data").mkdir()
+            os.symlink(REPO / "Data" / "wine", Path(tmp) / "Data" / "wine")
+            with open(Path(tmp) / "Data" / "imputation_args.json", "w") as fh:
+                for rec in recs:
+                    fh.write(json.dumps(rec) + "\n")
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                yield Path(tmp)
+            finally:
+                os.chdir(cwd)
+
+    flagship = records[RESUME_RECORD - 1]
+    resume_cfg = RunConfig.from_jsonl_record(flagship, alpha=1.0,
+                                             p_missingness=30,
+                                             epoch=RESUME_EPOCHS)
+    resume_steps = -(-wine.train.n // resume_cfg.batch_size)
+    with phase(f"resume and early stopping (a): experiment_main/imputation"
+               f".py on record {RESUME_RECORD} ({resume_cfg.vae_type}), "
+               f"-epoch {RESUME_EPOCHS} -checkpoint_every {RESUME_EVERY}, "
+               f"straight and stopped at {RESUME_STOP} then resumed"):
+        finals, resume_s = {}, {}
+        for mode, runs in (("straight", [(RESUME_EPOCHS, False)]),
+                           ("resumed", [(RESUME_STOP, False),
+                                        (RESUME_EPOCHS, True)])):
+            with grid_dir([flagship]) as tmp:
+                t0 = time.perf_counter()
+                for epochs, resume in runs:
+                    reset_counts()
+                    with no_plain_on_card():
+                        rc = imputation_main.main(
+                            ["-epoch", str(epochs), "-checkpoint_every",
+                             str(RESUME_EVERY), "-resume", str(resume)])
+                    trained = epochs - (RESUME_STOP if resume else 0)
+                    want = {**no_kernel,
+                            "fused_posterior_fwd": trained * resume_steps,
+                            "fused_posterior_bwd": trained * resume_steps}
+                    if rc != 0 or counts() != want:
+                        raise AssertionError(f"{mode} run to {epochs} "
+                                             f"epochs returned {rc}, "
+                                             f"launched {counts()}")
+                resume_s[mode] = time.perf_counter() - t0
+                path = checkpoint.checkpoint_path(resume_cfg, str(tmp / (
+                    "experiments")))
+                finals[mode] = torch.load(path, weights_only=False)
+                saved = torch.load(path + ".resume.pt", weights_only=False)
+                if int(saved["epoch"]) != RESUME_EPOCHS or any(
+                        not np.array_equal(saved["params/" + k], v)
+                        for k, v in finals[mode].items()):
+                    raise AssertionError(f"{mode}: the resume file holds "
+                                         f"epoch {int(saved['epoch'])}")
+        unequal = [k for k, v in finals["straight"].items()
+                   if not np.array_equal(v, finals["resumed"][k])]
+        if sorted(finals["straight"]) != sorted(finals["resumed"]) or unequal:
+            raise AssertionError(f"the resumed checkpoint differs from the "
+                                 f"straight one at {unequal}")
+        print(f"{len(finals['straight'])} leaves equal bit for bit, straight "
+              f"and resumed; {RESUME_EPOCHS * resume_steps} steps each, B1 "
+              f"and its backward once a step; wall-clock with the M="
+              f"{resume_cfg.M} evaluation: straight "
+              f"{resume_s['straight']:.6f} s, stopped and resumed "
+              f"{resume_s['resumed']:.6f} s [{card}]", flush=True)
+
+        stoppers, real_train = [], trainer.train
+
+        class Recording(EarlyStopping):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.losses = []
+                stoppers.append(self)
+
+            def update(self, val_loss, params):
+                self.losses.append(val_loss)
+                return super().update(val_loss, params)
+
+        def chunked(*args, **kw):
+            return real_train(*args, **{**kw, "chunk_epochs": STOP_CHUNK})
+
+        real_stopper = imputation_main.early_stopper
+        with grid_dir([flagship]) as tmp:
+            imputation_main.early_stopper = (
+                lambda args, cfg: Recording(patience=cfg.patience,
+                                            verbose=False)
+                if args.early_stop else None)
+            trainer.train = chunked
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                with no_plain_on_card():
+                    rc = imputation_main.main(
+                        ["-epoch", str(STOP_EPOCHS), "-early_stop", "true",
+                         "-patience", "1"])
+            finally:
+                imputation_main.early_stopper = real_stopper
+                trainer.train = real_train
+            stop_s = time.perf_counter() - t0
+            stop_counts = counts()
+            (es,) = stoppers
+            checks = len(es.losses)
+            ran = checks * STOP_CHUNK
+            best = int(np.argmin(es.losses))
+            # B1 once a step and once a check (the validation objective is
+            # the training loss without gradients), its backward once a step
+            want = {**no_kernel,
+                    "fused_posterior_fwd": ran * resume_steps + checks,
+                    "fused_posterior_bwd": ran * resume_steps}
+            if (rc != 0 or not es.early_stop or ran >= STOP_EPOCHS
+                    or stop_counts != want or best != checks - 2):
+                raise AssertionError(f"early stopping: rc {rc}, stop "
+                                     f"{es.early_stop}, losses {es.losses}, "
+                                     f"launched {stop_counts}")
+            saved = torch.load(checkpoint.checkpoint_path(
+                resume_cfg, str(tmp / "experiments")), weights_only=False)
+            kept = checkpoint.flatten(es.best_params)
+            if any(not np.array_equal(v, kept[k].cpu().numpy())
+                   for k, v in saved.items()):
+                raise AssertionError("the saved checkpoint is not the best "
+                                     "check's parameters")
+        print(f"-early_stop true -patience 1, checks every {STOP_CHUNK} "
+              f"epochs: stopped after {ran} of {STOP_EPOCHS} epochs, "
+              f"validation losses "
+              + ", ".join(f"{v:.6f}" for v in es.losses)
+              + f"; the checkpoint saved is check {best + 1}'s (epoch "
+              f"{(best + 1) * STOP_CHUNK}); launches {stop_counts}; wall-"
+              f"clock {stop_s:.6f} s [{card}]", flush=True)
+
+    # AIS card vs CPU: records 34, 10 and 1 with the parameters phase 7
+    # trained, vanilla_notMIWAE1 from seeded parameters
+    ais_cfgs = [RunConfig.from_jsonl_record(records[i - 1], seed=SEED,
+                                            alpha=1.0, p_missingness=30)
+                for i in AIS_RECORDS]
+    if [(c.vae_type, c.ais_schedule, c.n_ais_dist, c.n_ais_iwae)
+            for c in ais_cfgs] != [(v, "linear", 50, 40) for v in (
+                "reg_vae1", "reg_flow1", "reg_MIWAE1")]:
+        raise AssertionError(f"records {AIS_RECORDS} are not reg_vae1, "
+                             f"reg_flow1, reg_MIWAE1 at linear T=50, 40 "
+                             f"chains: {ais_cfgs}")
+    nm_cfg = ais_cfgs[0].replace(vae_type="vanilla_notMIWAE1")
+    nm_cpu, nm_card = seeded(nm_cfg, WINE_D)
+    ais_params = {"reg_vae1": wine_params, "reg_flow1": flow_params,
+                  "reg_MIWAE1": miwae_params, "vanilla_notMIWAE1": nm_card}
+    ais_counts = collections.Counter()
+    with phase(f"AIS (b): ais_step card vs CPU, one temperature at a time "
+               f"from the card's states and draws, the {AL_ROWS} wine test "
+               f"rows, linear T=50, 40 chains"):
+        test_x = wine.test.x.to(device="cuda", dtype=torch.float32)
+        for acfg in ais_cfgs + [nm_cfg]:
+            bridge = ais.bridge_for(acfg)
+            card_p = ais_params[acfg.vae_type]
+            cpu_p = {k: v.cpu() for k, v in
+                     checkpoint.flatten(card_p).items()}
+            cpu_p = checkpoint.unflatten(cpu_p)
+            n = acfg.n_ais_iwae
+            x_card = test_x.repeat(n, 1)
+            x_cpu = x_card.cpu()
+            B = x_card.shape[0]
+            sched = ais.default_schedule(acfg, warn=False)
+            s_card = ais.as_schedule(sched, "cuda")
+            s_cpu = ais.as_schedule(sched, "cpu")
+            src = ais.GeneratorNoise(trainer.epoch_seed(acfg.seed + 4, 1),
+                                     "cuda")
+
+            def ll_card(z, _p=card_p, _b=bridge, _x=x_card):
+                return _b.log_lik(_p, z, _x)
+
+            def ll_cpu(z, _p=cpu_p, _b=bridge, _x=x_cpu):
+                return _b.log_lik(_p, z, _x)
+
+            state = ais.init_state(src("z0", 0, (B, acfg.latent_dim)))
+            reset_counts()
+            worst = {"z": 0.0, "eps": 0.0, "logw": 0.0}
+            flips, gaps_max, t0 = 0, 0.0, time.perf_counter()
+            with no_plain_on_card():
+                for t in range(len(sched) - 1):
+                    v = src("v", t, (B, acfg.latent_dim))
+                    u = src("u", t, (B,))
+                    nxt, _ = ais.ais_step(ll_card, state, s_card[t],
+                                          s_card[t + 1], v, u)
+                    cpu_in = ais.AISState(state.z.cpu(), state.eps.cpu(),
+                                          state.accept_hist.cpu(),
+                                          state.logw.cpu(), state.j)
+                    ref, prob = ais.ais_step(ll_cpu, cpu_in, s_cpu[t],
+                                             s_cpu[t + 1], v.cpu(), u.cpu())
+                    flipped = (nxt.accept_hist.cpu() != ref.accept_hist)
+                    if flipped.any():
+                        # a decision within rounding of its threshold: the
+                        # chain's -log f sets the size of that rounding
+                        energy = -(ais._log_normal_nc(cpu_in.z)
+                                   + s_cpu[t + 1] * ll_cpu(cpu_in.z))
+                        gap = (torch.log(prob) - torch.log(u.cpu())).abs()
+                        allowed = (AIS_FLIP_GAP_RTOL * energy.abs()
+                                   + AIS_FLIP_GAP_ATOL)
+                        if bool((gap[flipped] > allowed[flipped]).any()):
+                            raise AssertionError(
+                                f"{acfg.vae_type} step {t}: a decision "
+                                f"flipped with gap {gap[flipped].max()}")
+                        gaps_max = max(gaps_max, float(gap[flipped].max()))
+                        flips += int(flipped.sum())
+                    keep = ~flipped
+                    for name in ("z", "eps") if keep.any() else ():
+                        worst[name] = max(worst[name], max_abs(
+                            getattr(nxt, name).cpu()[keep],
+                            getattr(ref, name)[keep]))
+                    dlogw = ((nxt.logw.cpu() - ref.logw).abs()
+                             / (AIS_LOGW_ATOL + AIS_LOGW_RTOL
+                                * ref.logw.abs()))
+                    worst["logw"] = max(worst["logw"], float(dlogw.max()))
+                    state = nxt
+            card_s = time.perf_counter() - t0
+            launched = counts()
+            ais_counts.update(launched)
+            decisions = B * (len(sched) - 1)
+            if (launched != no_kernel or worst["z"] > AIS_Z_ATOL
+                    or worst["eps"] > AIS_Z_ATOL or worst["logw"] > 1.0
+                    or flips > AIS_FLIP_SHARE * decisions
+                    or not torch.isfinite(state.logw).all()):
+                raise AssertionError(f"{acfg.vae_type} AIS card vs CPU: "
+                                     f"{worst}, {flips} flips, launched "
+                                     f"{launched}")
+            lw = torch.logsumexp(ais._chain_views(
+                state.logw, state.z, n, AL_ROWS, acfg.latent_dim)[0], -1)
+            print(f"{acfg.vae_type}: {B} chains x {len(sched) - 1} "
+                  f"temperatures, card vs CPU from the card's states: max "
+                  f"|dz| {worst['z']:.3e}, |deps| {worst['eps']:.3e}, "
+                  f"logw within {worst['logw']:.3f} of its tolerance; "
+                  f"{flips} of {decisions} decisions flipped (largest gap "
+                  f"{gaps_max:.3e}); card's log p(x) "
+                  f"{float(lw.mean()) - math.log(n):.6f}; no kernel; "
+                  f"{card_s:.3f} s with the CPU steps", flush=True)
+
+    def timed_ais(label, per_split):
+        """Wraps `ais.ais_batch` (one call a split): each call's first
+        AIS_PROFILE_TEMPS temperatures run once under torch.profiler when
+        `profile(B0)` says so (a trace of the whole chain takes minutes to
+        read), the noise generator put back as it was; then the call is
+        timed with a sync at each end, its peak device memory read."""
+        real = ais.ais_batch
+
+        def run(*args, **kw):
+            x, noise = args[1], args[5]
+            prof_ms, on_card = None, None
+            if per_split.get("profile", lambda B0: True)(x.shape[0]):
+                saved = noise.generator.get_state()
+                short = (*args[:4], args[4][:AIS_PROFILE_TEMPS + 1],
+                         *args[5:])
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    real(*short, **kw)
+                    torch.cuda.synchronize()
+                    prof_ms = (time.perf_counter() - t0) * 1e3
+                noise.generator.set_state(saved)
+                on_card = profile_train.device_events(prof)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = real(*args, **kw)
+            torch.cuda.synchronize()
+            stage = ("BDMC forward" if per_split.get("in_bdmc") else
+                     "train" if sum(not r["label"].endswith("BDMC forward")
+                                    for r in per_split.get("runs", [])) % 2
+                     == 0 else "test")
+            per_split.setdefault("runs", []).append({
+                "label": f"{label} {stage}", "rows": x.shape[0], "chains":
+                x.shape[0] * args[2], "wall_ms":
+                (time.perf_counter() - t0) * 1e3, "base": base,
+                "peak": torch.cuda.max_memory_allocated(),
+                "prof_ms": prof_ms, "on_card": on_card, "logw": res.logw})
+            return res
+
+        return real, run
+
+    def print_split(r, extra=""):
+        line = (f"{r['label']} {r['rows']} rows x "
+                f"{r['chains'] // r['rows']} chains = {r['chains']}: "
+                f"{r['wall_ms']:.6f} ms (host clock), log p(x) "
+                f"{r['logw']:.6f}, peak device memory "
+                f"{r['peak'] / 2**20:.3f} MiB ("
+                f"{(r['peak'] - r['base']) / 2**20:.3f} MiB above the "
+                f"{r['base'] / 2**20:.3f} MiB held before)" + extra)
+        on_card = r["on_card"]
+        if on_card:
+            busy = profile_train.busy_ms(on_card)
+            top = profile_train.top_device_ms(on_card).most_common(5)
+            line += (f"; its first {AIS_PROFILE_TEMPS} temperatures under "
+                     f"torch.profiler {r['prof_ms']:.6f} ms, device busy "
+                     f"{busy:.6f} ms ({busy / r['prof_ms']:.1%}), "
+                     f"{len(on_card)} device operations; top device ms: "
+                     + "; ".join(f"{nm} {t:.6f}" for nm, t in top))
+        elif on_card is not None:
+            line += ("; device operations and busy share not measured, the "
+                     "trace held no device event")
+        print(line + f" [{card}]", flush=True)
+
+    with phase(f"AIS (c): experiment_main/ais_eval.py over records "
+               f"{AIS_RECORDS} as they stand, -bdmc true on record "
+               f"{AIS_RECORDS[0]}"):
+        with grid_dir(records) as tmp:
+            for acfg in ais_cfgs:
+                checkpoint.save(ais_params[acfg.vae_type],
+                                checkpoint.checkpoint_path(
+                                    acfg, str(tmp / "experiments")))
+            real_bdmc, per_split = ais.eval_bdmc, {}
+            bdmc_ms = []
+
+            def timed_bdmc(*args, **kw):
+                per_split["in_bdmc"] = True
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    out = real_bdmc(*args, **kw)
+                finally:
+                    per_split["in_bdmc"] = False
+                torch.cuda.synchronize()
+                bdmc_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            for acfg in ais_cfgs:
+                real_batch, ais.ais_batch = timed_ais(acfg.vae_type,
+                                                      per_split)
+                ais.eval_bdmc = timed_bdmc
+                argv = ["-vae_type", acfg.vae_type] + (
+                    ["-bdmc", "true"] if acfg is ais_cfgs[0] else [])
+                out = io.StringIO()
+                reset_counts()
+                try:
+                    with no_plain_on_card(), \
+                            contextlib.redirect_stdout(out):
+                        rc = ais_main.main(argv)
+                finally:
+                    ais.ais_batch, ais.eval_bdmc = real_batch, real_bdmc
+                printed = out.getvalue()
+                print(printed, end="", flush=True)
+                launched = counts()
+                ais_counts.update(launched)
+                if rc != 0 or launched != no_kernel:
+                    raise AssertionError(f"ais_eval {argv} returned {rc}, "
+                                         f"launched {launched}")
+                warned = "[ais] WARNING: flow-family" in printed
+                if warned != ("flow" in acfg.vae_type):
+                    raise AssertionError(f"{acfg.vae_type}: the flow warning "
+                                         f"printed: {warned}")
+                base = Path("experiments") / acfg.vae_type / "wine" / (
+                    "elbos") / f"{acfg.missing_rate}_missing" / (
+                    f"{acfg.epoch}_epochs")
+                sizes = {"train": wine.train.n, "test": wine.test.n}
+                for stage, rows in sizes.items():
+                    val = torch.load(base / f"{stage}_ais.pt",
+                                     weights_only=False)
+                    lat = torch.load(Path(str(base).replace(
+                        "elbos", "latents")) / f"{stage}_ais_true_latents.pt",
+                        weights_only=False)
+                    if (val.dtype != torch.float64 or val.shape != ()
+                            or not math.isfinite(val.item())
+                            or lat.dtype != torch.float32
+                            or tuple(lat.shape) != (rows, acfg.n_ais_iwae,
+                                                    acfg.latent_dim)
+                            or not torch.isfinite(lat).all()
+                            or f"  [{stage}] AIS log p(x) = "
+                               f"{val.item():.4f}" not in printed):
+                        raise AssertionError(f"{acfg.vae_type} {stage}: "
+                                             f"{val!r}, {lat.dtype} "
+                                             f"{tuple(lat.shape)}")
+                if "-bdmc" in argv:
+                    bounds = [torch.load(base / f"bdmc_{b}.pt",
+                                         weights_only=False).item()
+                              for b in ("lower", "upper")]
+                    if not (all(map(math.isfinite, bounds))
+                            and "  [bdmc] sandwich on simulated data: "
+                            f"lower={bounds[0]:.4f}" in printed):
+                        raise AssertionError(f"BDMC bounds {bounds}")
+        for r in per_split["runs"]:
+            print_split(r)
+        print(f"BDMC on {ais_cfgs[0].vae_type} (forward and reverse chains "
+              f"over {min(64, wine.test.n)} simulated rows x 40): "
+              f"{bdmc_ms[0]:.6f} ms (host clock) [{card}]", flush=True)
+
+    mnist_ais_cfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
+                              missing_rate=30, seed=SEED,
+                              ais_schedule="linear", n_ais_dist=50,
+                              n_ais_iwae=40)
+    with phase("AIS (d): eval_ais on the committed MNIST reg_EDDI1 "
+               "checkpoint, both splits, linear T=50, 40 chains"):
+        mnist_params = checkpoint.load_reference(
+            checkpoint.checkpoint_path(mnist_ais_cfg,
+                                       root=str(REPO / "experiments")),
+            mnist_ais_cfg, 784, device="cuda")
+        per_split = {"profile": lambda B0: B0 < 1000}
+        real_batch, ais.ais_batch = timed_ais("MNIST reg_EDDI1", per_split)
+        reset_counts()
+        try:
+            with no_plain_on_card():
+                mnist_ais = ais.eval_ais(mnist, mnist_ais_cfg,
+                                         params=mnist_params,
+                                         n_sample=mnist_ais_cfg.n_ais_iwae,
+                                         save=False, device="cuda")
+        finally:
+            ais.ais_batch = real_batch
+        launched = counts()
+        ais_counts.update(launched)
+        if launched != no_kernel or [r["chains"] for r in
+                                     per_split["runs"]] != [
+                mnist.train.n * 40, mnist.test.n * 40] or not all(
+                math.isfinite(r.logw) for r in mnist_ais.values()):
+            raise AssertionError(f"MNIST AIS: launched {launched}, "
+                                 f"{per_split['runs']}")
+        for r in per_split["runs"]:
+            # the decoder 10-200-500-500-784: 11 gradients (forward and
+            # backward to z) and 2 forwards a temperature
+            flop = r["chains"] * 49 * 2 * (10 * 200 + 200 * 500 + 500 * 500
+                                           + 500 * 784) * (11 * 2 + 2)
+            print_split(r, f"; {flop / 1e12:.3f} TFLOP of decoder "
+                        f"matmuls, {flop / r['wall_ms'] / 1e9:.3f} TFLOP/s")
+
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -2085,6 +2581,8 @@ def main() -> int:
     a_ms, a_plain, a_bound, _, _ = times["embed_pool_fwd_al"]
     for k in kernels:
         k["al_launches"] = al_counts[k["name"]]
+        # launches on the AIS phases (b)-(d): none, asserted there
+        k["ais_launches"] = ais_counts[k["name"]]
         if k["name"] == "embed_pool_fwd":
             k.update(al_ms=a_ms, al_plain_ms=a_plain, al_bound_ms=a_bound,
                      al_shape=[1, AL_M * (WINE_D - 1) * AL_ROWS, WINE_D, K])

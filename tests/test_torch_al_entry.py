@@ -101,3 +101,21 @@ def test_a_missing_checkpoint_stops_the_run_with_its_path(tmp_path,
     path = jckpt.checkpoint_path(jc, "experiments")
     with pytest.raises(FileNotFoundError, match=re.escape(path)):
         active_learning.main(["-device", "cpu"])
+
+
+def test_restart_and_early_stop_flags_are_accepted_and_ignored(
+        tmp_path, monkeypatch, capsys):
+    """-checkpoint_every, -resume and -early_stop parse and change nothing
+    in an episode, as in the JAX entry point (nothing trains here): the
+    same information curve with and without them."""
+    _trained(tmp_path, monkeypatch, VANILLA_VAE)
+    curves = []
+    for flags in ([], ["-checkpoint_every", "5", "-resume", "true",
+                       "-early_stop", "true"]):
+        capsys.readouterr()
+        assert active_learning.main(["-device", "cpu", *flags]) == 0
+        curves.append(re.search(r"info curve \(target MSE per #revealed\): "
+                                r"(.*)", capsys.readouterr().out).group(1))
+    assert curves[0] == curves[1]
+    assert not any(f.endswith(".resume.pt") for _, _, files in
+                   os.walk("experiments") for f in files)

@@ -138,21 +138,44 @@ def test_parse_alphas_and_missings_match_jax(spec):
 
 
 def test_restart_and_early_stop_flags_parse_as_jax_and_wait_for_slice_5():
+    """Slice 5 is in: the flags read as the JAX package reads them, and
+    -early_stop gives a fresh EarlyStopping at the record's patience."""
+    from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
+        EarlyStopping,
+    )
+
     probe = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args([])
     assert tcfg.restart_opts(probe) == jcfg.restart_opts(probe) == (None,
                                                                    False)
     assert tcfg.early_stopper(probe, tcfg.RunConfig()) is None
-    for argv in (["-checkpoint_every", "5"], ["-resume", "true"]):
+    for argv, want in ((["-checkpoint_every", "5"], (5, False)),
+                       (["-resume", "true"], (None, True)),
+                       (["-checkpoint_every", "-3"], (None, False))):
         args = tcfg.setup_parser(RECORDS[33], "x").parse_args(argv)
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            tcfg.restart_opts(args)
+        assert tcfg.restart_opts(args) == jcfg.restart_opts(args) == want
     args = tcfg.setup_parser(RECORDS[33], "x").parse_args(
-        ["-checkpoint_every", "-3"])
-    assert tcfg.restart_opts(args) == jcfg.restart_opts(args) == (None, False)
-    args = tcfg.setup_parser(RECORDS[33], "x").parse_args(
-        ["-early_stop", "yes"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tcfg.early_stopper(args, tcfg.RunConfig())
+        ["-early_stop", "yes", "-patience", "7"])
+    cfg = tcfg.RunConfig.from_args(args)
+    got, want = tcfg.early_stopper(args, cfg), jcfg.early_stopper(
+        args, jcfg.RunConfig.from_args(args))
+    assert isinstance(got, EarlyStopping)
+    assert (got.patience, got.verbose, got.delta, got.path) == (
+        want.patience, want.verbose, want.delta, want.path) == (7, True, 0.0,
+                                                                None)
+    assert tcfg.early_stopper(args, cfg) is not got
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        tcfg.early_stopper(args, cfg, ensemble=True)
+
+
+def test_bdmc_flag_is_ais_entry_only():
+    """-bdmc belongs to the ais_eval parser alone, as in the JAX package."""
+    record = {"vae_type": {"default": "vanilla_vae1", "help": ""}}
+    for pkg in (tcfg, jcfg):
+        assert pkg.setup_parser(record, "ais_eval").parse_args(
+            ["-bdmc", "true"]).bdmc is True
+        assert pkg.setup_parser(record, "ais_eval").parse_args([]).bdmc is False
+        assert not hasattr(pkg.setup_parser(record, "impute_eval").parse_args(
+            []), "bdmc")
 
 
 @pytest.mark.parametrize("argv,slice_name", [

@@ -225,3 +225,41 @@ def test_port_checkpoint_path_is_jax_path_for_every_grid_record():
             imputation.setup_parser(record, "impute_eval").parse_args([]),
             alpha=1.0, p_missingness=30)
         assert tckpt.checkpoint_path(tc) == jckpt.checkpoint_path(jc)
+
+
+def test_restart_and_early_stop_flags_reach_train_on_the_serial_grid(
+        tmp_path, monkeypatch):
+    """Record 34 at M=2: 2 epochs with -checkpoint_every 1, then 4 epochs
+    with -resume true, which goes on from the file's 2 (history of epochs
+    3-4 only, the file then at 4); then -early_stop true -patience 1 with
+    a fresh EarlyStopping at the record's patience, as the JAX entry point
+    passes them (experiment_main/imputation.py:534-550)."""
+    from vae_posterior_consistency_tpu_torch.engine import train as ttrain
+    from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
+        EarlyStopping,
+    )
+
+    monkeypatch.chdir(_workdir(tmp_path, [_record(FLAGSHIP, M=2)]))
+    real, seen = ttrain.train, []
+
+    def spy(dataset, cfg, **kw):
+        params, history = real(dataset, cfg, **kw)
+        seen.append((cfg, kw, history))
+        return params, history
+
+    monkeypatch.setattr(ttrain, "train", spy)
+    for argv in (["-epoch", "2", "-checkpoint_every", "1"],
+                 ["-epoch", "4", "-checkpoint_every", "1", "-resume", "true"],
+                 ["-epoch", "2", "-early_stop", "true", "-patience", "1"]):
+        assert imputation.main(["-device", "cpu", *argv]) == 0
+    (c1, k1, h1), (c2, k2, h2), (c3, k3, h3) = seen
+    assert (k1["checkpoint_every"], k1["resume"]) == (1, False)
+    assert (k2["checkpoint_every"], k2["resume"]) == (1, True)
+    assert len(h1) == 2 and len(h2) == 2
+    saved = torch.load(tckpt.checkpoint_path(c2, "experiments")
+                       + ".resume.pt", weights_only=False)
+    assert int(saved["epoch"]) == 4
+    assert k1["early_stopping"] is None and k2["early_stopping"] is None
+    es = k3["early_stopping"]
+    assert isinstance(es, EarlyStopping) and es.patience == 1
+    assert es.best_params is not None and len(h3) == 2

@@ -293,15 +293,64 @@ def test_entry_point_runs_both_records_and_writes_jax_names(
 
 @pytest.mark.parametrize("flags,slice_", [
     (["-seeds", "2"], "slice 9"), (["-ensemble", "true"], "slice 9"),
-    (["-mesh", "dp:2"], "slice 10"), (["-resume", "true"], "slice 5"),
-    (["-early_stop", "true"], "slice 5"), (["-profile", "traces"],
-                                             "slice 11")])
+    (["-mesh", "dp:2"], "slice 10"), (["-profile", "traces"], "slice 11")])
 def test_entry_point_refuses_unported_flags_by_slice(tmp_path, monkeypatch,
                                                      flags, slice_):
     monkeypatch.chdir(_workdir(tmp_path))
     with pytest.raises(NotImplementedError, match=slice_):
         imputation_mnar.main(["-device", "cpu", *flags])
     assert not os.path.exists(tmp_path / "experiments")
+
+
+@pytest.mark.parametrize("flags", [
+    ["-checkpoint_every", "1", "-resume", "true"],
+    ["-early_stop", "true", "-patience", "1"]])
+def test_entry_point_passes_restart_and_early_stop_flags_to_train(
+        tmp_path, monkeypatch, flags):
+    """-checkpoint_every/-resume and -early_stop reach `train` on the
+    serial path, as the JAX entry point passes them
+    (experiment_main/imputation_mnar.py:112-141): each record gets a fresh
+    EarlyStopping at its patience, or writes its resume file at its last
+    epoch, from which a second run resumes with nothing left to train."""
+    from vae_posterior_consistency_tpu_torch.engine import train as ttrain
+    from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
+        EarlyStopping,
+    )
+
+    monkeypatch.chdir(_workdir(tmp_path))
+    real, seen = ttrain.train, []
+
+    def spy(dataset, cfg, **kw):
+        params, history = real(dataset, cfg, **kw)
+        seen.append((cfg, kw, history))
+        return params, history
+
+    monkeypatch.setattr(ttrain, "train", spy)
+    argv = ["-device", "cpu", "-valid_k", "20", *flags]
+    runs = 2 if "-resume" in flags else 1
+    for _ in range(runs):
+        assert imputation_mnar.main(argv) == 0
+    assert len(seen) == 2 * runs
+    if "-early_stop" in flags:
+        trackers = [kw["early_stopping"] for _, kw, _ in seen]
+        assert all(isinstance(es, EarlyStopping) and es.patience == 1
+                   and es.best_params is not None for es in trackers)
+        assert trackers[0] is not trackers[1]
+        assert all((kw["checkpoint_every"], kw["resume"]) == (None, False)
+                   for _, kw, _ in seen)
+        return
+    for cfg, kw, history in seen:
+        assert (kw["checkpoint_every"], kw["resume"],
+                kw["early_stopping"]) == (1, True, None)
+    for cfg, _, history in seen[:2]:
+        assert len(history) == cfg.epoch
+        path = tckpt.checkpoint_path(cfg, "experiments")
+        saved = torch.load(path + ".resume.pt", weights_only=False)
+        assert int(saved["epoch"]) == cfg.epoch
+        final = torch.load(path, weights_only=False)
+        for k, v in final.items():
+            np.testing.assert_array_equal(saved["params/" + k], v)
+    assert [h for _, _, h in seen[2:]] == [[], []]
 
 
 def test_entry_point_without_its_grid_raises(tmp_path, monkeypatch):

@@ -6,10 +6,10 @@ A copy of the JAX package's `config.py` contract: every config record of
 an argparse parser whose single-dash flags override the record (reference:
 src/utils/utils.py:177-189). The flags the JAX package adds (`-mesh`,
 `-ensemble`, `-seeds`, `-alphas`, `-missings`, `-checkpoint_every`,
-`-resume`, `-early_stop`, `-profile`) parse the same way here; those whose
-engine the port has not yet ported raise `NotImplementedError` naming the
-slice of ROADMAP.md queue A that brings it. The port adds one flag of its
-own, `-device`.
+`-resume`, `-early_stop`, `-profile`, and `-bdmc` for the `ais_eval`
+parser) parse the same way here; those whose engine the port has not yet
+ported raise `NotImplementedError` naming the slice of ROADMAP.md queue A
+that brings it. The port adds one flag of its own, `-device`.
 """
 
 from __future__ import annotations
@@ -45,12 +45,15 @@ _EXTRA_FLAGS = {
                "(e.g. '0.5,1,2'); empty = the entry's default sweep"),
     "missings": (str, "", "comma-separated p_missingness rates to sweep "
                  "(e.g. '10,30,50'); empty = the entry's default sweep"),
-    "checkpoint_every": (int, 0, "write a mid-training resume file every N "
-                         "epochs (not ported yet; 0 = end-of-training save)"),
-    "resume": (str2bool, False, "restart from a resume file (not ported "
-               "yet)"),
-    "early_stop": (str2bool, False, "patience-based early stopping (not "
-                   "ported yet)"),
+    "checkpoint_every": (int, 0, "write a mid-training .resume.pt every N "
+                         "epochs (0 = end-of-training save only, the "
+                         "reference behavior)"),
+    "resume": (str2bool, False, "restart from the .resume.pt written by a "
+               "prior -checkpoint_every run"),
+    "early_stop": (str2bool, False, "enable patience-based early stopping "
+                   "(cfg.patience counts chunk-boundary validation checks, "
+                   "one per 200 epochs; stops on plateau and keeps the "
+                   "best-check parameters)"),
     "profile": (str, "", "write a profiler trace to this directory (not "
                 "ported yet)"),
     "device": (str, "cuda", "torch device the run uses: 'cuda' (the "
@@ -58,7 +61,6 @@ _EXTRA_FLAGS = {
 }
 
 #: flags whose engine is not ported yet -> the ROADMAP.md slice that brings it
-SLICE_RESTART = "slice 5 (restartability and early stopping)"
 SLICE_ENSEMBLE = "slice 9 (ensembles)"
 SLICE_MESH = "slice 10 (multi-device)"
 SLICE_PROFILE = "slice 11 (utils/logging through torch.profiler)"
@@ -82,6 +84,13 @@ def setup_parser(arguments: dict, title: str) -> argparse.ArgumentParser:
         if key not in arguments:
             parser.add_argument("-%s" % key, type=typ, default=default,
                                 help=help_)
+    if title == "ais_eval" and "bdmc" not in arguments:
+        # the BDMC sandwich (engine/ais.eval_bdmc), as the JAX package's
+        # ais_eval parser has it
+        parser.add_argument(
+            "-bdmc", type=str2bool, default=False,
+            help="also run the BDMC lower/upper sandwich on simulated data "
+                 "to certify the AIS schedule (forward + reverse AIS)")
     return parser
 
 
@@ -269,28 +278,29 @@ def check_unported(args) -> None:
 
 
 def restart_opts(args):
-    """(-checkpoint_every, -resume) -> (checkpoint_every or None, resume),
-    read as the JAX package reads them: a non-positive checkpoint_every is
-    'off'. Either one set raises NotImplementedError: resume files come
-    with slice 5."""
+    """(-checkpoint_every, -resume) -> `train`'s (checkpoint_every or None,
+    resume), read as the JAX package reads them: a non-positive
+    checkpoint_every is 'off'."""
     ck = int(getattr(args, "checkpoint_every", 0) or 0)
-    ck, resume = (ck if ck > 0 else None), bool(getattr(args, "resume", False))
-    if ck is not None or resume:
-        raise NotImplementedError(
-            f"-checkpoint_every {ck or 0} -resume {resume}: mid-training "
-            f"checkpoints are not ported yet; they come with {SLICE_RESTART}")
-    return ck, resume
+    return (ck if ck > 0 else None), bool(getattr(args, "resume", False))
 
 
 def early_stopper(args, cfg: RunConfig, ensemble: bool = False):
-    """`-early_stop` -> None when unset, as in the JAX package; set, it
-    raises NotImplementedError: early stopping comes with slice 5."""
-    del cfg, ensemble
+    """`-early_stop` -> a fresh `EarlyStopping(patience=cfg.patience,
+    verbose=True)`, or None when unset, as in the JAX package (a fresh
+    tracker per call: patience never carries from one record to the
+    next). The ensembles' per-replica tracker comes with slice 9."""
     if not bool(getattr(args, "early_stop", False)):
         return None
-    raise NotImplementedError(
-        f"-early_stop true: early stopping is not ported yet; it comes with "
-        f"{SLICE_RESTART}")
+    if ensemble:
+        raise NotImplementedError(
+            "-early_stop with an ensemble: the per-replica tracker is not "
+            f"ported yet; it comes with {SLICE_ENSEMBLE}")
+    from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
+        EarlyStopping,
+    )
+
+    return EarlyStopping(patience=cfg.patience, verbose=True)
 
 
 def parse_alphas(args, default):

@@ -1,5 +1,7 @@
 """Checkpoints: reference-mangled paths, the JAX package's flat-key `.pt`
-format (save and load), and trained reference state_dicts (gauss family).
+format (save and load), its mid-training `.resume.pt` files (parameters,
+Adam state, epochs done, the run's identity tag), and trained reference
+state_dicts (gauss family).
 
 The JAX package saves a flat dict {"encoder/pnp1/layer0/w": ndarray, ...}
 with torch.save (its `engine/checkpoint.py`); weights are [fan_in, fan_out],
@@ -16,7 +18,10 @@ notMIWAE missing process's "W" and "b") by its name alone.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import pickle
+import zlib
 
 import numpy as np
 import torch
@@ -104,6 +109,10 @@ def params_from_jax(flat: dict, device) -> dict:
                       for k, v in flat.items()})
 
 
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy(), dtype=np.float32)
+
+
 def save(params: dict, path: str) -> None:
     """Write `params` in the JAX package's flat-key format: `torch.save` of
     {"encoder/layer0/w": float32 ndarray, ...}, weights [fan_in, fan_out]
@@ -112,31 +121,160 @@ def save(params: dict, path: str) -> None:
     parent = os.path.dirname(path)
     if parent:
         os.makedirs(parent, exist_ok=True)
-    torch.save({k: np.asarray(v.detach().cpu().numpy(), dtype=np.float32)
-                for k, v in flatten(params).items()}, path)
+    torch.save({k: _np(v) for k, v in flatten(params).items()}, path)
+
+
+def _restore(flat: dict, template_params: dict, prefix: str = "") -> dict:
+    """The leaves `prefix + key` of a loaded flat dict, in the structure,
+    devices and dtypes of `template_params`. KeyError for a missing leaf,
+    ValueError for a shape that differs."""
+    out = {}
+    for key, leaf in flatten(template_params).items():
+        arr = np.asarray(flat[prefix + key])
+        if arr.shape != tuple(leaf.shape):
+            raise ValueError(f"checkpoint leaf {prefix + key!r} has shape "
+                             f"{arr.shape}, expected {tuple(leaf.shape)}")
+        out[key] = torch.tensor(arr, device=leaf.device, dtype=leaf.dtype)
+    return unflatten(out)
 
 
 def load(template_params: dict, path: str) -> dict:
     """Load a JAX-package checkpoint into the structure of `template_params`
     (from a fresh `init`), on the template's devices and dtypes."""
-    flat = torch.load(path, map_location="cpu", weights_only=False)
-    out = {}
-    for key, leaf in flatten(template_params).items():
-        arr = np.asarray(flat[key])
-        if arr.shape != tuple(leaf.shape):
-            raise ValueError(f"checkpoint leaf {key!r} has shape {arr.shape}, "
-                             f"expected {tuple(leaf.shape)}")
-        out[key] = torch.tensor(arr, device=leaf.device, dtype=leaf.dtype)
-    return unflatten(out)
+    return _restore(torch.load(path, map_location="cpu", weights_only=False),
+                    template_params)
+
+
+# ---------------------------------------------------------------------------
+# mid-training resume files
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's state as optax keeps it: one step `count` for all leaves and
+    the first and second moments `mu`, `nu`, nested like the parameters."""
+
+    count: int
+    mu: dict
+    nu: dict
+
+
+def adam_state(optimizer: torch.optim.Adam, params: dict) -> AdamState:
+    """torch Adam's per-parameter `step`, `exp_avg`, `exp_avg_sq` -> one
+    AdamState. A leaf Adam has never stepped (no gradient reached it, as
+    the flow decoder's dead logvar head) has zero moments, as in optax,
+    whose count is shared."""
+    count, mu, nu = 0, {}, {}
+    for key, p in flatten(params).items():
+        state = optimizer.state.get(p, {})
+        if state:
+            count = max(count, int(state["step"]))
+            mu[key], nu[key] = state["exp_avg"], state["exp_avg_sq"]
+        else:
+            mu[key] = nu[key] = torch.zeros_like(p)
+    return AdamState(count, unflatten(mu), unflatten(nu))
+
+
+def load_adam_state(optimizer: torch.optim.Adam, params: dict,
+                    state: AdamState) -> None:
+    """Fill `optimizer` (built over `params`' leaves) with a copy of
+    `state`, every leaf's `step` set to its count. Goes through
+    `load_state_dict`, which puts each tensor on the device and in the
+    dtype Adam expects (and keeps a tensor already there as it is: hence
+    the copy)."""
+    index = {id(p): i for i, p in enumerate(optimizer.param_groups[0]
+                                            ["params"])}
+    mu, nu = flatten(state.mu), flatten(state.nu)
+    sd = optimizer.state_dict()
+    sd["state"] = {} if state.count == 0 else {
+        index[id(p)]: {"step": torch.tensor(float(state.count)),
+                       "exp_avg": mu[key].clone(),
+                       "exp_avg_sq": nu[key].clone()}
+        for key, p in flatten(params).items()}
+    optimizer.load_state_dict(sd)
+
+
+def _tag_hash(tag: str) -> np.int64:
+    return np.int64(zlib.crc32(tag.encode("utf-8")))
+
+
+def save_resume(params: dict, opt_state: AdamState, epoch: int, path: str,
+                tag: str = "") -> None:
+    """Write mid-training restart state (parameters, Adam state, epochs
+    done) in the JAX package's `.resume.pt` layout, key for key: the
+    float32 "params/<key>", "opt_state/0/.mu/<key>" and
+    "opt_state/0/.nu/<key>", the int32 "opt_state/0/.count" and "epoch",
+    and the int64 "tag", crc32 of the run's identity `tag`. Either package
+    reads what the other writes. The file is written to `path + '.tmp'`
+    and renamed into place, so a crash while writing leaves the previous
+    file whole."""
+    flat = {"params/" + k: _np(v) for k, v in flatten(params).items()}
+    flat["opt_state/0/.count"] = np.asarray(opt_state.count, np.int32)
+    for name, moments in (("mu", opt_state.mu), ("nu", opt_state.nu)):
+        flat.update({f"opt_state/0/.{name}/{k}": _np(v)
+                     for k, v in flatten(moments).items()})
+    flat["epoch"] = np.asarray(epoch, np.int32)
+    flat["tag"] = np.asarray(_tag_hash(tag))
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(flat, tmp)
+    os.replace(tmp, path)
+
+
+def load_resume(template_params: dict, path: str, tag: str = "",
+                max_epochs: int | None = None):
+    """Read a `save_resume` file (of either package) back into (params,
+    AdamState, epochs_done), shaped, placed and typed like
+    `template_params`. Raises RuntimeError, with the JAX package's
+    messages, when the file's layout does not match this model, when its
+    identity tag differs from `tag`, and when it has trained more epochs
+    than `max_epochs`."""
+    try:
+        flat = torch.load(path, map_location="cpu", weights_only=False)
+        params = _restore(flat, template_params, "params/")
+        mu = _restore(flat, template_params, "opt_state/0/.mu/")
+        nu = _restore(flat, template_params, "opt_state/0/.nu/")
+        scalars = {k: np.asarray(flat[k]) for k in
+                   ("opt_state/0/.count", "epoch", "tag")}
+        for k, v in scalars.items():
+            if v.shape != ():
+                raise ValueError(f"checkpoint leaf {k!r} has shape "
+                                 f"{v.shape}, expected ()")
+    # only structural mismatches get the delete-the-file advice; I/O
+    # failures propagate untouched
+    except (KeyError, ValueError, TypeError, pickle.UnpicklingError) as e:
+        raise RuntimeError(
+            f"cannot resume from {path}: its layout does not match this "
+            "engine/config (files written before the pytree-runner "
+            "migration stored a flat vector under a 'pflat' key; files "
+            "written before round 5 carry no identity tag). Delete the "
+            ".resume.pt to restart from scratch."
+        ) from e
+    if int(scalars["tag"]) != int(_tag_hash(tag)):
+        raise RuntimeError(
+            f"cannot resume from {path}: it was written by a run with "
+            f"different sweep values than this one ({tag!r}). Delete the "
+            ".resume.pt to restart from scratch, or rerun with the "
+            "original sweep flags."
+        )
+    done = int(scalars["epoch"])
+    if max_epochs is not None and done > max_epochs:
+        raise RuntimeError(
+            f"cannot resume from {path}: it has already trained {done} "
+            f"epochs but this run asks for only {max_epochs}. Delete the "
+            ".resume.pt to retrain from scratch at the smaller budget, or "
+            "rerun with the original -epoch."
+        )
+    return (params, AdamState(int(scalars["opt_state/0/.count"]), mu, nu),
+            done)
 
 
 # ---------------------------------------------------------------------------
 # reference state_dicts (gauss family)
 # ---------------------------------------------------------------------------
-
-
-def _np(t):
-    return np.asarray(t.detach().cpu().numpy(), dtype=np.float32)
 
 
 def _linear(sd, prefix):

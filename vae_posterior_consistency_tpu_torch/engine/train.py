@@ -31,13 +31,25 @@ then the model family's draws, `ModelDef.train_noise`:
             notMIWAE 'sampled_mask' variant;
 drawn in that order each step, "mask_p" and "drop" never both.
 `GeneratorNoise`, the default, draws from a `torch.Generator` on the
-training device; a caller may pass its own source, for instance one that
-replays the JAX package's key stream.
+training device, reseeded at each epoch from (seed, epoch), so an epoch's
+draws do not depend on the epochs before it and a resumed run draws what
+the uninterrupted run drew; a caller may pass its own source, for instance
+one that replays the JAX package's key stream.
+
+Restartability and early stopping, as in the JAX package: `train` runs in
+chunks of `chunk_epochs` epochs; `checkpoint_every=N` writes (parameters,
+Adam state, epochs done) to `<checkpoint>.resume.pt` every N epochs and at
+the end, `resume=True` continues from that file, and `early_stopping`
+validates at every multiple of `chunk_epochs` and at the end, stops when
+patience runs out and returns the best check's parameters. The validation
+objective's draws are made once, as a step's at epoch `VAL_EPOCH`, and
+reused at every check.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Callable, Optional
 
@@ -53,17 +65,38 @@ from vae_posterior_consistency_tpu_torch.ops import masks
 LEARNING_RATE = 1e-3
 
 
+#: the epoch at which the validation objective's draws are made (the JAX
+#: package's fold_in(k_run, 0x5A11D))
+VAL_EPOCH = 0x5A11D
+
+#: epochs below 2**EPOCH_BITS get seeds of their own under every seed
+EPOCH_BITS = 20
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The generator seed of `epoch` under `seed`: distinct for every pair
+    with epoch < 2**EPOCH_BITS, and, for a CPU generator, which reads only
+    the low 32 bits of a seed, for every seed below 2**12 as well."""
+    return (seed << EPOCH_BITS) + epoch
+
+
 class GeneratorNoise:
-    """Every draw of a training run from one seeded `torch.Generator` on
-    `device`, in the order the run asks for them."""
+    """The draws of a training run from a `torch.Generator` on `device`,
+    reseeded with `epoch_seed(seed, epoch)` at the first draw of each epoch
+    (an epoch's draws are those made since), then in the order the run asks
+    for them."""
 
     def __init__(self, seed: int, device):
+        self.seed = seed
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self._epoch = None
 
     def __call__(self, kind: str, epoch: int, step: int, shape):
-        del epoch, step  # the generator's own state advances draw by draw
+        del step  # within an epoch the generator advances draw by draw
+        if epoch != self._epoch:
+            self.generator.manual_seed(epoch_seed(self.seed, epoch))
+            self._epoch = epoch
         g, dev = self.generator, self.device
         if kind == "perm":
             return torch.randperm(shape[0], generator=g, device=dev)
@@ -133,6 +166,25 @@ def check_device(device) -> torch.device:
     return device
 
 
+def _build_val_fn(cfg: RunConfig, model, x, mask, noise) -> Callable:
+    """The full-split validation objective of early stopping: the training
+    loss on (x, mask) without gradients, its draws made once, as a step's
+    at epoch VAL_EPOCH, step 0, and reused at every check, and the loss at
+    the fixed epoch cfg.epoch (an epoch-annealed loss, ml_reg or
+    beta_annealing, would otherwise drift between checks), as in the JAX
+    package's `_build_val_fn`. Returns params -> float."""
+    eff_mask, mask_p, eps, extra = draw_step(cfg, noise, mask, VAL_EPOCH, 0,
+                                             model)
+    fixed_epoch = float(cfg.epoch)
+
+    def val_loss(params) -> float:
+        with torch.no_grad():
+            return model.train_loss(params, x, eff_mask, mask_p, eps,
+                                    fixed_epoch, cfg, **extra)[0].item()
+
+    return val_loss
+
+
 def train(
     dataset: Dataset,
     cfg: RunConfig,
@@ -143,8 +195,14 @@ def train(
     noise=None,
     params: Optional[dict] = None,
     on_step: Optional[Callable[[int, int, torch.Tensor], None]] = None,
+    chunk_epochs: int = 200,
+    checkpoint_every: Optional[int] = None,
+    resume: bool = False,
+    early_stopping=None,
+    val_noise=None,
 ):
-    """Full training run; returns (params, per-epoch loss history).
+    """Full training run; returns (params, per-epoch loss history of the
+    epochs this call ran).
 
     Equivalent of the reference train() (src/experiment_main/train.py:
     13-133): a fresh model (or `params`, copied), Adam(1e-3), cfg.epoch
@@ -153,18 +211,45 @@ def train(
     `torch.Generator` on `device` seeded with cfg.seed, the default noise
     from `GeneratorNoise(cfg.seed + 1, device)`. `log_fn(epoch, loss_sum)`
     runs after each epoch (1-based), `on_step(epoch, step, loss)` after each
-    step (0-based; `loss` stays on the device)."""
+    step (0-based; `loss` stays on the device).
+
+    Beyond the reference, as in the JAX package's `train`:
+    - `checkpoint_every=N` writes `<checkpoint>.resume.pt` every N epochs
+      and at the last epoch (`checkpoint.save_resume`, tagged
+      `run:{vae_type}:seed={seed}:batch={batch_size}`);
+    - `resume=True` continues from that file when it exists
+      (`checkpoint.load_resume`, which refuses another run's file or one
+      that trained more than cfg.epoch epochs);
+    - `early_stopping` (`utils.early_stopping.EarlyStopping`) validates on
+      dataset.test, or on train where there is none, at every multiple of
+      `chunk_epochs` and at the end (`checkpoint_every` does not move these
+      checks); when it says stop, training ends and the best check's
+      parameters are returned and saved. The validation draws come from
+      `val_noise`, by default the training noise source, at epoch
+      VAL_EPOCH."""
     device = check_device(device)
     model = get_model(cfg)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(cfg.seed)
         params = model.init(gen, cfg, dataset.obs_dim, device=device)
-    params = checkpoint.unflatten({
-        k: v.detach().to(device=device, dtype=torch.float32, copy=True
-                         ).requires_grad_(True)
-        for k, v in checkpoint.flatten(params).items()})
+    params = checkpoint.on_device(params, device)
     noise = GeneratorNoise(cfg.seed + 1, device) if noise is None else noise
+
+    final_path = checkpoint.checkpoint_path(cfg, experiments_root)
+    resume_path = final_path + ".resume.pt"
+    # seed and batch_size are tagged because the checkpoint name holds
+    # neither
+    resume_tag = f"run:{cfg.vae_type}:seed={cfg.seed}:batch={cfg.batch_size}"
+    done, opt_state = 0, None
+    if resume and os.path.exists(resume_path):
+        params, opt_state, done = checkpoint.load_resume(
+            params, resume_path, tag=resume_tag, max_epochs=cfg.epoch)
+    params = checkpoint.unflatten({
+        k: v.clone().requires_grad_(True)
+        for k, v in checkpoint.flatten(params).items()})
     optimizer = make_optimizer(params)
+    if opt_state is not None:
+        checkpoint.load_adam_state(optimizer, params, opt_state)
     train_step = make_train_step(cfg, model)
 
     split = dataset.train
@@ -175,8 +260,15 @@ def train(
     steps = math.ceil(n / bsz)
     pad = steps * bsz - n
 
-    history = []
-    for epoch in range(cfg.epoch):
+    val_fn = None
+    if early_stopping is not None:
+        vsplit = dataset.test if dataset.test is not None else dataset.train
+        val_fn = _build_val_fn(
+            cfg, model, vsplit.x.to(device=device, dtype=torch.float32),
+            vsplit.mask.to(device=device, dtype=torch.float32),
+            noise if val_noise is None else val_noise)
+
+    def run_epoch(epoch: int) -> float:
         perm = noise("perm", epoch, 0, (n,)).to(device)
         if pad:
             perm = torch.cat([perm, perm[:pad]])
@@ -189,15 +281,40 @@ def train(
             total += loss
             if on_step is not None:
                 on_step(epoch, s, loss)
-        history.append(total.item())  # the one host sync of an epoch
-        if log_fn is not None:
-            log_fn(epoch + 1, history[-1])
+        return total.item()  # the one host sync of an epoch
+
+    history = []
+    while done < cfg.epoch:
+        n_e = min(chunk_epochs, cfg.epoch - done)
+        if checkpoint_every:
+            n_e = min(n_e, checkpoint_every - done % checkpoint_every)
+        if val_fn is not None:
+            # the checks stay at multiples of chunk_epochs whatever
+            # checkpoint_every is
+            n_e = min(n_e, chunk_epochs - done % chunk_epochs)
+        for epoch in range(done, done + n_e):
+            history.append(run_epoch(epoch))
+            if log_fn is not None:
+                log_fn(epoch + 1, history[-1])
+        done += n_e
+        if checkpoint_every and (done % checkpoint_every == 0
+                                 or done >= cfg.epoch):
+            # the last boundary is always written, so a later run with a
+            # larger budget resumes from the true end
+            checkpoint.save_resume(params,
+                                   checkpoint.adam_state(optimizer, params),
+                                   done, resume_path, tag=resume_tag)
+        if val_fn is not None and (done % chunk_epochs == 0
+                                   or done >= cfg.epoch):
+            if early_stopping.update(val_fn(params), params):
+                break
 
     params = checkpoint.unflatten({k: v.detach() for k, v
                                    in checkpoint.flatten(params).items()})
+    if early_stopping is not None and early_stopping.best_params is not None:
+        params = early_stopping.best_params
     if save:
-        checkpoint.save(params, checkpoint.checkpoint_path(cfg,
-                                                           experiments_root))
+        checkpoint.save(params, final_path)
     return params, history
 
 

@@ -24,7 +24,9 @@ or, with `-device cpu`, the kernels' plain versions on the CPU. A record
 the port cannot run yet (`compute_dtype` 'bfloat16') is named and skipped,
 and the exit code is then 1. `-ensemble` and `-seeds` above 1 wait for
 slice 9, `-mesh` for slice 10 and `-profile` for slice 11: they stop the
-run before it starts (`imputation.open_grid`).
+run before it starts (`imputation.open_grid`). `-checkpoint_every`,
+`-resume` and `-early_stop` are accepted and ignored, as in the JAX
+package: nothing trains here.
 """
 
 from __future__ import annotations

@@ -1,0 +1,116 @@
+"""AIS marginal-likelihood evaluation of a trained checkpoint (port of the
+serial path of the JAX package's `experiment_main/ais_eval.py`; reference:
+src/utils/AIS.py:80-91, a library the reference wires into no script).
+
+    python -m vae_posterior_consistency_tpu_torch.experiment_main.ais_eval \
+        -vae_type reg_vae1 [-bdmc true] [-<field> <value> ...] [-device cpu]
+
+Run from the directory that holds `Data/` and the `experiments/` tree that
+`experiment_main/imputation.py` trained there. The record of
+`Data/imputation_args.json` whose vae_type is `-vae_type` gives every
+other default (missing_rate, epoch, data_type: the checkpoint's name), and
+record 0 is used for a vae_type outside the grid. It loads the record's
+data as the imputation entry point does, estimates log p(x) of both splits
+with `engine/ais.eval_ais` at `n_ais_iwae` chains a row on the record's
+`ais_schedule` / `n_ais_dist` bridge (artifacts under elbos/ and
+latents/), and with `-bdmc true` runs `engine/ais.eval_bdmc`'s sandwich on
+rows simulated from the model; then prints the JAX package's lines.
+
+The run uses the card (`-device cuda`, the default; it raises without
+CUDA) or, with `-device cpu`, the CPU. `-seeds` above 1 waits for slice 9,
+`-mesh` for slice 10, `-profile` and a record whose compute_dtype is
+'bfloat16' for slice 11: they stop the run before it starts.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+from vae_posterior_consistency_tpu_torch.config import (
+    SLICE_ENSEMBLE,
+    SLICE_MESH,
+    SLICE_PROFILE,
+    RunConfig,
+    iter_jsonl_configs,
+    setup_parser,
+)
+from vae_posterior_consistency_tpu_torch.engine import ais
+from vae_posterior_consistency_tpu_torch.engine.train import check_device
+from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
+    GRID,
+    load_dataset,
+)
+
+
+def _record_for_vae_type(records, vae_type):
+    """The JSONL record whose vae_type matches, so the checkpoint-path
+    fields come from that record and not from record 0; record 0 for a
+    vae_type outside the grid."""
+    for rec in records:
+        if rec["vae_type"]["default"] == vae_type:
+            return rec
+    return records[0]
+
+
+def _check_flags(args) -> None:
+    """The flags whose engine the port lacks, each naming its slice."""
+    if (getattr(args, "mesh", "") or "").strip():
+        raise NotImplementedError(
+            f"-mesh {args.mesh!r}: AIS over a device mesh is not ported "
+            f"yet; it comes with {SLICE_MESH}")
+    if int(getattr(args, "seeds", 1)) > 1:
+        raise NotImplementedError(
+            f"-seeds {args.seeds}: AIS over seed ensembles is not ported "
+            f"yet; it comes with {SLICE_ENSEMBLE}")
+    if getattr(args, "profile", ""):
+        raise NotImplementedError(
+            f"-profile: tracing is not ported yet; it comes with "
+            f"{SLICE_PROFILE}")
+    if getattr(args, "compute_dtype", "float32") == "bfloat16":
+        raise NotImplementedError(
+            f"compute_dtype 'bfloat16' ({args.vae_type}): mixed precision "
+            "is not ported yet; it comes with slice 11")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not os.path.isfile(GRID):
+        raise FileNotFoundError(
+            f"{os.path.abspath(GRID)} not found: run from the directory that "
+            f"holds {GRID}")
+    records = list(iter_jsonl_configs(GRID))
+    # two passes: argparse resolves the requested vae_type (`-vae_type=x`
+    # and unambiguous abbreviations too), then the matching record gives
+    # the defaults of the real parse
+    probe = setup_parser(records[0], "ais_eval").parse_args(argv)
+    record = _record_for_vae_type(records, probe.vae_type)
+    args = setup_parser(record, "ais_eval").parse_args(argv)
+    _check_flags(args)
+    cfg = RunConfig.from_args(args)
+    device = check_device(args.device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "the CPU")
+    print(f"Device: {device} ({name})", flush=True)
+    dataset = load_dataset(cfg, device)
+    results = ais.eval_ais(dataset, cfg, n_sample=cfg.n_ais_iwae,
+                           device=device)
+    bdmc_res = (ais.eval_bdmc(dataset, cfg, n_sample=cfg.n_ais_iwae,
+                              device=device) if args.bdmc else None)
+    for stage, res in results.items():
+        print(f"  [{stage}] AIS log p(x) = {res.logw:.4f}")
+    if bdmc_res is not None:
+        print(f"  [bdmc] sandwich on simulated data: "
+              f"lower={bdmc_res.lower:.4f} upper={bdmc_res.upper:.4f} "
+              f"gap={bdmc_res.gap:.4f} "
+              f"(schedule={cfg.ais_schedule}, T={cfg.n_ais_dist})")
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except NotImplementedError as exc:
+        sys.exit(f"ais_eval: {exc}")

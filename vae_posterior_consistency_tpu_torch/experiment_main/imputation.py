@@ -22,9 +22,11 @@ record of the grid runs: the gauss, flow, MIWAE and notMIWAE families. A
 record the port cannot run yet (one whose `compute_dtype` is 'bfloat16')
 is not run: one line names it and the slice that brings it, and the run
 goes on; the exit code is then 1 and the end of the output lists those
-records. Flags whose engine the port lacks (`-mesh`, `-ensemble`, `-seeds`
-above 1, `-checkpoint_every`, `-resume`, `-early_stop`, `-profile`) stop
-the run before it starts, naming their slice.
+records. `-checkpoint_every N`, `-resume true` and `-early_stop true`
+(patience `-patience` checks, one each 200 epochs) reach `train` as in the
+JAX package. Flags whose engine the port lacks (`-mesh`, `-ensemble`,
+`-seeds` above 1, `-profile`) stop the run before it starts, naming their
+slice.
 """
 
 from __future__ import annotations
@@ -76,11 +78,13 @@ def load_dataset(cfg: RunConfig, device):
                 cfg.batch_size, cfg.data_type, device=device)
 
 
-def train_and_eval_one(dataset, cfg: RunConfig, device) -> dict:
+def train_and_eval_one(dataset, cfg: RunConfig, device, checkpoint_every=None,
+                       resume=False, early_stopping=None) -> dict:
     """Train `cfg` (the checkpoint saved under its reference name), then
     evaluate it and write its artifacts."""
     train_engine.train(dataset, cfg, log_fn=train_engine.epoch_logger(
-        cfg.epoch), device=device)
+        cfg.epoch), device=device, checkpoint_every=checkpoint_every,
+        resume=resume, early_stopping=early_stopping)
     print(f"=== eval {cfg.vae_type} ===", flush=True)
     return evaluate.eval_vae(dataset, cfg, device=device)
 
@@ -105,7 +109,10 @@ def run_grid(records, probe, argv) -> list:
                     continue
                 dataset = load_dataset(cfg, args.device)
                 print(f"=== train {tag} ===", flush=True)
-                results = train_and_eval_one(dataset, cfg, args.device)
+                ck, rs = restart_opts(args)
+                results = train_and_eval_one(
+                    dataset, cfg, args.device, checkpoint_every=ck, resume=rs,
+                    early_stopping=early_stopper(args, cfg))
                 for stage, metrics in results.items():
                     print(f"  [{stage}] " + "  ".join(
                         f"{k}={v:.5f}" for k, v in metrics.items()),
@@ -124,8 +131,6 @@ def open_grid(grid: str, argv):
     records = list(iter_jsonl_configs(grid))
     probe = setup_parser(records[0], "impute_eval").parse_args(argv)
     check_unported(probe)
-    restart_opts(probe)
-    early_stopper(probe, None)
     device = train_engine.check_device(probe.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the kernels' plain versions")

@@ -21,10 +21,10 @@ and prints the RMSE and the wall-clock of both.
 
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the CPU (`imputation.open_grid`, as the MCAR entry
-point). Flags whose engine the port lacks
-(`-mesh`, `-ensemble`, `-seeds` above 1, `-checkpoint_every`, `-resume`,
-`-early_stop`, `-profile`) stop the run before it starts, naming their
-slice.
+point). `-checkpoint_every`, `-resume` and `-early_stop` reach `train` as
+in the JAX package. Flags whose engine the port lacks (`-mesh`,
+`-ensemble`, `-seeds` above 1, `-profile`) stop the run before it starts,
+naming their slice.
 """
 
 from __future__ import annotations
@@ -35,8 +35,10 @@ import time
 
 from vae_posterior_consistency_tpu_torch.config import (
     RunConfig,
+    early_stopper,
     parse_alphas,
     parse_missings,
+    restart_opts,
     setup_parser,
 )
 from vae_posterior_consistency_tpu_torch.data import loaders
@@ -78,9 +80,12 @@ def run_grid(records, probe, argv) -> None:
                 print(f"=== train {cfg.vae_type} (MNAR, missing={missing}, "
                       f"alpha={alpha}) ===", flush=True)
                 t0 = time.perf_counter()
+                ck, rs = restart_opts(args)
                 train_engine.train(dataset, cfg,
                                    log_fn=train_engine.epoch_logger(
-                                       cfg.epoch), device=args.device)
+                                       cfg.epoch), device=args.device,
+                                   checkpoint_every=ck, resume=rs,
+                                   early_stopping=early_stopper(args, cfg))
                 t_train = time.perf_counter() - t0
                 print(f"=== eval {cfg.vae_type} (MNAR) ===", flush=True)
                 t0 = time.perf_counter()
