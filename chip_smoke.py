@@ -149,23 +149,42 @@ Run from the root of a checkout. It drives only the port
    chains), linear T=50: no kernel; each split's wall-clock, peak device
    memory and decoder-matmul rate, and the test split's busy share and top
    device operations under torch.profiler over its first 4 temperatures.
+19. ensembles (slice 9): (a) each kernel's replica form (B1 at [R, 64,
+   10] with the noise shared, B2f and B2b at S=2, B=64, D=13 and 784)
+   against its plain version at R = 1, 3 and 128, one launch a call, the
+   R=1 form equal to the one-run call bit for bit, timed with CUDA
+   events; (b) train_seed_ensemble of record 34 (reg_vae1) on wine at
+   batch 64 with 128 replicas: the first step's per-replica losses on the
+   card against the CPU from the same parameters and recorded draws, then
+   10 epochs (B1 and its backward once a step for all replicas, the mean
+   loss falling), a step's time and, over one epoch under torch.profiler,
+   the card's busy share, beside the serial step's; (c) imputation.py
+   -ensemble true -seeds 2 over records 37-39 (reg_EDDI1-3, 6 replicas
+   through B2f and B2b), its 6 checkpoints and the seed-0 artifacts at
+   their reference names; (d) -ensemble true -alphas 0.5,1.0 over records
+   34-36, -ensemble true -early_stop true with a check every 5 epochs (a
+   per-replica tracker), and imputation_mnar.py -ensemble true -seeds 2
+   (checkpoints, `.seed1` siblings and RMSE artifacts at their names); (e)
+   -ensemble true -seeds 2 over records 37-39 to 10 epochs straight and
+   stopped at 5 then resumed: the checkpoints equal bit for bit.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
 and B2b also their launches on the `_with_drop` run and their times at its
 shape; for every kernel its launches on the active-learning grid,
 `al_launches`, and for B2f its time at the episode's largest shape; and
-its launches on the AIS phases, `ais_launches`, 0), then, as its last
-line,
+its launches on the AIS phases, `ais_launches`, 0; and the four replica
+forms, their launches on the ensemble phases, their times at R=128 and
+by R), then, as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
-after 300 s. It writes nothing in the checkout but the kernels' build
+after 600 s. It writes nothing in the checkout but the kernels' build
 directory; checkpoints go to a temporary directory.
 """
 
 import faulthandler
 
-faulthandler.dump_traceback_later(300, exit=True)
+faulthandler.dump_traceback_later(600, exit=True)
 
 import collections  # noqa: E402
 import contextlib  # noqa: E402
@@ -313,6 +332,20 @@ WINE_EPOCHS = 30
 LATENT = 10
 #: the wine records' width (Data/wine: 13 features)
 WINE_D = 13
+#: ensembles (slice 9): the replica counts each replica kernel is held to
+#: its plain version at, the width of the full-width seed ensemble of record
+#: 34 and its epochs, the epochs the entry-point ensembles are cut to, and
+#: the EDDI and reg_vae records they run
+REPLICAS = (1, 3, 128)
+ENS_S = 128
+ENS_EPOCHS = 10
+ENS_ENTRY_EPOCHS = 10
+ENS_EDDI_RECORDS = (37, 38, 39)
+ENS_VAE_RECORDS = (34, 35, 36)
+#: the ensemble killed at a chunk boundary and resumed
+ENS_RESUME_STOP = 5
+#: CUDA-event runs a replica kernel's time is the median of
+ENS_RUNS = 20
 
 
 @contextlib.contextmanager
@@ -385,6 +418,23 @@ def fused_posterior_bwd_bound_ms(B, L, eps=False):
     and 14 for the logvars' gradients), 1 more for each eps gradient."""
     n_out = 6 if eps else 4
     return _bound(4 * ((8 + n_out) * B * L + 3), (46 if eps else 44) * B * L)
+
+
+def fused_posterior_replicas_bound_ms(R, B, L, shared_eps=True):
+    """B1 over R replicas: reads four [R,B,L] statistics and the two eps
+    (one [B,L] each when the replicas share them), writes z_q, z_p [R,B,L]
+    and the [R,3] sums once; 31 operations a cell."""
+    eps = 2 * B * L if shared_eps else 2 * R * B * L
+    return _bound(4 * (6 * R * B * L + eps + 3 * R), 31 * R * B * L)
+
+
+def fused_posterior_bwd_replicas_bound_ms(R, B, L, shared_eps=True):
+    """B1's backward over R replicas for the four statistics: reads them,
+    the two eps (shared: one [B,L] each), dz_q, dz_p and the [R,3]
+    cotangents, writes four [R,B,L] gradients once; 44 operations a
+    cell."""
+    eps = 2 * B * L if shared_eps else 2 * R * B * L
+    return _bound(4 * (10 * R * B * L + eps + 3 * R), 44 * R * B * L)
 
 
 def device_ops(build):
@@ -1427,14 +1477,14 @@ def main() -> int:
 
     times = {}
 
-    def timed(label, fn, plain, bound, build=None):
-        """Time `fn` and its plain version `plain` (CUDA events), count the
-        device operations of one call of `fn` (for a backward, of the one
-        `build()` makes, see device_ops), print them beside `bound` ((ms,
-        'bytes' or 'operations')) and return (ms, plain ms, bound ms, bound
-        by, operations a call)."""
-        k_ms = event_ms(fn)
-        p_ms = event_ms(plain)
+    def timed(label, fn, plain, bound, build=None, runs=TIMING_RUNS):
+        """Time `fn` and its plain version `plain` (CUDA events, the median
+        of `runs`), count the device operations of one call of `fn` (for a
+        backward, of the one `build()` makes, see device_ops), print them
+        beside `bound` ((ms, 'bytes' or 'operations')) and return (ms,
+        plain ms, bound ms, bound by, operations a call)."""
+        k_ms = event_ms(fn, runs=runs)
+        p_ms = event_ms(plain, runs=runs)
         n_ops = device_ops(build or (lambda: fn))
         print(f"{label}: kernel {k_ms:.6f} ms ({n_ops} device operations a "
               f"call), plain {p_ms:.6f} ms, bound {bound[0]:.6f} ms "
@@ -2539,6 +2589,7 @@ def main() -> int:
             print_split(r, f"; {flop / 1e12:.3f} TFLOP of decoder "
                         f"matmuls, {flop / r['wall_ms'] / 1e9:.3f} TFLOP/s")
 
+    ens_kernels = ensembles(locals())
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -2586,6 +2637,12 @@ def main() -> int:
         if k["name"] == "embed_pool_fwd":
             k.update(al_ms=a_ms, al_plain_ms=a_plain, al_bound_ms=a_bound,
                      al_shape=[1, AL_M * (WINE_D - 1) * AL_ROWS, WINE_D, K])
+    # the replica forms (ensembles): one launch for R replicas
+    for k in ens_kernels:
+        source, replaces = where[k["base"]]
+        k.update(source=source, replaces=replaces)
+        del k["base"]
+    kernels += ens_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2593,6 +2650,493 @@ def main() -> int:
         "count": 1,
     }}), flush=True)
     return 0
+
+
+def ensembles(env) -> list:
+    """The ensemble phases (slice 9), on the names main() set up (`env`):
+    the replica kernels against their plain versions at R in REPLICAS and
+    their times; a full-width seed ensemble of record 34; the two
+    imputation entry points' ensemble paths. Returns the replica forms'
+    entries of the kernels line (each with the name of its one-run form,
+    `base`)."""
+    import torch
+
+    from vae_posterior_consistency_tpu_torch.config import RunConfig
+    from vae_posterior_consistency_tpu_torch.data import loaders
+    from vae_posterior_consistency_tpu_torch.engine import (
+        checkpoint,
+        profile_train,
+    )
+    from vae_posterior_consistency_tpu_torch.engine import train as trainer
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation as imputation_main,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation_mnar,
+    )
+    from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
+    from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
+    from vae_posterior_consistency_tpu_torch.parallel import sweep
+    from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
+        EnsembleEarlyStopping,
+    )
+
+    card, counts, reset_counts = env["card"], env["counts"], env[
+        "reset_counts"]
+    no_plain_on_card, timed = env["no_plain_on_card"], env["timed"]
+    backward_of, grid_dir = env["backward_of"], env["grid_dir"]
+    records, wine, no_kernel = env["records"], env["wine"], env["no_kernel"]
+    wine_host_ms = env["wine_host_ms"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    K, L, B = 10, LATENT, 64
+    errs = collections.defaultdict(float)
+    r_times = collections.defaultdict(dict)
+
+    def one_launch(name, before):
+        grew = {k: counts()[k] - before[k] for k in before}
+        want = {k: int(k in name) for k in before}
+        if grew != want:
+            raise AssertionError(f"{name}: launched {grew}, want {want}")
+
+    with phase(f"ensembles (a): the replica kernels against their plain "
+               f"versions, R in {REPLICAS}, one launch a call"):
+        for R in REPLICAS:
+            # B1 at [R, 64, 10]: the statistics row and column halves of one
+            # [R, 2B, 2L] encoder output, as a vmapped step hands them over;
+            # eps shared by the replicas (replica stride 0), as the
+            # validation draws are
+            h = torch.randn(R, 2 * B, 2 * L, device="cuda", generator=gen)
+            h[..., L:] = h[..., L:].clamp(-2.0, 1.0)
+            mean_all, logvar_all = h.chunk(2, dim=-1)
+            eps = torch.randn(2, B, L, device="cuda", generator=gen)
+            st = (mean_all[:, :B], logvar_all[:, :B], mean_all[:, B:],
+                  logvar_all[:, B:], eps[0].expand(R, B, L),
+                  eps[1].expand(R, B, L))
+            cts = (torch.randn(R, B, L, device="cuda", generator=gen),
+                   torch.randn(R, B, L, device="cuda", generator=gen),
+                   torch.randn(R, 3, device="cuda", generator=gen))
+            before = counts()
+            got = fp.fused_posterior_kernel(*st)
+            one_launch("fused_posterior_fwd", before)
+            before = counts()
+            got_b = fp.fused_posterior_backward_kernel(st, *cts)
+            one_launch("fused_posterior_bwd", before)
+            torch.cuda.synchronize()
+            zq, zp, kq, kp, kr = fp.fused_posterior_reference(*st)
+            for u, v in zip(got, (zq, zp, torch.stack([kq, kp, kr], -1))):
+                torch.testing.assert_close(u, v, **KERNEL_TOL)
+                errs["fused_posterior_fwd"] = max(
+                    errs["fused_posterior_fwd"], max_abs(u, v))
+            for u, v in zip(got_b, fp.fused_posterior_backward(st, *cts)):
+                torch.testing.assert_close(u, v, **KERNEL_TOL)
+                errs["fused_posterior_bwd"] = max(
+                    errs["fused_posterior_bwd"], max_abs(u, v))
+            if R == 1:
+                one = [t[0] for t in st]
+                same = [*fp.fused_posterior_kernel(*one),
+                        *fp.fused_posterior_backward_kernel(
+                            one, cts[0][0], cts[1][0], cts[2][0])]
+                if not all(torch.equal(u, v[0]) for u, v in zip(
+                        same, (*got, *got_b))):
+                    raise AssertionError("B1 at R=1 differs from the one-run "
+                                         "kernel")
+            r_times["fused_posterior_fwd"][R] = timed(
+                f"B1 fused_posterior replicas R={R} [{B},{L}]",
+                lambda: fp.fused_posterior_kernel(*st),
+                lambda: fp.fused_posterior_reference(*st),
+                fused_posterior_replicas_bound_ms(R, B, L), runs=ENS_RUNS)
+            build = backward_of(
+                lambda *lv: fp.FusedPosterior.apply(*lv, *st[4:]), st[:4],
+                cts)
+            r_times["fused_posterior_bwd"][R] = timed(
+                f"B1 FusedPosterior.backward replicas R={R} [{B},{L}], the "
+                "four statistics' gradients", build(),
+                lambda: fp.fused_posterior_backward(st, *cts),
+                fused_posterior_bwd_replicas_bound_ms(R, B, L), build=build,
+                runs=ENS_RUNS)
+            # B2f and B2b at the wine EDDI width (S=2, B=64, D=13) and at
+            # MNIST width (D=784): x [R,B,D], masks [R,2,B,D], A and C
+            # [R,D,K], each replica its own
+            for D in (WINE_D, 784):
+                x = torch.rand(R, B, D, device="cuda", generator=gen)
+                m = (torch.rand(R, 2, B, D, device="cuda", generator=gen)
+                     < 0.7).float()
+                A = torch.randn(R, D, K, device="cuda", generator=gen) * 0.3
+                C = torch.randn(R, D, K, device="cuda", generator=gen) * 0.3
+                g = torch.randn(R, 2, B, K, device="cuda", generator=gen)
+                before = counts()
+                out = fep.embed_pool(x, m, A, C)
+                one_launch("embed_pool_fwd", before)
+                before = counts()
+                grads = fep.embed_pool_bwd(x, m, A, C, g)
+                one_launch("embed_pool_bwd", before)
+                torch.cuda.synchronize()
+                want = fep.embed_pool_reference(x, m, A, C)
+                torch.testing.assert_close(out, want, **KERNEL_TOL)
+                errs["embed_pool_fwd"] = max(errs["embed_pool_fwd"],
+                                             max_abs(out, want))
+                for i, (u, v) in enumerate(zip(
+                        grads, fep.embed_pool_bwd_reference(x, m, A, C, g))):
+                    torch.testing.assert_close(
+                        u, v, rtol=BWD_RTOL,
+                        atol=BWD_ATOL_PER_TERM * (B if i >= 2 else K))
+                    errs["embed_pool_bwd"] = max(errs["embed_pool_bwd"],
+                                                 max_abs(u, v))
+                if R == 1:
+                    same = [fep.embed_pool(x[0], m[0], A[0], C[0]),
+                            *fep.embed_pool_bwd(x[0], m[0], A[0], C[0],
+                                                g[0])]
+                    if not all(torch.equal(u, v[0]) for u, v in zip(
+                            same, (out, *grads))):
+                        raise AssertionError(f"B2 at R=1, D={D} differs "
+                                             "from the one-run kernels")
+                with torch.no_grad():
+                    r_times[f"embed_pool_fwd_{D}"][R] = timed(
+                        f"B2f EmbedPool.forward replicas R={R} S=2 B={B} "
+                        f"D={D}", lambda: fep.embed_pool(x, m, A, C),
+                        lambda: fep.embed_pool_reference(x, m, A, C),
+                        tuple(v * R if i == 0 else v for i, v in enumerate(
+                            embed_pool_bound_ms(2, B, D, K))), runs=ENS_RUNS)
+                build = backward_of(lambda A, C: fep.embed_pool(x, m, A, C),
+                                    (A, C), g)
+                r_times[f"embed_pool_bwd_{D}"][R] = timed(
+                    f"B2b EmbedPool.backward replicas R={R} S=2 B={B} D={D}, "
+                    "dA and dC only", build(),
+                    lambda: fep.embed_pool_bwd_reference(x, m, A, C, g),
+                    tuple(v * R if i == 0 else v for i, v in enumerate(
+                        embed_pool_bwd_bound_ms(2, B, D, K, dx=False,
+                                                dmasks=False))),
+                    build=build, runs=ENS_RUNS)
+            print(f"R={R}: replica kernels within tolerance, one launch "
+                  f"each; max abs diff so far {dict(errs)}", flush=True)
+        for name, per in r_times.items():
+            if any(t[4] != 1 for t in per.values()):
+                raise AssertionError(f"{name}: device operations a call "
+                                     f"{[t[4] for t in per.values()]}")
+
+    flag_rec = records[RESUME_RECORD - 1]
+    ens_cfg = RunConfig.from_jsonl_record(flag_rec, alpha=1.0,
+                                          p_missingness=30, epoch=ENS_EPOCHS,
+                                          seed=SEED)
+    seeds = list(range(ENS_S))
+    steps = -(-wine.train.n // ens_cfg.batch_size)
+    with phase(f"ensembles (b): train_seed_ensemble of record "
+               f"{RESUME_RECORD} ({ens_cfg.vae_type}) on wine, batch "
+               f"{ens_cfg.batch_size}, S={ENS_S}, {ENS_EPOCHS} epochs"):
+        # the first step's per-replica losses, card against the CPU from the
+        # same parameters and the card's recorded draws, on the first 64
+        # training rows (one step an epoch)
+        first = loaders_split(wine, ens_cfg.batch_size)
+
+        class Recording(sweep.EnsembleNoise):
+            drawn = []
+
+            def epoch(self, *a):
+                out = super().epoch(*a)
+                Recording.drawn.append(out)
+                return out
+
+        card_run, card_p = sweep.build_seed_ensemble_runner(
+            first, ens_cfg, seeds, device="cuda",
+            noise=Recording("seed", "cuda", seeds=seeds))
+        cpu_p = checkpoint.on_device(card_p, "cpu")
+        card_leaves = trainer.trainable(card_p)
+        reset_counts()
+        with no_plain_on_card():
+            card_loss = card_run(card_leaves,
+                                 trainer.make_optimizer(card_leaves), 0, 1)
+        first_counts = counts()
+
+        class Replay:
+            def epoch(self, *a):
+                return {k: v.cpu() for k, v in Recording.drawn[0].items()}
+
+        cpu_run, _ = sweep.build_seed_ensemble_runner(
+            first, ens_cfg, seeds, device="cpu", noise=Replay(),
+            params=cpu_p)
+        cpu_leaves = trainer.trainable(cpu_p)
+        cpu_loss = cpu_run(cpu_leaves, trainer.make_optimizer(cpu_leaves), 0,
+                           1)
+        np.testing.assert_allclose(card_loss, cpu_loss, rtol=STEP_LOSS_RTOL,
+                                   atol=0)
+        step_err = float(np.max(np.abs(card_loss - cpu_loss)
+                                / np.abs(cpu_loss)))
+        if first_counts != {**no_kernel, "fused_posterior_fwd": 1,
+                            "fused_posterior_bwd": 1}:
+            raise AssertionError(f"the first ensemble step launched "
+                                 f"{first_counts}")
+        print(f"first step, {ENS_S} replicas: per-replica loss card vs CPU "
+              f"max rel diff {step_err:.3e} (rtol {STEP_LOSS_RTOL}); "
+              f"launches {first_counts}", flush=True)
+
+        # the whole ensemble: its counts reset just before, read just after
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_on_card():
+            ens_p, ens_hist = sweep.train_seed_ensemble(
+                wine, ens_cfg, seeds, device="cuda")
+        torch.cuda.synchronize()
+        ens_s = time.perf_counter() - t0
+        ens_counts = counts()
+        n_steps = ENS_EPOCHS * steps
+        if ens_counts != {**no_kernel, "fused_posterior_fwd": n_steps,
+                          "fused_posterior_bwd": n_steps}:
+            raise AssertionError(f"{n_steps} ensemble steps launched "
+                                 f"{ens_counts}")
+        means = ens_hist.mean(axis=0) / steps
+        if ens_hist.shape != (ENS_S, ENS_EPOCHS) or not np.isfinite(
+                ens_hist).all() or not means[-1] < means[0]:
+            raise AssertionError(f"the ensemble's mean loss did not fall: "
+                                 f"{means}")
+        # a step's time and the card's busy share, over one epoch of the
+        # trained ensemble under torch.profiler, then over 5 epochs timed
+        run, _ = sweep.build_seed_ensemble_runner(wine, ens_cfg, seeds,
+                                                  device="cuda", params=ens_p)
+        leaves = trainer.trainable(ens_p)
+        opt = trainer.make_optimizer(leaves)
+        run(leaves, opt, ENS_EPOCHS, 1)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(leaves, opt, ENS_EPOCHS + 1, 1)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        on_card = profile_train.device_events(prof)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(leaves, opt, ENS_EPOCHS + 2, 5)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (5 * steps)
+        busy = (f"{profile_train.busy_ms(on_card) / prof_ms:.1%} busy "
+                f"({len(on_card) / steps:.1f} device operations a step)"
+                if on_card else "busy share not measured (no device event "
+                "in the trace)")
+        print(f"S={ENS_S}: {n_steps} steps in {ens_s:.6f} s, launches "
+              f"{ens_counts}; a step {step_ms:.6f} ms (host clock, 5 epochs, "
+              f"the replicas' per-epoch draws included), {step_ms / ENS_S:.6f}"
+              f" ms a replica-step; one epoch under torch.profiler {busy}; "
+              f"the serial {ens_cfg.vae_type} step {wine_host_ms:.6f} ms "
+              f"(host clock) [{card}]", flush=True)
+    ens_launches = dict(ens_counts)
+
+    eddi_recs = [records[i - 1] for i in ENS_EDDI_RECORDS]
+    vae_recs = [records[i - 1] for i in ENS_VAE_RECORDS]
+    if [r["vae_type"]["default"] for r in eddi_recs + vae_recs] != [
+            "reg_EDDI1", "reg_EDDI2", "reg_EDDI3", "reg_vae1", "reg_vae2",
+            "reg_vae3"]:
+        raise AssertionError("records 37-39 / 34-36 are not reg_EDDI1-3 / "
+                             "reg_vae1-3")
+    cut = ["-epoch", str(ENS_ENTRY_EPOCHS)]
+
+    def n_steps_of(recs):
+        """Training steps an epoch of each record (its split's rows)."""
+        out = []
+        for r in recs:
+            c = RunConfig.from_jsonl_record(r)
+            n = loaders.data_loader(str(REPO / "Data"), c.vae_type,
+                                    c.missing_rate, c.batch_size,
+                                    c.data_type, device="cpu").train.n
+            out.append(-(-n // c.batch_size))
+        return out
+
+    eddi_steps = max(n_steps_of(eddi_recs))  # wrap-padded to the largest
+    vae_steps = n_steps_of(vae_recs)
+    with phase(f"ensembles (c): experiment_main/imputation.py -ensemble true "
+               f"-seeds 2 over records {ENS_EDDI_RECORDS} (reg_EDDI1-3), "
+               f"-epoch {ENS_ENTRY_EPOCHS}"):
+        with grid_dir(eddi_recs) as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            with no_plain_on_card():
+                rc = imputation_main.main(["-ensemble", "true", "-seeds", "2",
+                                           *cut])
+            eddi_s = time.perf_counter() - t0
+            eddi_counts = counts()
+            cfgs = [RunConfig.from_jsonl_record(r, alpha=1.0,
+                                                p_missingness=30)
+                    for r in eddi_recs]
+            root = str(tmp / "experiments")
+            ckpts = [checkpoint.checkpoint_path(c, root) + sfx
+                     for sfx in ("", ".seed1") for c in cfgs]
+            arts = [p for c in cfgs for st in ("train", "test")
+                    for p in env["artifacts"].eval_vae_paths(c, st,
+                                                             root).values()]
+            missing = [p for p in ckpts + arts if not os.path.isfile(p)]
+        train_steps = ENS_ENTRY_EPOCHS * eddi_steps
+        if rc != 0 or missing or eddi_counts["embed_pool_fwd"] <= train_steps \
+                or eddi_counts["embed_pool_bwd"] != train_steps or \
+                eddi_counts["fused_posterior_bwd"] != train_steps:
+            raise AssertionError(f"-ensemble true -seeds 2: rc {rc}, "
+                                 f"missing {missing}, launched {eddi_counts}")
+        print(f"R=6 split ensemble: {len(ckpts)} checkpoints and "
+              f"{len(arts)} artifacts at the reference names; launches "
+              f"{eddi_counts} ({train_steps} training steps, B2b and B1's "
+              f"backward once a step; B2f and B1 also once an evaluation "
+              f"batch); wall-clock {eddi_s:.6f} s [{card}]", flush=True)
+    eddi_launches = dict(eddi_counts)
+
+    with phase(f"ensembles (d): -ensemble true -alphas 0.5,1.0 over records "
+               f"{ENS_VAE_RECORDS}, -early_stop true, and "
+               f"experiment_main/imputation_mnar.py -ensemble true"):
+        with grid_dir(vae_recs) as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            with no_plain_on_card():
+                rc = imputation_main.main(["-ensemble", "true", "-alphas",
+                                           "0.5,1.0", *cut])
+            alpha_s = time.perf_counter() - t0
+            cfgs = [RunConfig.from_jsonl_record(r, alpha=a, p_missingness=30)
+                    for r in vae_recs for a in (0.5, 1.0)]
+            missing = [c.vae_type for c in cfgs if not os.path.isfile(
+                checkpoint.checkpoint_path(c, str(tmp / "experiments")))]
+            if rc != 0 or missing or counts()["fused_posterior_bwd"] != (
+                    ENS_ENTRY_EPOCHS * sum(vae_steps)):
+                raise AssertionError(f"-alphas: rc {rc}, missing {missing}, "
+                                     f"launched {counts()}")
+            print(f"-alphas 0.5,1.0: 3 alpha ensembles of 2, 6 checkpoints; "
+                  f"launches {counts()}; wall-clock {alpha_s:.6f} s [{card}]",
+                  flush=True)
+            stoppers, real_split = [], sweep.train_split_ensemble
+
+            def chunked(*a, **kw):
+                stoppers.append(kw["early_stopping"])
+                return real_split(*a, **{**kw, "chunk_epochs": STOP_CHUNK})
+
+            sweep.train_split_ensemble = chunked
+            try:
+                with no_plain_on_card():
+                    rc = imputation_main.main(
+                        ["-ensemble", "true", "-early_stop", "true",
+                         "-patience", "1", "-epoch", str(STOP_EPOCHS)])
+            finally:
+                sweep.train_split_ensemble = real_split
+            (es,) = stoppers
+            if rc != 0 or not isinstance(es, EnsembleEarlyStopping) or (
+                    es.best_loss is None or es.best_loss.shape != (3,)):
+                raise AssertionError(f"-early_stop: rc {rc}, tracker {es}")
+            print(f"-ensemble true -early_stop true -patience 1, checks every "
+                  f"{STOP_CHUNK} epochs: stopped {es.early_stop}, best "
+                  f"validation losses {es.best_loss.tolist()}, counters "
+                  f"{es.counter.tolist()}", flush=True)
+        with tempfile.TemporaryDirectory() as mtmp:
+            os.symlink(REPO / "Data", Path(mtmp) / "Data")
+            cwd = os.getcwd()
+            os.chdir(mtmp)
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                with no_plain_on_card():
+                    rc = imputation_mnar.main(["-ensemble", "true",
+                                               "-seeds", "2"])
+                mnar_s = time.perf_counter() - t0
+                mnar_files = sorted(
+                    os.path.relpath(os.path.join(d, f), mtmp)
+                    for d, _, fs in os.walk(os.path.join(mtmp,
+                                                         "experiments"))
+                    for f in fs)
+            finally:
+                os.chdir(cwd)
+        mnar_want = []
+        for r in iter_records(REPO / "Data" / "imputation_args_mnar.json"):
+            c = RunConfig.from_jsonl_record(
+                r, alpha=1.0, p_missingness=imputation_mnar.MISSING_SWEEP[0],
+                data_transform=imputation_mnar.DATA_TRANSFORM,
+                not_miwae_type=imputation_mnar.NOT_MIWAE_TYPE)
+            base = checkpoint.checkpoint_path(c, "experiments")
+            mnar_want += [base, base + ".seed1", env["artifacts"]
+                          .eval_mnar_paths(c, "experiments")["rmse"]]
+        missing = [f for f in mnar_want if f not in mnar_files]
+        if rc != 0 or missing:
+            raise AssertionError(f"MNAR -ensemble true: rc {rc}, missing "
+                                 f"{missing} of {mnar_files}")
+        print(f"imputation_mnar -ensemble true -seeds 2: {len(mnar_files)} "
+              f"files; launches {counts()}; wall-clock {mnar_s:.6f} s "
+              f"[{card}]", flush=True)
+
+    with phase(f"ensembles (e): -ensemble true -seeds 2 over records "
+               f"{ENS_EDDI_RECORDS}, {ENS_ENTRY_EPOCHS} epochs straight and "
+               f"stopped at {ENS_RESUME_STOP} then resumed"):
+        finals = {}
+        for mode, runs in (("straight", [(ENS_ENTRY_EPOCHS, False)]),
+                           ("resumed", [(ENS_RESUME_STOP, False),
+                                        (ENS_ENTRY_EPOCHS, True)])):
+            with grid_dir(eddi_recs) as tmp:
+                for epochs, resume in runs:
+                    with no_plain_on_card():
+                        rc = imputation_main.main(
+                            ["-ensemble", "true", "-seeds", "2", "-epoch",
+                             str(epochs), "-checkpoint_every",
+                             str(ENS_RESUME_STOP), "-resume", str(resume)])
+                    if rc != 0:
+                        raise AssertionError(f"{mode} run returned {rc}")
+                cfg0 = RunConfig.from_jsonl_record(eddi_recs[0], alpha=1.0,
+                                                   p_missingness=30)
+                base = checkpoint.checkpoint_path(cfg0, str(tmp / (
+                    "experiments")))
+                finals[mode] = {sfx: torch.load(base + sfx,
+                                                weights_only=False)
+                                for sfx in ("", ".seed1")}
+                saved = torch.load(base + ".ens6.resume.pt",
+                                   weights_only=False)
+                if int(saved["epoch"]) != ENS_ENTRY_EPOCHS:
+                    raise AssertionError(f"{mode}: the resume file holds "
+                                         f"epoch {int(saved['epoch'])}")
+        unequal = [(sfx, k) for sfx, ck in finals["straight"].items()
+                   for k, v in ck.items()
+                   if not np.array_equal(v, finals["resumed"][sfx][k])]
+        if unequal:
+            raise AssertionError(f"the resumed ensemble differs at {unequal}")
+        print(f"resumed ensemble equals the straight one bit for bit "
+              f"(replicas 0 and 3 of 6, {len(finals['straight'][''])} leaves "
+              "each)", flush=True)
+
+    out = []
+    for name, base, launches, key in (
+            ("fused_posterior_fwd_replicas", "fused_posterior_fwd",
+             ens_launches, "fused_posterior_fwd"),
+            ("fused_posterior_bwd_replicas", "fused_posterior_bwd",
+             ens_launches, "fused_posterior_bwd"),
+            ("embed_pool_fwd_replicas", "embed_pool_fwd", eddi_launches,
+             f"embed_pool_fwd_{WINE_D}"),
+            ("embed_pool_bwd_replicas", "embed_pool_bwd", eddi_launches,
+             f"embed_pool_bwd_{WINE_D}")):
+        per = r_times[key]
+        k_ms, p_ms, b_ms, b_by, n_ops = per[ENS_S]
+        entry = {"name": name, "base": base, "route": "cuda",
+                 "launches": launches[base], "launches_per_call": n_ops,
+                 "max_abs_err": errs[base], "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "replicas": ENS_S,
+                 "ms_by_replicas": {str(r): t[0] for r, t in per.items()},
+                 "plain_ms_by_replicas": {str(r): t[1]
+                                          for r, t in per.items()},
+                 "bound_ms_by_replicas": {str(r): t[2]
+                                          for r, t in per.items()}}
+        if base.startswith("embed_pool"):
+            per784 = r_times[base + "_784"]
+            entry["mnist_ms_by_replicas"] = {str(r): t[0]
+                                             for r, t in per784.items()}
+            entry["mnist_bound_ms_by_replicas"] = {
+                str(r): t[2] for r, t in per784.items()}
+        out.append(entry)
+    return out
+
+
+def iter_records(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def loaders_split(dataset, rows):
+    """`dataset` cut to its first `rows` training rows (no test split)."""
+    from vae_posterior_consistency_tpu_torch.data import loaders
+
+    tr = dataset.train
+    return loaders.Dataset(loaders.Split(tr.x[:rows], tr.mask[:rows],
+                                         "train"), None, dataset.obs_dim)
 
 
 if __name__ == "__main__":

@@ -163,8 +163,10 @@ def test_restart_and_early_stop_flags_parse_as_jax_and_wait_for_slice_5():
         want.patience, want.verbose, want.delta, want.path) == (7, True, 0.0,
                                                                 None)
     assert tcfg.early_stopper(args, cfg) is not got
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tcfg.early_stopper(args, cfg, ensemble=True)
+    # slice 9 is in too: an ensemble gets the per-replica tracker
+    ens = tcfg.early_stopper(args, cfg, ensemble=True)
+    assert type(ens).__name__ == "EnsembleEarlyStopping"
+    assert (ens.patience, ens.verbose) == (7, True)
 
 
 def test_bdmc_flag_is_ais_entry_only():

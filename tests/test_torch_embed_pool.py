@@ -147,3 +147,79 @@ def test_kernel_build_without_nvcc_raises():
         pytest.skip("nvcc is installed")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library("embed_pool")
+
+
+# ---------------------------------------------------------------------------
+# the replica axis and the vmap rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shared", ["none", "x", "x_and_masks"])
+@pytest.mark.parametrize("R", [1, 3])
+def test_vmap_equals_a_loop_over_replicas(R, shared):
+    """`embed_pool` under torch.func.vmap over R replicas, each with its
+    own A and C, x (and the masks) shared where the replicas share their
+    rows: values and gradients equal a Python loop over the replicas, and
+    the Function runs once for all replicas (the CPU form of the one
+    launch)."""
+    S, B, D, K = 2, 5, 13, 10
+    reps = [_case(50 + r, B, D, K, S) for r in range(R)]
+    x, masks, A, C = (torch.from_numpy(np.stack([c[j] for c in reps]))
+                      for j in range(4))
+    shared_x = shared != "none"
+    shared_m = shared == "x_and_masks"
+    inputs = [x[0] if shared_x else x, masks[0] if shared_m else masks, A, C]
+    inputs = [t.clone().requires_grad_() for t in inputs]
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (S, B, K)).astype(np.float32))
+
+    def loss(x_, m_, a_, c_):
+        return (tfep.embed_pool(x_, m_, a_, c_) * g).sum()
+
+    calls = []
+    real = tfep.EmbedPool.forward
+
+    def counted(*xs):
+        calls.append(tuple(xs[0].shape))
+        return real(*xs)
+
+    tfep.EmbedPool.forward = staticmethod(counted)
+    try:
+        per = torch.func.vmap(loss, in_dims=(
+            None if shared_x else 0, None if shared_m else 0, 0, 0))(*inputs)
+    finally:
+        tfep.EmbedPool.forward = staticmethod(real)
+    assert calls == [(R, B, D)]
+    got = torch.autograd.grad(per.sum(), inputs)
+    loop = [t.detach().clone().requires_grad_() for t in inputs]
+    want_per = torch.stack([loss(
+        loop[0] if shared_x else loop[0][r],
+        loop[1] if shared_m else loop[1][r], loop[2][r], loop[3][r])
+        for r in range(R)])
+    want = torch.autograd.grad(want_per.sum(), loop)
+    torch.testing.assert_close(per, want_per, **TOL)
+    for name, a, b in zip(("dx", "dmasks", "dA", "dC"), got, want):
+        torch.testing.assert_close(a, b, **TOL, msg=name)
+
+
+def test_replica_form_of_the_plain_versions_is_each_replica_s():
+    """x [R,B,D], masks [R,S,B,D], A, C [R,D,K]: each replica's output and
+    gradients (dA, dC summed over its own rows only) are its [B,D] call's,
+    against the JAX kernel on that replica."""
+    R, S, B, D, K = 3, 2, 7, 13, 4
+    reps = [_case(60 + r, B, D, K, S) for r in range(R)]
+    stacked = [torch.from_numpy(np.stack([c[j] for c in reps]))
+               for j in range(4)]
+    g = np.random.default_rng(3).standard_normal((R, S, B, K)).astype(
+        np.float32)
+    out = tfep.embed_pool(*stacked)
+    grads = tfep.embed_pool_bwd(*stacked, torch.from_numpy(g))
+    assert out.shape == (R, S, B, K)
+    for r in range(R):
+        np.testing.assert_allclose(
+            out[r].numpy(), np.asarray(jax.jit(jfep.embed_pool)(*reps[r])),
+            **TOL)
+        _, vjp = jax.vjp(jfep.embed_pool, *map(jnp.asarray, reps[r]))
+        for got, want in zip(grads, jax.jit(vjp)(jnp.asarray(g[r]))):
+            np.testing.assert_allclose(got[r].numpy(), np.asarray(want),
+                                       **TOL)

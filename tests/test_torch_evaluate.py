@@ -282,3 +282,152 @@ def test_completion_matches_jax(kw):
     assert torch.equal(drawn, again) and drawn.shape == (3, 5, 6)
     with pytest.raises(ValueError, match="eps of shapes"):
         tinf.completion(tparams, *args, eps={"eps": eps["eps"][:2]})
+
+
+# ---------------------------------------------------------------------------
+# ensembles
+# ---------------------------------------------------------------------------
+
+
+def _stacked(jc, obs_dim, S, seed=7):
+    """S replicas of JAX-initialised parameters, stacked, in both
+    packages."""
+    keys = jax.vmap(jax.random.fold_in, (None, 0))(jax.random.PRNGKey(seed),
+                                                   jnp.arange(S))
+    jparams = jax.vmap(lambda k: jget_model(jc).init(k, jc, 6))(keys)
+    return jparams, tckpt.params_from_jax(jckpt._flatten(jparams), "cpu")
+
+
+def _group(vae_type, S=3, **kw):
+    """S configs of one family, split digits 1..S, and their tiny datasets
+    (equal sizes)."""
+    base = "".join(c for c in vae_type if not c.isdigit())
+    kws = [dict(vae_type=f"{base}{i + 1}", M=2, batch_size=8, seed=3,
+                missing_rate=30, latent_dim=4, **kw) for i in range(S)]
+    pairs = [_tiny(seed=5 + i) for i in range(S)]
+    return ([jcfg.RunConfig(**k) for k in kws],
+            [tcfg.RunConfig(**k) for k in kws],
+            [p[0] for p in pairs], [p[1] for p in pairs])
+
+
+ENSEMBLE_TYPES = [("reg_vae1", {}), ("reg_EDDI1", {}),
+                  ("reg_MIWAE1", {"valid_k": 4}),
+                  ("reg_notMIWAE1", {"valid_k": 4})]
+
+
+@pytest.mark.parametrize("vae_type,extra", ENSEMBLE_TYPES)
+def test_eval_vae_ensemble_matches_jax(vae_type, extra):
+    """Three replicas on three split tables under JAX's key stream, shared
+    by the replicas (PRNGKey(seed + 1)): JAX's metrics for every replica on
+    both splits, at RTOL."""
+    jcs, tcs, jdss, tdss = _group(vae_type, **extra)
+    jparams, tparams = _stacked(jcs[0], 6, 3)
+    want = jeval.eval_vae_ensemble(jdss, jcs, jparams, save=False)
+    got = teval.eval_vae_ensemble(
+        tdss, tcs, tparams, save=False, device="cpu",
+        noise=JaxEvalKeys(jax.random.PRNGKey(jcs[0].seed + 1), tcs[0]))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert list(g) == list(w) == ["train", "test"]
+        for stage in w:
+            assert list(g[stage]) == list(w[stage])
+            for name, value in w[stage].items():
+                np.testing.assert_allclose(g[stage][name], value, rtol=RTOL,
+                                           err_msg=f"{stage} {name}")
+
+
+@pytest.mark.parametrize("vae_type,extra", [("reg_EDDI1", {}),
+                                            ("reg_MIWAE1", {"valid_k": 4})])
+def test_eval_vae_ensemble_is_the_serial_evaluator_for_each_replica(
+        vae_type, extra, monkeypatch):
+    """Each replica's metrics are eval_vae's for its parameters on the
+    default noise, and chunking the replica axis (one replica a call)
+    moves no value."""
+    jcs, tcs, _, tdss = _group(vae_type, **extra)
+    _, tparams = _stacked(jcs[0], 6, 3)
+    whole = teval.eval_vae_ensemble(tdss, tcs, tparams, save=False,
+                                    device="cpu")
+    for i in range(3):
+        serial = teval.eval_vae(
+            tdss[i], tcs[i], params=tckpt.unflatten({
+                k: v[i] for k, v in tckpt.flatten(tparams).items()}),
+            save=False, device="cpu")
+        assert whole[i] == serial
+    monkeypatch.setattr(teval, "ENS_EVAL_ROW_BUDGET", 1)
+    assert teval.eval_vae_ensemble(tdss, tcs, tparams, save=False,
+                                   device="cpu") == whole
+
+
+def test_eval_vae_ensemble_refusals_are_jax_s():
+    jcs, tcs, jdss, tdss = _group("reg_vae1")
+    jparams, tparams = _stacked(jcs[0], 6, 3)
+    cases = [
+        # a config differing in more than the split digit
+        (lambda c: [c[0], c[1].replace(alpha=0.5), c[2]], None,
+         "config-identical"),
+        # a test split present for only some datasets
+        (None, lambda d, pkg: [d[0], d[1], pkg.Dataset(d[2].train, None, 6)],
+         "present for only 2/3"),
+        # unequal sizes
+        (None, lambda d, pkg: [d[0], d[1], pkg.Dataset(
+            pkg.Split(d[2].train.x[:12], d[2].train.mask[:12], "train"),
+            d[2].test, 6)], "identical train-split sizes"),
+    ]
+    for cfg_fn, data_fn, match in cases:
+        for pkg_eval, pkg_loaders, cfgs, dss, params, kw in (
+                (jeval, jloaders, jcs, jdss, jparams, {}),
+                (teval, tloaders, tcs, tdss, tparams, {"device": "cpu"})):
+            c = cfg_fn(cfgs) if cfg_fn else cfgs
+            d = data_fn(dss, pkg_loaders) if data_fn else dss
+            with pytest.raises(ValueError, match=match):
+                pkg_eval.eval_vae_ensemble(d, c, params, save=False, **kw)
+
+
+def test_eval_vae_ensemble_saves_the_rows_asked_under_jax_names(tmp_path):
+    """Two seed replicas of one config with save_rows=[0]: the artifacts
+    of row 0 alone, under the names JAX's evaluator writes."""
+    jcs, tcs, jdss, tdss = _group("reg_vae1", S=1)
+    jparams, tparams = _stacked(jcs[0], 6, 2)
+    jeval.eval_vae_ensemble(jdss * 2, jcs * 2, jparams, save_rows=[0],
+                            experiments_root=str(tmp_path / "jax"))
+    got = teval.eval_vae_ensemble(tdss * 2, tcs * 2, tparams, save_rows=[0],
+                                  experiments_root=str(tmp_path / "port"),
+                                  device="cpu")
+    assert set(_tree(str(tmp_path / "port"))) == set(
+        _tree(str(tmp_path / "jax")))
+    path = tart.eval_vae_paths(tcs[0], "test", str(tmp_path / "port"))
+    assert torch.load(path["rmse"], weights_only=False).item() == (
+        got[0]["test"]["rmse"])
+
+
+@pytest.mark.parametrize("vae_type,extra", [("reg_vae1", {}),
+                                            ("reg_notMIWAE1", {"valid_k": 4})])
+def test_eval_vae_mnar_ensemble_matches_jax(tmp_path, vae_type, extra):
+    """Three replicas under JAX's MNAR keys (PRNGKey(seed + 2), shared):
+    JAX's [S] RMSEs at RTOL; seed 0's RMSE saved under JAX's name; the
+    replica chunking moves no value."""
+    from test_torch_mnar import JaxMnarKeys
+
+    kw = dict(vae_type=vae_type, M=2, seed=3, latent_dim=4, **extra)
+    jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
+    jds, tds = _tiny(seed=5)
+    jparams, tparams = _stacked(jc, 6, 3)
+    want = jeval.eval_vae_mnar_ensemble(
+        jds.train.x, jds.train.mask, jc, jparams,
+        experiments_root=str(tmp_path / "jax"))
+    noise = JaxMnarKeys(jax.random.PRNGKey(jc.seed + 2), tc)
+    got = teval.eval_vae_mnar_ensemble(
+        tds.train.x, tds.train.mask, tc, tparams, noise=noise,
+        experiments_root=str(tmp_path / "port"), device="cpu")
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    assert set(_tree(str(tmp_path / "port"))) == set(
+        _tree(str(tmp_path / "jax")))
+    old = teval.ENS_EVAL_ROW_BUDGET
+    try:
+        teval.ENS_EVAL_ROW_BUDGET = 1
+        chunked = teval.eval_vae_mnar_ensemble(
+            tds.train.x, tds.train.mask, tc, tparams, noise=noise,
+            save=False, device="cpu")
+    finally:
+        teval.ENS_EVAL_ROW_BUDGET = old
+    np.testing.assert_array_equal(chunked, got)

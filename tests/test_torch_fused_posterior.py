@@ -243,3 +243,84 @@ def test_non_cpu_tensors_never_reach_the_plain_backward(monkeypatch):
         tfp.fused_posterior_backward_kernel(meta, *(t.to("meta")
                                                     for t in cts))
     assert tfp.fused_posterior.bwd_launches == before
+
+
+# ---------------------------------------------------------------------------
+# the replica axis and the vmap rule
+# ---------------------------------------------------------------------------
+
+
+#: which of the six inputs the replicas share (not vmapped): none; the
+#: noise (an ensemble whose replicas share their streams, the validation
+#: draws); the p-branch statistics and eps_q
+SHARED = {"none": (), "noise": (4, 5), "mixed": (2, 3, 4)}
+
+
+@pytest.mark.parametrize("shared", sorted(SHARED))
+@pytest.mark.parametrize("R", [1, 3])
+def test_vmap_equals_a_loop_over_replicas(R, shared):
+    """`fused_posterior` under torch.func.vmap over R replicas, some inputs
+    shared (in_dims None): the values and the gradients of a summed loss
+    equal those of a Python loop over the replicas; the forward and the
+    backward each run once for all replicas."""
+    B, L = 9, 5
+    arrays = [np.stack([a] * R) for a in _case(31, B, L)]
+    for j in range(6):
+        arrays[j] = arrays[j] + np.float32(0.1) * np.arange(R, dtype=np.float32
+                                                           )[:, None, None]
+    inputs = [torch.from_numpy(a[0] if j in SHARED[shared] else a)
+              .requires_grad_() for j, a in enumerate(arrays)]
+    w = torch.linspace(0.5, 2.0, 5)
+
+    def loss(*xs):
+        z_q, z_p, kl_q, kl_p, kl_reg = tfp.fused_posterior(*xs)
+        return ((z_q ** 2).sum() + z_p.sum() + w[0] * kl_q + w[1] * kl_p
+                + w[2] * kl_reg)
+
+    calls = []
+    real = tfp.FusedPosterior.forward
+
+    def counted(*xs):
+        calls.append(tuple(xs[0].shape))
+        return real(*xs)
+
+    tfp.FusedPosterior.forward = staticmethod(counted)
+    try:
+        dims = tuple(None if j in SHARED[shared] else 0 for j in range(6))
+        per = torch.func.vmap(loss, in_dims=dims)(*inputs)
+    finally:
+        tfp.FusedPosterior.forward = staticmethod(real)
+    assert calls == [(R, B, L)]
+    got = torch.autograd.grad(per.sum(), inputs)
+    loop_inputs = [t.detach().clone().requires_grad_() for t in inputs]
+    want_per = torch.stack([
+        loss(*(t if j in SHARED[shared] else t[r]
+               for j, t in enumerate(loop_inputs))) for r in range(R)])
+    want = torch.autograd.grad(want_per.sum(), loop_inputs)
+    torch.testing.assert_close(per, want_per, **TOL)
+    for i, (g, w_) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g, w_, **TOL, msg=str(i))
+
+
+def test_replica_form_is_each_replica_s_single_run_form():
+    """The [R, B, L] form of the Function and of both plain versions: each
+    replica's outputs and gradients equal its own [B, L] call's."""
+    R, B, L = 4, 7, 3
+    arrays = [np.stack([_case(40 + r, B, L)[j] for r in range(R)])
+              for j in range(6)]
+    cts = [np.stack([_cotangents(40 + r, B, L)[j] for r in range(R)])
+           for j in range(3)]
+    inputs = [torch.from_numpy(a) for a in arrays]
+    z_q, z_p, kl = tfp.FusedPosterior.apply(*inputs)
+    assert z_q.shape == z_p.shape == (R, B, L) and kl.shape == (R, 3)
+    grads = tfp.FusedPosterior.backward(
+        _Ctx(inputs, (True,) * 6), *map(torch.from_numpy, cts))
+    for r in range(R):
+        one = [t[r] for t in inputs]
+        zq1, zp1, kl1 = tfp.FusedPosterior.apply(*one)
+        torch.testing.assert_close(z_q[r], zq1, rtol=0, atol=0)
+        torch.testing.assert_close(kl[r], kl1, **TOL)
+        g1 = tfp.FusedPosterior.backward(
+            _Ctx(one, (True,) * 6), *(torch.from_numpy(c[r]) for c in cts))
+        for g, w_ in zip(grads, g1):
+            torch.testing.assert_close(g[r], w_, **TOL)

@@ -205,10 +205,10 @@ def test_the_module_runs_from_the_command_line(tmp_path):
     assert "  [test] loss=" in proc.stdout
     assert ("reg_flow1 (missing=30, alpha=1.0): compute_dtype='bfloat16'"
             in proc.stdout)
-    proc = subprocess.run(cmd + ["-seeds", "3"], cwd=work, env=env,
+    proc = subprocess.run(cmd + ["-mesh", "auto"], cwd=work, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 1
-    assert "slice 9" in proc.stderr and "Traceback" not in proc.stderr
+    assert "slice 10" in proc.stderr and "Traceback" not in proc.stderr
 
 
 def test_a_missing_grid_raises(tmp_path, monkeypatch):

@@ -325,3 +325,80 @@ def test_fused_posterior_forward_and_backward_are_one_launch_each(cuda):
     assert _device_ops(lambda: torch.autograd.grad(
         outs, leaves, cts, retain_graph=True)) == 1
     assert fp.fused_posterior.bwd_launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# the replica axis (ensembles)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 128])
+def test_fused_posterior_replica_kernels_match_plain(cuda, R):
+    """[R, 64, 10]: one launch of each kernel for all replicas, each
+    replica's KL its own; the noise shared (replica stride 0) reads the
+    same; replica r equals the one-run kernel on its slice bit for bit."""
+    B, L = 64, 10
+    gen = torch.Generator(device=cuda).manual_seed(R)
+    stats = [torch.randn(R, B, L, device=cuda, generator=gen)
+             for _ in range(4)]
+    stats[1], stats[3] = stats[1].clamp(-2, 1), stats[3].clamp(-2, 1)
+    eps = torch.randn(2, B, L, device=cuda, generator=gen)
+    stats += [eps[0].expand(R, B, L), eps[1].expand(R, B, L)]
+    cts = [torch.randn(R, B, L, device=cuda, generator=gen),
+           torch.randn(R, B, L, device=cuda, generator=gen),
+           torch.randn(R, 3, device=cuda, generator=gen)]
+    before = (fp.fused_posterior.launches, fp.fused_posterior.bwd_launches)
+    got = fp.fused_posterior_kernel(*stats)
+    grads = fp.fused_posterior_backward_kernel(stats, *cts)
+    torch.cuda.synchronize()
+    assert (fp.fused_posterior.launches, fp.fused_posterior.bwd_launches
+            ) == (before[0] + 1, before[1] + 1)
+    z_q, z_p, kq, kp, kr = fp.fused_posterior_reference(*stats)
+    for g, w in zip(got, (z_q, z_p, torch.stack([kq, kp, kr], -1))):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    for g, w in zip(grads, fp.fused_posterior_backward(stats, *cts)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    for r in {0, R - 1}:
+        one = fp.fused_posterior_kernel(*(t[r] for t in stats))
+        one_g = fp.fused_posterior_backward_kernel(
+            [t[r] for t in stats], cts[0][r], cts[1][r], cts[2][r])
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[r])
+        for a, b in zip(one_g, grads):
+            assert torch.equal(a, b[r])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [13, 784])
+@pytest.mark.parametrize("R", [1, 3, 128])
+def test_embed_pool_replica_kernels_match_plain(cuda, R, D):
+    """x [R,64,D] (or shared), masks [R,2,64,D], A and C [R,D,10]: one
+    launch of each kernel, dA and dC each replica's own, against the
+    plain versions; R = 1 equals the one-run kernels bit for bit."""
+    S, B, K = 2, 64, 10
+    reps = [_case(100 * R + r + D, S, B, D, K, cuda) for r in range(R)]
+    x, masks, A, C = (torch.stack([c[j] for c in reps]) for j in range(4))
+    g = torch.randn(R, S, B, K, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(R))
+    for xs in (x, x[0].expand(R, B, D)):
+        before = (fep.embed_pool.launches, fep.embed_pool_bwd.launches)
+        got = fep.embed_pool(xs, masks, A, C)
+        grads = fep.embed_pool_bwd(xs, masks, A, C, g)
+        torch.cuda.synchronize()
+        assert (fep.embed_pool.launches, fep.embed_pool_bwd.launches) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(
+            got, fep.embed_pool_reference(xs, masks, A, C), rtol=1e-5,
+            atol=1e-4)
+        for a, b in zip(grads, fep.embed_pool_bwd_reference(xs, masks, A, C,
+                                                            g)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+    if R == 1:
+        one = fep.embed_pool(x[0], masks[0], A[0], C[0])
+        one_g = fep.embed_pool_bwd(x[0], masks[0], A[0], C[0], g[0])
+        got = fep.embed_pool(x, masks, A, C)
+        grads = fep.embed_pool_bwd(x, masks, A, C, g)
+        assert torch.equal(one, got[0])
+        for a, b in zip(one_g, grads):
+            assert torch.equal(a, b[0])

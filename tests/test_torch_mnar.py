@@ -292,7 +292,10 @@ def test_entry_point_runs_both_records_and_writes_jax_names(
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    (["-seeds", "2"], "slice 9"), (["-ensemble", "true"], "slice 9"),
+    # the ensemble flags pass now (slice 9); beside a refused flag the run
+    # still stops before it starts
+    (["-seeds", "2", "-mesh", "auto"], "slice 10"),
+    (["-ensemble", "true", "-profile", "t"], "slice 11"),
     (["-mesh", "dp:2"], "slice 10"), (["-profile", "traces"], "slice 11")])
 def test_entry_point_refuses_unported_flags_by_slice(tmp_path, monkeypatch,
                                                      flags, slice_):

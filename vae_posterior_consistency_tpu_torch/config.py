@@ -9,7 +9,9 @@ src/utils/utils.py:177-189). The flags the JAX package adds (`-mesh`,
 `-resume`, `-early_stop`, `-profile`, and `-bdmc` for the `ais_eval`
 parser) parse the same way here; those whose engine the port has not yet
 ported raise `NotImplementedError` naming the slice of ROADMAP.md queue A
-that brings it. The port adds one flag of its own, `-device`.
+that brings it. The port adds one flag of its own, `-device`. The
+ensemble flags reach the two imputation entry points' ensembles;
+`restrict_grid_records` is their `-vae_type` rule.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ _EXTRA_FLAGS = {
     "mesh": (str, "", "device mesh: '' = single-device engine (the only one "
              "the port has so far)"),
     "ensemble": (str2bool, False, "train each family's split triple as one "
-                 "ensemble (not ported yet)"),
-    "seeds": (int, 1, "seed replicas per config (not ported yet)"),
+                 "ensemble"),
+    "seeds": (int, 1, "seed replicas per config"),
     "alphas": (str, "", "comma-separated regularization strengths to sweep "
                "(e.g. '0.5,1,2'); empty = the entry's default sweep"),
     "missings": (str, "", "comma-separated p_missingness rates to sweep "
@@ -61,7 +63,8 @@ _EXTRA_FLAGS = {
 }
 
 #: flags whose engine is not ported yet -> the ROADMAP.md slice that brings it
-SLICE_ENSEMBLE = "slice 9 (ensembles)"
+SLICE_ENSEMBLE = ("slice 9 part 2 (the active-learning and AIS "
+                  "ensembles)")
 SLICE_MESH = "slice 10 (multi-device)"
 SLICE_PROFILE = "slice 11 (utils/logging through torch.profiler)"
 
@@ -255,22 +258,23 @@ class RunConfig:
 # ---------------------------------------------------------------------------
 
 
-def check_unported(args) -> None:
+def check_unported(args, ensembles: bool = False) -> None:
     """Raise NotImplementedError, naming the slice, for a flag whose engine
-    the port does not have yet: `-mesh` other than '', `-ensemble true`,
-    `-seeds` above 1, `-profile`."""
+    the port does not have yet: `-mesh` other than '', `-profile`, and,
+    unless the entry point has its ensembles (`ensembles`: the two
+    imputation entry points), `-ensemble true` and `-seeds` above 1."""
     if (getattr(args, "mesh", "") or "").strip():
         raise NotImplementedError(
             f"-mesh {args.mesh!r}: the multi-device engine is not ported "
             f"yet; it comes with {SLICE_MESH}")
-    if bool(getattr(args, "ensemble", False)):
+    if not ensembles and bool(getattr(args, "ensemble", False)):
         raise NotImplementedError(
-            "-ensemble true: the ensemble engine is not ported yet; it "
-            f"comes with {SLICE_ENSEMBLE}")
-    if int(getattr(args, "seeds", 1)) > 1:
+            "-ensemble true: this entry point's ensemble is not ported yet; "
+            f"it comes with {SLICE_ENSEMBLE}")
+    if not ensembles and int(getattr(args, "seeds", 1)) > 1:
         raise NotImplementedError(
-            f"-seeds {args.seeds}: seed ensembles are not ported yet; they "
-            f"come with {SLICE_ENSEMBLE}")
+            f"-seeds {args.seeds}: this entry point's seed ensembles are not "
+            f"ported yet; they come with {SLICE_ENSEMBLE}")
     if getattr(args, "profile", ""):
         raise NotImplementedError(
             f"-profile: tracing is not ported yet; it comes with "
@@ -285,21 +289,41 @@ def restart_opts(args):
     return (ck if ck > 0 else None), bool(getattr(args, "resume", False))
 
 
+def restrict_grid_records(records, probe):
+    """The `-vae_type` rule of every `-ensemble true` path (the JAX
+    package's config.py:420-440): the grid is cut to the record of that
+    vae_type, where the serial grids apply the override to every record.
+    A `-vae_type` equal to the first record's own default cannot be told
+    from no flag and keeps the whole grid. Raises SystemExit for a
+    vae_type no record has."""
+    if probe.vae_type == records[0]["vae_type"]["default"]:
+        return records
+    matching = [r for r in records
+                if r["vae_type"]["default"] == probe.vae_type]
+    if not matching:
+        raise SystemExit(
+            f"-ensemble true cannot apply -vae_type {probe.vae_type!r}: "
+            "not a grid record — run without -ensemble to drive a custom "
+            "single config")
+    print(f"[ensemble mode] -vae_type {probe.vae_type}: grid restricted "
+          f"to its record", flush=True)
+    return matching
+
+
 def early_stopper(args, cfg: RunConfig, ensemble: bool = False):
-    """`-early_stop` -> a fresh `EarlyStopping(patience=cfg.patience,
-    verbose=True)`, or None when unset, as in the JAX package (a fresh
-    tracker per call: patience never carries from one record to the
-    next). The ensembles' per-replica tracker comes with slice 9."""
+    """`-early_stop` -> a fresh tracker at cfg.patience, verbose, or None
+    when unset, as in the JAX package (a fresh tracker per call: patience
+    never carries from one record to the next): `EarlyStopping`, or with
+    `ensemble` the per-replica `EnsembleEarlyStopping`."""
     if not bool(getattr(args, "early_stop", False)):
         return None
-    if ensemble:
-        raise NotImplementedError(
-            "-early_stop with an ensemble: the per-replica tracker is not "
-            f"ported yet; it comes with {SLICE_ENSEMBLE}")
     from vae_posterior_consistency_tpu_torch.utils.early_stopping import (
         EarlyStopping,
+        EnsembleEarlyStopping,
     )
 
+    if ensemble:
+        return EnsembleEarlyStopping(patience=cfg.patience, verbose=True)
     return EarlyStopping(patience=cfg.patience, verbose=True)
 
 

@@ -10,6 +10,15 @@
 // gets the same bits from run to run. They allocate nothing; the caller owns
 // every buffer and the stream.
 //
+// Replicas. Every tensor carries a leading replica axis R (an ensemble's
+// replicas, R = 1 for one run): x [R,B,D], masks [R,S,B,D], A and C [R,D,K],
+// out [R,S,B,K], and the backward's dx, dm, dA, dC likewise. A and C are each
+// replica's own weights, so R can fold neither into B nor into S; it is the
+// grid's last axis, each block works on one replica's slices exactly as the
+// one-replica kernel does (R = 1 is that kernel, bit for bit), and dA, dC sum
+// over that replica's rows only. x and masks may have a replica stride of 0
+// (one table shared by every replica).
+//
 // Forward.
 // Bound. The function has to move x [B,D], masks [S,B,D], A and C [D,K] and
 // out [S,B,K] once: about 3.3 MB at the serving shape (B=512, S=1, D=784,
@@ -92,9 +101,17 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ A,
                           const float* __restrict__ C,
                           float* __restrict__ out, int S, int B, int D, int K,
-                          int k_chunk, int segments, int rows_per_block) {
+                          int k_chunk, int segments, int rows_per_block,
+                          long long x_rs, long long m_rs) {
   extern __shared__ float2 ac[];  // [D][pitch]: (A, C) of this k chunk
   __shared__ float red[kWarps][SC * kChunkK];
+  // this block's replica: its slices of every tensor
+  const long long rep = blockIdx.z;
+  x += rep * x_rs;
+  masks += rep * m_rs;
+  A += rep * D * static_cast<long long>(K);
+  C += rep * D * static_cast<long long>(K);
+  out += rep * S * static_cast<long long>(B) * K;
   const int kc0 = blockIdx.y * k_chunk;
   const int kw = min(k_chunk, K - kc0);
   const int pitch = kw | 1;
@@ -245,7 +262,8 @@ template <int SC, bool kStaged>
 cudaError_t launch_fwd(const float* x, const float* masks, const float* A,
                        const float* C, float* out, int S, int B, int D, int K,
                        int k_chunk, int segments, int rows_per_block,
-                       int device, cudaStream_t st) {
+                       long long x_rs, long long m_rs, int R, int device,
+                       cudaStream_t st) {
   static int allowed[kMaxDevices] = {};
   const auto kernel = embed_pool_fwd_kernel<SC, kStaged>;
   const int smem =
@@ -253,9 +271,10 @@ cudaError_t launch_fwd(const float* x, const float* masks, const float* A,
   cudaError_t err = allow_smem(kernel, allowed, device, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + rows_per_block - 1) / rows_per_block,
-                  (K + k_chunk - 1) / k_chunk);
+                  (K + k_chunk - 1) / k_chunk, R);
   kernel<<<grid, kThreads, smem, st>>>(x, masks, A, C, out, S, B, D, K,
-                                       k_chunk, segments, rows_per_block);
+                                       k_chunk, segments, rows_per_block,
+                                       x_rs, m_rs);
   return cudaGetLastError();
 }
 
@@ -282,8 +301,23 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ g, float* __restrict__ dx,
                           float* __restrict__ dm, float* __restrict__ dA,
                           float* __restrict__ dC, int S, int B, int D, int K,
-                          int k_chunk) {
+                          int k_chunk, long long x_rs, long long m_rs) {
   __shared__ float red[2][kWarps][32];  // the warps' dA, dC partials
+  // this block's replica (grid y): its slices of every tensor
+  {
+    const long long rep = blockIdx.y;
+    const long long DK = static_cast<long long>(D) * K;
+    const long long BD = static_cast<long long>(B) * D;
+    x += rep * x_rs;
+    masks += rep * m_rs;
+    A += rep * DK;
+    C += rep * DK;
+    g += rep * S * static_cast<long long>(B) * K;
+    if (dx != nullptr) dx += rep * BD;
+    if (dm != nullptr) dm += rep * S * BD;
+    dA += rep * DK;
+    dC += rep * DK;
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int per_warp = 32 / k_chunk;  // values of d a warp's lanes take
@@ -378,30 +412,37 @@ int bwd_k_chunk(int K) {
 
 }  // namespace
 
-// x [B,D], masks [S,B,D], A and C [D,K], g [S,B,K]; outputs dx [B,D] (or
-// null to skip it), dm [S,B,D] (or null), dA and dC [D,K]. Float32,
-// contiguous, on `device`; the caller's current device is restored before
-// returning. Launches one kernel on `stream` and returns cudaGetLastError().
+// x [R,B,D] with replica stride x_rs, masks [R,S,B,D] with replica stride
+// m_rs (0 allowed: shared), A and C [R,D,K], g [R,S,B,K]; outputs dx [R,B,D]
+// (or null to skip it), dm [R,S,B,D] (or null), dA and dC [R,D,K]. Float32,
+// each replica's slice contiguous, on `device`; the caller's current device
+// is restored before returning. Launches one kernel on `stream` and returns
+// cudaGetLastError().
 extern "C" int vpc_embed_pool_bwd(const float* x, const float* masks,
                                   const float* A, const float* C,
                                   const float* g, float* dx, float* dm,
                                   float* dA, float* dC, int S, int B, int D,
-                                  int K, int device, void* stream) {
-  if (S < 1 || B < 1 || D < 1 || K < 1) {
+                                  int K, long long x_rs, long long m_rs,
+                                  int R, int device, void* stream) {
+  if (S < 1 || B < 1 || D < 1 || K < 1 || R < 1 || R > 65535 || x_rs < 0 ||
+      m_rs < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const int k_chunk = bwd_k_chunk(K);
   const int per_block = 32 / k_chunk;
-  embed_pool_bwd_kernel<<<(D + per_block - 1) / per_block, kThreads, 0,
+  const dim3 grid((D + per_block - 1) / per_block, R);
+  embed_pool_bwd_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      x, masks, A, C, g, dx, dm, dA, dC, S, B, D, K, k_chunk);
+      x, masks, A, C, g, dx, dm, dA, dC, S, B, D, K, k_chunk, x_rs, m_rs);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [B,D], masks [S,B,D], A and C [D,K], out [S,B,K]: float32, contiguous,
-// on `device`; the caller's current device is restored before returning.
+// x [R,B,D] with replica stride x_rs, masks [R,S,B,D] with replica stride
+// m_rs (0 allowed: shared), A and C [R,D,K], out [R,S,B,K]: float32, each
+// replica's slice contiguous, on `device`; the caller's current device is
+// restored before returning.
 // The tiling comes from the wrapper (ops/fused_embed_pool.py `fwd_plan`):
 // k_chunk (1..16) values of k per block, `segments` (1, 2, 4 or 8) d
 // segments per row, rows_per_block rows per block, and whether A and C are
@@ -412,10 +453,12 @@ extern "C" int vpc_embed_pool_fwd(const float* x, const float* masks,
                                   const float* A, const float* C, float* out,
                                   int S, int B, int D, int K, int k_chunk,
                                   int segments, int rows_per_block, int staged,
+                                  long long x_rs, long long m_rs, int R,
                                   int device, void* stream) {
   if (S < 1 || B < 1 || D < 1 || K < 1 || k_chunk < 1 || k_chunk > kChunkK ||
       rows_per_block < 1 || segments < 1 || kWarps % segments != 0 ||
-      (K + k_chunk - 1) / k_chunk > 65535) {
+      (K + k_chunk - 1) / k_chunk > 65535 || R < 1 || R > 65535 ||
+      x_rs < 0 || m_rs < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DeviceGuard guard(device);
@@ -425,17 +468,17 @@ extern "C" int vpc_embed_pool_fwd(const float* x, const float* masks,
   if (S == 1) {
     err = staged ? launch_fwd<1, true>(x, masks, A, C, out, S, B, D, K,
                                        k_chunk, segments, rows_per_block,
-                                       device, st)
+                                       x_rs, m_rs, R, device, st)
                  : launch_fwd<1, false>(x, masks, A, C, out, S, B, D, K,
                                         k_chunk, segments, rows_per_block,
-                                        device, st);
+                                        x_rs, m_rs, R, device, st);
   } else {
     err = staged ? launch_fwd<2, true>(x, masks, A, C, out, S, B, D, K,
                                        k_chunk, segments, rows_per_block,
-                                       device, st)
+                                       x_rs, m_rs, R, device, st)
                  : launch_fwd<2, false>(x, masks, A, C, out, S, B, D, K,
                                         k_chunk, segments, rows_per_block,
-                                        device, st);
+                                        x_rs, m_rs, R, device, st);
   }
   return static_cast<int>(err);
 }

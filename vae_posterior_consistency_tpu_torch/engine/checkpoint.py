@@ -1,7 +1,9 @@
 """Checkpoints: reference-mangled paths, the JAX package's flat-key `.pt`
-format (save and load), its mid-training `.resume.pt` files (parameters,
-Adam state, epochs done, the run's identity tag), and trained reference
-state_dicts (gauss family).
+format (save and load; `save_many` for an ensemble's replicas, the
+`.seed{s}` names of seed replicas and `load_seed_ensemble`), its
+mid-training `.resume.pt` files (parameters, Adam state, epochs done, the
+run's identity tag; an ensemble's hold its stacked [S, ...] leaves), and
+trained reference state_dicts (gauss family).
 
 The JAX package saves a flat dict {"encoder/pnp1/layer0/w": ndarray, ...}
 with torch.save (its `engine/checkpoint.py`); weights are [fan_in, fan_out],
@@ -143,6 +145,45 @@ def load(template_params: dict, path: str) -> dict:
     (from a fresh `init`), on the template's devices and dtypes."""
     return _restore(torch.load(path, map_location="cpu", weights_only=False),
                     template_params)
+
+
+def save_many(pairs) -> None:
+    """Write [(params, path)] checkpoints through a small thread pool (the
+    JAX package's engine/checkpoint.py:109-129): the writes of an
+    ensemble's replicas overlap. Joins before returning."""
+    pairs = list(pairs)
+    if len(pairs) <= 1:
+        for p, path in pairs:
+            save(p, path)
+        return
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for f in [pool.submit(save, p, path) for p, path in pairs]:
+            f.result()
+
+
+def seed_suffix(s: int) -> str:
+    """The checkpoint suffix of seed replica s: '' for seed 0, which keeps
+    the reference's names, '.seed{s}' for the others (the JAX package's
+    engine/checkpoint.py:218-222)."""
+    return "" if s == 0 else f".seed{s}"
+
+
+def load_seed_ensemble(cfg: RunConfig, obs_dim: int, n_seeds: int,
+                       root: str = "experiments", device="cuda") -> dict:
+    """The n_seeds seed-replica checkpoints of one config (checkpoint.pt
+    and its `.seed{s}` siblings) stacked on a leading [S] axis, the layout
+    the ensemble evaluators take (engine/checkpoint.py:225-240).
+    FileNotFoundError names a seed that was never trained."""
+    model = get_model(cfg)
+    template = model.init(torch.Generator(device=device).manual_seed(0), cfg,
+                          obs_dim, device=device)
+    base = checkpoint_path(cfg, root)
+    replicas = [flatten(load(template, base + seed_suffix(s)))
+                for s in range(n_seeds)]
+    return unflatten({k: torch.stack([r[k] for r in replicas])
+                      for k in replicas[0]})
 
 
 # ---------------------------------------------------------------------------

@@ -97,14 +97,20 @@ class GeneratorNoise:
         if epoch != self._epoch:
             self.generator.manual_seed(epoch_seed(self.seed, epoch))
             self._epoch = epoch
-        g, dev = self.generator, self.device
-        if kind == "perm":
-            return torch.randperm(shape[0], generator=g, device=dev)
-        if kind in ("mask_p", "drop", "mask_s"):
-            return torch.rand(shape, generator=g, device=dev)
-        if kind in ("eps", "eps_z"):
-            return torch.randn(shape, generator=g, device=dev)
-        raise ValueError(f"unknown noise kind {kind!r}")
+        return draw(self.generator, kind, shape, self.device)
+
+
+def draw(generator, kind: str, shape, device):
+    """One draw of noise `kind` from `generator`: a permutation of
+    range(shape[0]) for "perm", uniforms for "mask_p", "drop", "mask_s",
+    standard normals for "eps", "eps_z"."""
+    if kind == "perm":
+        return torch.randperm(shape[0], generator=generator, device=device)
+    if kind in ("mask_p", "drop", "mask_s"):
+        return torch.rand(shape, generator=generator, device=device)
+    if kind in ("eps", "eps_z"):
+        return torch.randn(shape, generator=generator, device=device)
+    raise ValueError(f"unknown noise kind {kind!r}")
 
 
 def draw_step(cfg: RunConfig, noise, mask, epoch: int, step: int,
@@ -129,6 +135,14 @@ def draw_step(cfg: RunConfig, noise, mask, epoch: int, step: int,
     drawn = {kind: noise(kind, epoch, step, shape).to(mask.device)
              for kind, shape in model.train_noise(cfg, *mask.shape).items()}
     return eff_mask, mask_p, drawn.pop("eps"), drawn
+
+
+def trainable(params) -> dict:
+    """Copies of the leaves of `params` that require a gradient (the
+    leaves Adam updates in place)."""
+    return checkpoint.unflatten({
+        k: v.detach().clone().requires_grad_(True)
+        for k, v in checkpoint.flatten(params).items()})
 
 
 def make_optimizer(params) -> torch.optim.Adam:
@@ -244,9 +258,7 @@ def train(
     if resume and os.path.exists(resume_path):
         params, opt_state, done = checkpoint.load_resume(
             params, resume_path, tag=resume_tag, max_epochs=cfg.epoch)
-    params = checkpoint.unflatten({
-        k: v.clone().requires_grad_(True)
-        for k, v in checkpoint.flatten(params).items()})
+    params = trainable(params)
     optimizer = make_optimizer(params)
     if opt_state is not None:
         checkpoint.load_adam_state(optimizer, params, opt_state)

@@ -23,8 +23,16 @@ The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the CPU (`imputation.open_grid`, as the MCAR entry
 point). `-checkpoint_every`, `-resume` and `-early_stop` reach `train` as
 in the JAX package. Flags whose engine the port lacks (`-mesh`,
-`-ensemble`, `-seeds` above 1, `-profile`) stop the run before it starts,
-naming their slice.
+`-profile`) stop the run before it starts, naming their slice.
+
+Ensembles (`parallel/sweep`; the JAX package's experiment_main/
+imputation_mnar.py:79-118, 153-283): `-seeds N` trains each (record,
+missing, alpha) cell's N seed replicas as one seed ensemble and evaluates
+them in one vmapped MNAR evaluation (`_run_seed_ensemble`); `-ensemble
+true` trains each record's (missing x alpha x seed) product as one
+ensemble and evaluates it a rate at a time (`_run_sweep_ensemble`), a
+`-vae_type` flag cutting the grid to that record. Seed 0 keeps the
+reference names, seed s saves under `.seed{s}`.
 """
 
 from __future__ import annotations
@@ -33,20 +41,28 @@ import os
 import sys
 import time
 
+import numpy as np
+
 from vae_posterior_consistency_tpu_torch.config import (
     RunConfig,
     early_stopper,
     parse_alphas,
     parse_missings,
     restart_opts,
+    restrict_grid_records,
     setup_parser,
 )
 from vae_posterior_consistency_tpu_torch.data import loaders
-from vae_posterior_consistency_tpu_torch.engine import evaluate
+from vae_posterior_consistency_tpu_torch.engine import (
+    artifacts,
+    checkpoint,
+    evaluate,
+)
 from vae_posterior_consistency_tpu_torch.engine import train as train_engine
 from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
 )
+from vae_posterior_consistency_tpu_torch.parallel import sweep
 
 #: the grid, relative to the working directory
 GRID = os.path.join("Data", "imputation_args_mnar.json")
@@ -60,11 +76,25 @@ DATA_TRANSFORM = "minmax"
 NOT_MIWAE_TYPE = "changed"
 
 
+def _load(cfg: RunConfig, device):
+    return loaders.data_loader_mnar(
+        cfg.data_path, cfg.vae_type, cfg.missing_rate, cfg.batch_size,
+        cfg.data_type, data_transform=DATA_TRANSFORM, device=device)
+
+
 def run_grid(records, probe, argv) -> None:
-    """The serial grid: each record x missing x alpha trained, saved,
-    evaluated and printed."""
+    """The grid: each record x missing x alpha trained, saved, evaluated
+    and printed (each cell's `-seeds N` replicas as one seed ensemble);
+    with `-ensemble true` each record's sweep as one ensemble."""
     alphas = parse_alphas(probe, ALPHA_SWEEP)
     missings = parse_missings(probe, MISSING_SWEEP)
+    if bool(getattr(probe, "ensemble", False)):
+        print("[ensemble mode] MNAR sweeps run as vmapped ensembles; PRNG "
+              "streams differ from the serial path (PARITY.md deviation "
+              "#8)", flush=True)
+        for record in restrict_grid_records(records, probe):
+            _run_sweep_ensemble(record, argv, missings, alphas)
+        return
     for record in records:
         for missing in missings:
             for alpha in alphas:
@@ -73,14 +103,19 @@ def run_grid(records, probe, argv) -> None:
                                           p_missingness=missing,
                                           data_transform=DATA_TRANSFORM,
                                           not_miwae_type=NOT_MIWAE_TYPE)
-                dataset = loaders.data_loader_mnar(
-                    cfg.data_path, cfg.vae_type, cfg.missing_rate,
-                    cfg.batch_size, cfg.data_type,
-                    data_transform=DATA_TRANSFORM, device=args.device)
+                dataset = _load(cfg, args.device)
+                n_seeds = max(1, int(getattr(args, "seeds", 1)))
+                ck, rs = restart_opts(args)
+                if n_seeds > 1:
+                    _run_seed_ensemble(cfg, dataset, args.device, n_seeds,
+                                       missing, alpha, checkpoint_every=ck,
+                                       resume=rs,
+                                       early_stopping=early_stopper(
+                                           args, cfg, ensemble=True))
+                    continue
                 print(f"=== train {cfg.vae_type} (MNAR, missing={missing}, "
                       f"alpha={alpha}) ===", flush=True)
                 t0 = time.perf_counter()
-                ck, rs = restart_opts(args)
                 train_engine.train(dataset, cfg,
                                    log_fn=train_engine.epoch_logger(
                                        cfg.epoch), device=args.device,
@@ -97,9 +132,106 @@ def run_grid(records, probe, argv) -> None:
                       f"eval {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+def _run_seed_ensemble(cfg: RunConfig, dataset, device, n_seeds: int,
+                       missing, alpha, checkpoint_every=None, resume=False,
+                       early_stopping=None) -> None:
+    """`-seeds N`: this cell's N seed replicas trained as one seed ensemble,
+    evaluated in one vmapped MNAR evaluation, mean±std printed. Seed 0
+    keeps the reference checkpoint and artifact; seed s saves under
+    `.seed{s}`."""
+    print(f"=== train {cfg.vae_type} (MNAR, missing={missing}, "
+          f"alpha={alpha}, seeds={n_seeds}) ===", flush=True)
+    t0 = time.perf_counter()
+    path = checkpoint.checkpoint_path(cfg, "experiments")
+    params_ens, _ = sweep.train_seed_ensemble(
+        dataset, cfg, seeds=[cfg.seed + s for s in range(n_seeds)],
+        checkpoint_every=checkpoint_every, resume=resume,
+        resume_path=path + f".seeds{n_seeds}.resume.pt",
+        early_stopping=early_stopping, device=device)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params_host = checkpoint.on_device(params_ens, "cpu")
+    checkpoint.save_many(
+        [(sweep.ensemble_replica(params_host, s),
+          path + checkpoint.seed_suffix(s)) for s in range(n_seeds)])
+    rmses = evaluate.eval_vae_mnar_ensemble(
+        dataset.train.x, dataset.train.mask, cfg, params_ens, device=device)
+    print(f"  rmse={rmses.mean():.5f}±{rmses.std():.5f}  "
+          + " ".join(f"s{s}={v:.5f}" for s, v in enumerate(rmses)))
+    print(f"  [timing] train {t_train:.1f}s  "
+          f"eval+save {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
+    """`-ensemble true`: this record's (missing x alpha x seed) product
+    trained as one ensemble (row (mi * A + ai) * S + si holds missings[mi],
+    alphas[ai], seed si), then evaluated in one vmapped MNAR evaluation a
+    rate, under that rate's config. Vanilla records depend on neither knob
+    in training nor in the MNAR imputation, so their axes collapse to the
+    first cell. Checkpoints go to the reference names of each (alpha,
+    rate) with `.seed{s}` siblings; each cell's seed-0 RMSE to its
+    reference artifact."""
+    args = setup_parser(record, "impute_eval").parse_args(argv)
+    cfg = RunConfig.from_args(args, alpha=alphas[0],
+                              p_missingness=missings[0],
+                              data_transform=DATA_TRANSFORM,
+                              not_miwae_type=NOT_MIWAE_TYPE)
+    dataset = _load(cfg, args.device)
+    n_seeds = max(1, int(getattr(args, "seeds", 1)))
+    seeds = [cfg.seed + s for s in range(n_seeds)] if n_seeds > 1 else None
+    reg = cfg.info.regularized
+    cfg_miss = list(missings) if reg else list(missings[:1])
+    cfg_alphas = list(alphas) if reg else list(alphas[:1])
+    note = "" if reg else " (vanilla: alpha/rate-free, one cell)"
+    seed_tag = f", seeds={n_seeds}" if n_seeds > 1 else ""
+    print(f"=== sweep-ensemble train {cfg.vae_type} (MNAR, "
+          f"missings={cfg_miss}, alphas={cfg_alphas}{seed_tag}){note} "
+          f"===", flush=True)
+    ck, rs = restart_opts(args)
+    t0 = time.perf_counter()
+    params_ens, _, rows = sweep.train_sweep_ensemble(
+        dataset, cfg, missings=cfg_miss, alphas=cfg_alphas, seeds=seeds,
+        checkpoint_every=ck, resume=rs,
+        resume_path=checkpoint.checkpoint_path(cfg, "experiments")
+        + f".mnarsweep{len(cfg_miss) * len(cfg_alphas) * n_seeds}.resume.pt",
+        early_stopping=early_stopper(args, cfg, ensemble=True),
+        device=args.device)
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params_host = checkpoint.on_device(params_ens, "cpu")
+    checkpoint.save_many(
+        (sweep.ensemble_replica(params_host, ri),
+         checkpoint.checkpoint_path(
+             cfg.replace(alpha=a, p_missingness=m), "experiments")
+         + checkpoint.seed_suffix(0 if s is None else int(s) - cfg.seed))
+        for ri, (m, a, s) in enumerate(rows))
+    S = n_seeds
+    for m in cfg_miss:
+        ids = [ri for ri, (rm, _a, _s) in enumerate(rows) if rm == m]
+        sub = sweep.ensemble_replica(params_host, ids)
+        rmses = evaluate.eval_vae_mnar_ensemble(
+            dataset.train.x, dataset.train.mask,
+            cfg.replace(p_missingness=m), sub, save=False,
+            device=args.device)
+        for ai, a in enumerate(cfg_alphas):
+            cell = np.asarray(rmses[ai * S:(ai + 1) * S])
+            cfg_ma = cfg.replace(alpha=a, p_missingness=m)
+            paths = artifacts.eval_mnar_paths(cfg_ma, "experiments")
+            artifacts.save_tensor(float(cell[0]), paths["rmse"])
+            artifacts.log_metric(cfg_ma, "rmse_mnar", float(cell[0]),
+                                 "test", "experiments")
+            line = (f"rmse={cell.mean():.5f}±{cell.std():.5f}  "
+                    + " ".join(f"s{si}={v:.5f}"
+                               for si, v in enumerate(cell))
+                    if n_seeds > 1 else f"rmse={float(cell[0]):.5f}")
+            print(f"  missing={m} alpha={a:g} {line}")
+    print(f"  [timing] train {t_train:.1f}s  eval+save "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    records, probe = open_grid(GRID, argv)
+    records, probe = open_grid(GRID, argv, ensembles=True)
     run_grid(records, probe, argv)
     return 0
 
