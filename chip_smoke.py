@@ -166,7 +166,27 @@ Run from the root of a checkout. It drives only the port
    per-replica tracker), and imputation_mnar.py -ensemble true -seeds 2
    (checkpoints, `.seed1` siblings and RMSE artifacts at their names); (e)
    -ensemble true -seeds 2 over records 37-39 to 10 epochs straight and
-   stopped at 5 then resumed: the checkpoints equal bit for bit.
+   stopped at 5 then resumed: the checkpoints equal bit for bit;
+20. AL and AIS ensembles (slice 9 part 2) and the entry points' start-up:
+   (a) experiment_main/active_learning.py -ensemble true -seeds 2 over the
+   records 37-39 checkpoints of phase 19 (c), M cut to 5: every artifact
+   and its `.seed1` sibling at its reference name, shape and dtype, B2f
+   exactly 1 + 6 (D-1) = 73 times a record for both replicas and no other
+   kernel, no plain version on a CUDA tensor, each replica's episode
+   against `al_step` on the CPU from its masks and draws at the AL (a)
+   tolerances; (b) 128-replica episodes (M=50) of record 34 (the trained
+   seed ensemble of phase 19 (b)) and record 37 (seeded parameters; B2f
+   73 times for all replicas): the host-clock wall-clock beside the serial
+   episode's, peak device memory, and under torch.profiler device
+   operations and busy share; (c) experiment_main/ais_eval.py -seeds 2 on
+   record 34 (replicas 0 and 1 of phase 19 (b)): both estimates and their
+   `.seed1` files, no kernel, replica 0 against the serial AIS step from
+   the ensemble's states at the AIS (b) tolerances; then a 128-replica
+   test split (87,040 chains): wall-clock beside the serial split's, peak
+   memory, busy share over its first 4 temperatures; (d) a 2-epoch record
+   34 run through experiment_main/imputation.py with -profile DIR: a
+   Chrome trace naming B1's kernel; and with VPC_DEBUG_NANS=1: the run
+   finishes with anomaly detection on.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
@@ -175,7 +195,9 @@ shape; for every kernel its launches on the active-learning grid,
 `al_launches`, and for B2f its time at the episode's largest shape; and
 its launches on the AIS phases, `ais_launches`, 0; and the four replica
 forms, their launches on the ensemble phases, their times at R=128 and
-by R), then, as its last line,
+by R; and for every kernel its launches on the AL ensemble entry point's
+run, `al_ensemble_launches`, and on the 128-replica reg_EDDI1 episode,
+`al_ensemble_128_launches`), then, as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 600 s. It writes nothing in the checkout but the kernels' build
@@ -192,6 +214,7 @@ import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -517,6 +540,101 @@ def traced_ops(fn, want=3, tries=10):
 
 def max_abs(a, b):
     return (a - b).abs().max().item()
+
+
+def al_tol(cfg, R):
+    """The AL (a) tolerance of rewards R."""
+    from vae_posterior_consistency_tpu_torch.models import get_model
+
+    return (AL_FLOW_ATOL if get_model(cfg).encode_stats is None
+            else AL_REWARD_ATOL + AL_REWARD_RTOL * R.abs())
+
+
+def reveal_mask(actions, t, D):
+    """The mask before step t of an episode whose reveals are
+    `actions` [n, D-1]."""
+    import torch
+
+    return torch.nn.functional.one_hot(actions[:, :t].long(), D).sum(
+        1).float()
+
+
+def al_card_vs_cpu(acfg, ep, card_p, x, replay):
+    """An episode on the card, `ep` (run_episode's dict), against
+    `al_step` on the CPU step by step from its masks and the draws
+    `replay` (a noise source handing out the card's, on the CPU), at
+    the AL (a) tolerances; raises where they fail. Returns (worst
+    errors, rewards at a spline knot, rewards compared, (row, step)
+    pairs whose reveals were compared)."""
+    import torch
+
+    from vae_posterior_consistency_tpu_torch.engine import (
+        active_learning as al,
+    )
+    from vae_posterior_consistency_tpu_torch.engine import checkpoint
+    from vae_posterior_consistency_tpu_torch.models import get_model
+
+    model = get_model(acfg)
+    n, D = x.shape
+    cpu_p = checkpoint.unflatten(
+        {k: v.cpu() for k, v in checkpoint.flatten(card_p).items()})
+    xc = x.cpu()
+    curve = ep["information_curve"][0].cpu()
+    actions = ep["action"].cpu()
+    shape = (acfg.M, *al.eps_shape(acfg, n, D))
+    with torch.no_grad():
+        mse0 = al.predictive_mse(acfg, cpu_p, xc, torch.zeros_like(xc),
+                                 replay("init", 0, 0, shape))
+    worst = {"R": 0.0, "im": 0.0, "mse": abs(mse0.item()
+                                             - curve[0].item())}
+    knot, compared, n_R = 0, 0, 0
+    for t in range(D - 1):
+        mask = reveal_mask(actions, t, D)
+        with torch.no_grad():
+            out = al.al_step(model, cpu_p, acfg, xc, mask, replay, 0, t)
+        R_card = ep["R_hist"][t].cpu()
+        hidden = mask[:, :D - 1] == 0
+        err = (out["R"] - R_card).abs()[hidden]
+        tol = al_tol(acfg, out["R"])
+        tol = tol[hidden] if isinstance(tol, torch.Tensor) else tol
+        off = err > tol
+        if model.encode_stats is None:
+            knot += int(off.sum())
+            if err.max() > AL_FLOW_KNOT_ATOL:
+                raise AssertionError(f"{acfg.vae_type} step {t}: a "
+                                     f"reward {err.max().item()} from "
+                                     "the card's")
+        elif off.any():
+            raise AssertionError(f"{acfg.vae_type} step {t}: rewards "
+                                 f"{err.max().item()} from the card's")
+        n_R += int(hidden.sum())
+        worst["R"] = max(worst["R"], err.max().item())
+        worst["im"] = max(worst["im"], max_abs(out["im"],
+                                               ep["im"][t].cpu()))
+        # the card's MSE follows its own reveal, which the CPU's may not
+        # match on a row whose top two rewards tie within rounding
+        with torch.no_grad():
+            mse = al.predictive_mse(acfg, cpu_p, xc,
+                                    reveal_mask(actions, t + 1, D),
+                                    replay("mse", 0, t, shape))
+        worst["mse"] = max(worst["mse"], abs(mse.item()
+                                             - curve[t + 1].item()))
+        # the reveal must agree wherever the top two hidden rewards of
+        # a row stand further apart than the tolerance
+        top = torch.where(hidden, out["R"], -math.inf).topk(
+            min(2, D - 1 - t), dim=1).values
+        clear = (torch.ones(n, dtype=torch.bool) if top.shape[1] < 2
+                 else top[:, 0] - top[:, 1] > al_tol(acfg, top[:, 0]))
+        if not torch.equal(out["action"][clear], actions[clear, t]):
+            raise AssertionError(f"{acfg.vae_type} step {t}: the CPU "
+                                 "reveals other features")
+        compared += int(clear.sum())
+    if (worst["im"] > AL_IM_ATOL or worst["mse"] > AL_CURVE_RTOL
+            * curve.abs().max().item()
+            or knot > AL_FLOW_KNOT_SHARE * n_R):
+        raise AssertionError(f"{acfg.vae_type}: card against CPU "
+                             f"{worst}, {knot} rewards off")
+    return worst, knot, n_R, compared
 
 
 def main() -> int:
@@ -1905,16 +2023,6 @@ def main() -> int:
     al_params = {"reg_vae1": wine_params, "reg_EDDI1": drop_params,
                  "reg_flow1": flow_params, "reg_MIWAE1": miwae_params}
 
-    def al_tol(cfg, R):
-        return (AL_FLOW_ATOL if get_model(cfg).encode_stats is None
-                else AL_REWARD_ATOL + AL_REWARD_RTOL * R.abs())
-
-    def reveal_mask(actions, t, D):
-        """The mask before step t of an episode whose reveals are
-        `actions` [n, D-1]."""
-        return torch.nn.functional.one_hot(actions[:, :t].long(), D).sum(
-            1).float()
-
     with phase(f"active learning (a): al_step card vs CPU from the card's "
                f"masks and noise, M cut to {AL_CHECK_M}, records "
                f"{AL_RECORDS}"):
@@ -1942,9 +2050,6 @@ def main() -> int:
             if launched != {**no_kernel, "embed_pool_fwd": want_b2f}:
                 raise AssertionError(f"the {acfg.vae_type} episode launched "
                                      f"{launched}")
-            cpu_p = checkpoint.unflatten(
-                {k: v.cpu() for k, v in checkpoint.flatten(card_p).items()})
-            xc = x.cpu()
 
             def replay(kind, repeat, step, shape, _kept=kept):
                 t = _kept[(kind, repeat, step)]
@@ -1953,59 +2058,8 @@ def main() -> int:
                                          f"not {tuple(shape)}")
                 return t.cpu()
 
-            curve = ep["information_curve"][0].cpu()
-            actions = ep["action"].cpu()
-            with torch.no_grad():
-                mse0 = al.predictive_mse(acfg, cpu_p, xc, torch.zeros_like(xc),
-                                         replay("init", 0, 0, kept[
-                                             ("init", 0, 0)].shape))
-            worst = {"R": 0.0, "im": 0.0, "mse": abs(mse0.item()
-                                                     - curve[0].item())}
-            knot, compared, n_R = 0, 0, 0
-            for t in range(D - 1):
-                mask = reveal_mask(actions, t, D)
-                with torch.no_grad():
-                    out = al.al_step(model, cpu_p, acfg, xc, mask, replay, 0,
-                                     t)
-                R_card = ep["R_hist"][t].cpu()
-                hidden = mask[:, :D - 1] == 0
-                err = (out["R"] - R_card).abs()[hidden]
-                tol = al_tol(acfg, out["R"])
-                tol = tol[hidden] if isinstance(tol, torch.Tensor) else tol
-                off = err > tol
-                if get_model(acfg).encode_stats is None:
-                    knot += int(off.sum())
-                    if err.max() > AL_FLOW_KNOT_ATOL:
-                        raise AssertionError(f"{acfg.vae_type} step {t}: a "
-                                             f"reward {err.max().item()} "
-                                             "from the card's")
-                elif off.any():
-                    raise AssertionError(f"{acfg.vae_type} step {t}: rewards "
-                                         f"{err.max().item()} from the "
-                                         "card's")
-                n_R += int(hidden.sum())
-                worst["R"] = max(worst["R"], err.max().item())
-                worst["im"] = max(worst["im"], max_abs(out["im"],
-                                                       ep["im"][t].cpu()))
-                worst["mse"] = max(worst["mse"], abs(out["mse"].item()
-                                                     - curve[t + 1].item()))
-                # the reveal must agree wherever the top two hidden
-                # rewards of a row stand further apart than the tolerance
-                top = torch.where(hidden, out["R"], -math.inf).topk(
-                    min(2, D - 1 - t), dim=1).values
-                clear = (torch.ones(n, dtype=torch.bool) if top.shape[1] < 2
-                         else top[:, 0] - top[:, 1] > (
-                             al_tol(acfg, top[:, 0])))
-                if not torch.equal(out["action"][clear],
-                                   actions[clear, t]):
-                    raise AssertionError(f"{acfg.vae_type} step {t}: the "
-                                         "CPU reveals other features")
-                compared += int(clear.sum())
-            if (worst["im"] > AL_IM_ATOL or worst["mse"] > AL_CURVE_RTOL
-                    * curve.abs().max().item()
-                    or knot > AL_FLOW_KNOT_SHARE * n_R):
-                raise AssertionError(f"{acfg.vae_type}: card against CPU "
-                                     f"{worst}, {knot} rewards off")
+            worst, knot, n_R, compared = al_card_vs_cpu(acfg, ep, card_p, x,
+                                                        replay)
             print(f"{acfg.vae_type} M={acfg.M}: {D - 1} steps on {n} rows, "
                   f"card vs CPU: rewards {worst['R']:.3e}"
                   + (f" ({knot} of {n_R} at a spline knot)" if knot else "")
@@ -2589,7 +2643,9 @@ def main() -> int:
             print_split(r, f"; {flop / 1e12:.3f} TFLOP of decoder "
                         f"matmuls, {flop / r['wall_ms'] / 1e9:.3f} TFLOP/s")
 
-    ens_kernels = ensembles(locals())
+    env = locals()
+    ens_kernels = ensembles(env)
+    al_ens_launches = al_ais_ensembles(env)
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -2637,6 +2693,11 @@ def main() -> int:
         if k["name"] == "embed_pool_fwd":
             k.update(al_ms=a_ms, al_plain_ms=a_plain, al_bound_ms=a_bound,
                      al_shape=[1, AL_M * (WINE_D - 1) * AL_ROWS, WINE_D, K])
+    # launches on the AL ensemble entry point's run (the AL and AIS
+    # ensembles, (a)) and on the 128-replica reg_EDDI1 episode ((b))
+    for k in kernels:
+        k["al_ensemble_launches"] = al_ens_launches["entry"][k["name"]]
+        k["al_ensemble_128_launches"] = al_ens_launches["R128"][k["name"]]
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -2921,6 +2982,8 @@ def ensembles(env) -> list:
               f"the serial {ens_cfg.vae_type} step {wine_host_ms:.6f} ms "
               f"(host clock) [{card}]", flush=True)
     ens_launches = dict(ens_counts)
+    # the trained 128 replicas, for the AL and AIS ensemble phases
+    env.update(ens_p=ens_p, ens_cfg=ens_cfg)
 
     eddi_recs = [records[i - 1] for i in ENS_EDDI_RECORDS]
     vae_recs = [records[i - 1] for i in ENS_VAE_RECORDS]
@@ -2965,6 +3028,9 @@ def ensembles(env) -> list:
                     for p in env["artifacts"].eval_vae_paths(c, st,
                                                              root).values()]
             missing = [p for p in ckpts + arts if not os.path.isfile(p)]
+            # kept for the AL ensemble phase, which runs over them
+            env["eddi_ens_dir"] = tempfile.mkdtemp()
+            shutil.copytree(root, Path(env["eddi_ens_dir"]) / "experiments")
         train_steps = ENS_ENTRY_EPOCHS * eddi_steps
         if rc != 0 or missing or eddi_counts["embed_pool_fwd"] <= train_steps \
                 or eddi_counts["embed_pool_bwd"] != train_steps or \
@@ -3123,6 +3189,385 @@ def ensembles(env) -> list:
                 str(r): t[2] for r, t in per784.items()}
         out.append(entry)
     return out
+
+
+def al_ais_ensembles(env) -> dict:
+    """The AL and AIS ensemble phases (slice 9 part 2) and the entry points'
+    start-up (-profile, VPC_DEBUG_NANS), on the names main() and
+    ensembles() set up (`env`): the AL entry point's -ensemble true -seeds
+    2 over the reg_EDDI1-3 checkpoints of ensembles (c), each replica card
+    vs CPU; 128-replica episodes of records 34 and 37 beside the serial
+    one; ais_eval -seeds 2 on record 34 with replica 0 against the serial
+    chain, and a 128-replica test split; a traced and an anomaly-checked
+    run. Returns the kernels' launches on the entry point's run ("entry")
+    and on the 128-replica reg_EDDI1 episode ("R128")."""
+    import torch
+
+    from vae_posterior_consistency_tpu_torch.config import RunConfig
+    from vae_posterior_consistency_tpu_torch.data import loaders
+    from vae_posterior_consistency_tpu_torch.engine import (
+        active_learning as al,
+    )
+    from vae_posterior_consistency_tpu_torch.engine import (
+        ais,
+        artifacts,
+        checkpoint,
+        profile_train,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        active_learning as al_main,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        ais_eval as ais_main,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation as imputation_main,
+    )
+    from vae_posterior_consistency_tpu_torch.models import get_model
+    from vae_posterior_consistency_tpu_torch.parallel import sweep
+
+    card, counts, reset_counts = env["card"], env["counts"], env[
+        "reset_counts"]
+    no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
+    records, wine, no_kernel = env["records"], env["wine"], env["no_kernel"]
+    ens_p = env["ens_p"]
+    eddi_recs = [records[i - 1] for i in ENS_EDDI_RECORDS]
+    flagship = records[RESUME_RECORD - 1]
+    n, D = AL_ROWS, WINE_D
+    b2f_episode = 1 + 6 * (D - 1)
+    launches = {}
+
+    def profiled(fn):
+        """fn() once under torch.profiler: (its host-clock ms, the device
+        events of the trace)."""
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return ms, profile_train.device_events(prof)
+
+    def measured(fn):
+        """fn() timed on the host clock with a sync at each end: (its
+        result, ms, peak device memory above what was held, MiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3,
+                (torch.cuda.max_memory_allocated() - base) / 2**20)
+
+    def busy(prof_ms, on_card):
+        if not on_card:
+            return ("busy share and device operations not measured (no "
+                    "device event in the trace)")
+        b = profile_train.busy_ms(on_card)
+        top = profile_train.top_device_ms(on_card).most_common(4)
+        return (f"under torch.profiler {prof_ms:.6f} ms, device busy "
+                f"{b:.6f} ms ({b / prof_ms:.1%}), {len(on_card)} device "
+                "operations; top device ms: "
+                + "; ".join(f"{nm} {t:.6f}" for nm, t in top))
+
+    with phase(f"AL and AIS ensembles (a): experiment_main/active_learning"
+               f".py -ensemble true -seeds 2 over records {ENS_EDDI_RECORDS}"
+               f" (reg_EDDI1-3, the checkpoints of ensembles (c)), M cut to "
+               f"{AL_CHECK_M}, each replica card vs CPU"):
+        runs, real_ens = [], al.active_learning_ensemble
+
+        def recorded(*args, **kw):
+            out = real_ens(*args, **kw)
+            runs.append((args, out))
+            return out
+
+        with grid_dir(eddi_recs) as tmp:
+            shutil.copytree(Path(env["eddi_ens_dir"]) / "experiments",
+                            tmp / "experiments")
+            al.active_learning_ensemble = recorded
+            reset_counts()
+            try:
+                with no_plain_on_card():
+                    rc = al_main.main(["-ensemble", "true", "-seeds", "2",
+                                       "-M", str(AL_CHECK_M), "-epoch",
+                                       str(ENS_ENTRY_EPOCHS)])
+            finally:
+                al.active_learning_ensemble = real_ens
+            launches["entry"] = counts()
+            bad = []
+            for r in eddi_recs:
+                c = RunConfig.from_jsonl_record(r, alpha=1.0,
+                                                p_missingness=30,
+                                                M=AL_CHECK_M)
+                paths = artifacts.active_learning_paths(
+                    c, str(tmp / "experiments"))
+                shapes = {"information_curve": (1, n, D),
+                          "action": (1, n, D - 1),
+                          "R_hist": (1, D - 1, n, D - 1),
+                          "im": (1, D - 1, c.M, n, D)}
+                for name, shape in shapes.items():
+                    for sfx in ("", ".seed1"):
+                        path = paths[name] + sfx
+                        t = (torch.load(path, weights_only=True)
+                             if os.path.isfile(path) else None)
+                        if (t is None or tuple(t.shape) != shape
+                                or t.dtype != torch.float32
+                                or not torch.isfinite(t).all()):
+                            bad.append(path)
+        shutil.rmtree(env["eddi_ens_dir"])
+        want = {**no_kernel, "embed_pool_fwd": len(eddi_recs) * b2f_episode}
+        if rc != 0 or bad or launches["entry"] != want or len(runs) != len(
+                eddi_recs):
+            raise AssertionError(f"AL -ensemble true -seeds 2: rc {rc}, "
+                                 f"{len(runs)} ensemble episodes, launched "
+                                 f"{launches['entry']} (want {want}), "
+                                 f"missing or malformed {bad}")
+        for (x, _, c, params_ens), out in runs:
+            src = al.replay_noise(al.default_noise(c, "cuda"), c, n, D, 0,
+                                  get_model(c).encode_stats is None)
+
+            def replay(kind, repeat, step, shape, _src=src):
+                return _src(kind, repeat, step, shape).cpu()
+
+            for s in range(2):
+                worst, knot, n_R, compared = al_card_vs_cpu(
+                    c, {k: v[s, 0] for k, v in out.items()},
+                    sweep.ensemble_replica(params_ens, s), x, replay)
+                print(f"{c.vae_type} replica {s} of 2, M={c.M}: card vs CPU "
+                      f"rewards {worst['R']:.3e}, imputations "
+                      f"{worst['im']:.3e}, curve {worst['mse']:.3e}; "
+                      f"reveals equal on {compared} of {n * (D - 1)}",
+                      flush=True)
+        print(f"the AL entry point's ensembles: artifacts and their .seed1 "
+              f"siblings at the reference names for {len(eddi_recs)} "
+              f"records; launches {launches['entry']} ({b2f_episode} B2f "
+              f"launches an episode for both replicas) [{card}]", flush=True)
+
+    with phase(f"AL and AIS ensembles (b): {ENS_S}-replica episodes of "
+               f"records {RESUME_RECORD} and {ENS_EDDI_RECORDS[0]} at M="
+               f"{AL_M}, against the serial episode"):
+        for number in (RESUME_RECORD, ENS_EDDI_RECORDS[0]):
+            c = RunConfig.from_jsonl_record(records[number - 1], alpha=1.0,
+                                            p_missingness=30, seed=SEED)
+            model = get_model(c)
+            if number == RESUME_RECORD:
+                p_ens = ens_p  # the trained seed ensemble of ensembles (b)
+            else:
+                reps = [checkpoint.flatten(model.init(
+                    torch.Generator(device="cuda").manual_seed(SEED + i), c,
+                    D, device="cuda")) for i in range(ENS_S)]
+                p_ens = checkpoint.unflatten(
+                    {k: torch.stack([r[k] for r in reps]) for k in reps[0]})
+                del reps
+            data = loaders.data_loader(str(REPO / "Data"), c.vae_type,
+                                       c.missing_rate, c.batch_size,
+                                       c.data_type, device="cuda")
+            x = data.test.x
+            p0 = sweep.ensemble_replica(p_ens, 0)
+
+            def serial():
+                return al.active_learning_func(None, x, data.test.mask, c,
+                                               params=p0, save=False,
+                                               device="cuda")
+
+            def ensemble():
+                return al.active_learning_ensemble(x, None, c, p_ens,
+                                                   save=False, device="cuda")
+
+            serial()
+            _, serial_ms, _ = measured(serial)
+            prof_ms, on_card = profiled(ensemble)
+            reset_counts()
+            with no_plain_on_card():
+                out, ens_ms, peak = measured(ensemble)
+            got = counts()
+            eddi = "EDDI" in c.vae_type
+            if eddi:
+                launches["R128"] = got
+            ok = got == {**no_kernel,
+                         "embed_pool_fwd": b2f_episode if eddi else 0}
+            acts = out["action"][:, 0].long().sort(dim=-1).values
+            if not ok or tuple(out["im"].shape) != (
+                    ENS_S, 1, D - 1, c.M, n, D) or not all(
+                    torch.isfinite(v).all() for v in out.values()) or not (
+                    acts == torch.arange(D - 1, device="cuda")).all():
+                raise AssertionError(f"{c.vae_type} x {ENS_S}: launched "
+                                     f"{got}, im {tuple(out['im'].shape)}")
+            print(f"{c.vae_type} M={c.M}, {ENS_S} replicas: episode "
+                  f"{ens_ms:.6f} ms (host clock) against the serial "
+                  f"{serial_ms:.6f} ms ({ens_ms / serial_ms:.2f}x for "
+                  f"{ENS_S} replicas, {ens_ms / ENS_S:.6f} ms a replica); "
+                  f"peak device memory {peak:.3f} MiB above held; launches "
+                  f"{got}; {busy(prof_ms, on_card)} [{card}]", flush=True)
+            del p_ens, out
+
+    with phase(f"AL and AIS ensembles (c): experiment_main/ais_eval.py "
+               f"-seeds 2 on record {RESUME_RECORD}, replica 0 against the "
+               f"serial chain on the card; a {ENS_S}-replica test split"):
+        c = RunConfig.from_jsonl_record(flagship, alpha=1.0,
+                                        p_missingness=30)
+        steps, real_step = [], ais.ais_step
+
+        def recording_step(ll_fn, state, t0, t1, v, u, leapfrog=10):
+            out, prob = real_step(ll_fn, state, t0, t1, v, u, leapfrog)
+            steps.append((state, t0, t1, v, u, out))
+            return out, prob
+
+        with grid_dir([flagship]) as tmp:
+            base = checkpoint.checkpoint_path(c, str(tmp / "experiments"))
+            for s in range(2):
+                checkpoint.save(sweep.ensemble_replica(ens_p, s),
+                                base + checkpoint.seed_suffix(s))
+            ais.ais_step = recording_step
+            printed = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                with no_plain_on_card(), contextlib.redirect_stdout(printed):
+                    rc = ais_main.main(["-vae_type", c.vae_type, "-seeds",
+                                        "2"])
+            finally:
+                ais.ais_step = real_step
+            entry_s = time.perf_counter() - t0
+            printed = printed.getvalue()
+            print(printed, end="", flush=True)
+            launched = counts()
+            elbos = tmp / "experiments" / c.vae_type / "wine" / "elbos" / (
+                f"{c.missing_rate}_missing") / f"{c.epoch}_epochs"
+            bad = [f"{st}_ais.pt{sfx}" for st in ("train", "test")
+                   for sfx in ("", ".seed1")
+                   if not (elbos / f"{st}_ais.pt{sfx}").is_file()]
+            lines = [ln for ln in printed.splitlines()
+                     if ln.startswith("  [") and "±" in ln and " s1=" in ln]
+        T = c.n_ais_dist - 1
+        if rc != 0 or launched != no_kernel or bad or len(lines) != 2 or (
+                len(steps) != 2 * T):
+            raise AssertionError(f"ais_eval -seeds 2: rc {rc}, launched "
+                                 f"{launched}, missing {bad}, lines {lines}, "
+                                 f"{len(steps)} steps")
+        # replica 0 against the serial chain (eval_ais's step) on the card,
+        # a temperature at a time from the ensemble's states, the test split
+        bridge = ais.bridge_for(c)
+        p0 = sweep.ensemble_replica(ens_p, 0)
+        x_rep = wine.test.x.to(device="cuda").repeat(c.n_ais_iwae, 1)
+
+        def ll0(z):
+            return bridge.log_lik(p0, z, x_rep)
+
+        worst = {"z": 0.0, "eps": 0.0, "logw": 0.0}
+        flips = 0
+        for state, t0_, t1_, v, u, out in steps[T:]:
+            st0 = ais.AISState(state.z[0], state.eps[0],
+                               state.accept_hist[0], state.logw[0], state.j)
+            ref, prob = real_step(ll0, st0, t0_, t1_, v, u)
+            flipped = out.accept_hist[0] != ref.accept_hist
+            if flipped.any():
+                energy = -(ais._log_normal_nc(st0.z) + t1_ * ll0(st0.z))
+                gap = (torch.log(prob) - torch.log(u)).abs()
+                allowed = AIS_FLIP_GAP_RTOL * energy.abs() + AIS_FLIP_GAP_ATOL
+                if bool((gap[flipped] > allowed[flipped]).any()):
+                    raise AssertionError(f"replica 0: a decision flipped "
+                                         f"with gap {gap[flipped].max()}")
+                flips += int(flipped.sum())
+            keep = ~flipped
+            for name in ("z", "eps") if keep.any() else ():
+                worst[name] = max(worst[name], max_abs(
+                    getattr(out, name)[0][keep], getattr(ref, name)[keep]))
+            dlogw = ((out.logw[0] - ref.logw).abs()
+                     / (AIS_LOGW_ATOL + AIS_LOGW_RTOL * ref.logw.abs()))
+            worst["logw"] = max(worst["logw"], float(dlogw.max()))
+        decisions = x_rep.shape[0] * T
+        if (worst["z"] > AIS_Z_ATOL or worst["eps"] > AIS_Z_ATOL
+                or worst["logw"] > 1.0 or flips > AIS_FLIP_SHARE * decisions):
+            raise AssertionError(f"replica 0 against the serial chain: "
+                                 f"{worst}, {flips} flips")
+        print(f"ais_eval -seeds 2: {entry_s:.6f} s, both splits' estimates "
+              f"and .seed1 files at the reference names, no kernel; replica "
+              f"0 against the serial step from the ensemble's states over "
+              f"{T} temperatures x {x_rep.shape[0]} chains: max |dz| "
+              f"{worst['z']:.3e}, |deps| {worst['eps']:.3e}, logw within "
+              f"{worst['logw']:.3f} of its tolerance, {flips} of {decisions} "
+              f"decisions flipped [{card}]", flush=True)
+
+        test_only = loaders.Dataset(wine.test, None, wine.obs_dim)
+        sched = ais.default_schedule(c, warn=False)
+
+        def ensemble(schedule=sched):
+            return ais.eval_ais_ensemble(test_only, c, ens_p, schedule,
+                                         n_sample=c.n_ais_iwae, save=False,
+                                         device="cuda")
+
+        def serial():
+            return ais.eval_ais(test_only, c, params=p0, schedule=sched,
+                                n_sample=c.n_ais_iwae, save=False,
+                                device="cuda")
+
+        serial()
+        _, serial_ms, _ = measured(serial)
+        prof_ms, on_card = profiled(
+            lambda: ensemble(sched[:AIS_PROFILE_TEMPS + 1]))
+        reset_counts()
+        with no_plain_on_card():
+            res, ens_ms, peak = measured(ensemble)
+        logw = res["test"].logw
+        if counts() != no_kernel or logw.shape != (ENS_S,) or not np.isfinite(
+                logw).all():
+            raise AssertionError(f"{ENS_S}-replica AIS: launched {counts()}, "
+                                 f"logw {logw}")
+        chains = wine.test.n * c.n_ais_iwae * ENS_S
+        print(f"{ENS_S}-replica AIS of the test split, {chains} chains x "
+              f"{T} temperatures: {ens_ms:.6f} ms (host clock) against the "
+              f"serial split's {serial_ms:.6f} ms ({ens_ms / serial_ms:.2f}x "
+              f"for {ENS_S} replicas); log p(x) {logw.mean():.6f} ± "
+              f"{logw.std():.6f}; peak device memory {peak:.3f} MiB above "
+              f"held; its first {AIS_PROFILE_TEMPS} temperatures "
+              f"{busy(prof_ms, on_card)} [{card}]", flush=True)
+
+    with phase(f"AL and AIS ensembles (d): -profile DIR and VPC_DEBUG_NANS=1"
+               f" on a 2-epoch record {RESUME_RECORD} run"):
+        cut = ["-epoch", "2", "-M", "1"]
+        steps_run = 2 * -(-wine.train.n // c.batch_size)
+        named = 0
+        with grid_dir([flagship]) as tmp:
+            # a trace may miss the card's events (the profiler's activity
+            # buffers): up to three tries
+            for attempt in range(3):
+                trace_dir = tmp / f"trace{attempt}"
+                reset_counts()
+                with no_plain_on_card():
+                    rc = imputation_main.main([*cut, "-profile",
+                                               str(trace_dir)])
+                traces = sorted(trace_dir.iterdir())
+                if rc != 0 or len(traces) != 1 or counts()[
+                        "fused_posterior_fwd"] != steps_run:
+                    raise AssertionError(f"-profile: rc {rc}, {traces}, "
+                                         f"launched {counts()}")
+                with open(traces[0]) as fh:
+                    events = json.load(fh)["traceEvents"]
+                named = sum("fused_posterior_kernel" in e.get("name", "")
+                            for e in events)
+                if named:
+                    break
+            size = traces[0].stat().st_size
+            os.environ["VPC_DEBUG_NANS"] = "1"
+            try:
+                rc = imputation_main.main(cut)
+                anomaly = torch.is_anomaly_enabled()
+            finally:
+                del os.environ["VPC_DEBUG_NANS"]
+                torch.autograd.set_detect_anomaly(False)
+        if not named or rc != 0 or not anomaly:
+            raise AssertionError(f"the trace names B1 {named} times; "
+                                 f"VPC_DEBUG_NANS run: rc {rc}, anomaly "
+                                 f"detection {anomaly}")
+        print(f"-profile: a {size} B Chrome trace of the run ({len(events)} "
+              f"events, B1's kernel named in {named}, try {attempt + 1}); "
+              f"VPC_DEBUG_NANS=1: the run finished with anomaly detection "
+              f"on [{card}]", flush=True)
+    return launches
 
 
 def iter_records(path):

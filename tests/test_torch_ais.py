@@ -547,15 +547,34 @@ def test_entry_point_prints_jax_lines_and_writes_jax_artifacts(
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["-seeds", "2"], "slice 9"), (["-mesh", "auto"], "slice 10"),
-    (["-profile", "traces"], "slice 11"), ([], "slice 11")])
-def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, flags,
-                                            slice_name):
-    """-seeds above 1, -mesh, -profile, and (no flag) a record asking for
-    compute_dtype 'bfloat16': refused before anything runs, naming the
-    slice."""
+    (["-seeds", "2"], None), (["-mesh", "auto"], "slice 10"),
+    (["-profile", "traces"], None), ([], "slice 11")])
+def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
+                                            flags, slice_name):
+    """-mesh and (no flag) a record asking for compute_dtype 'bfloat16':
+    refused before anything runs, naming the slice. -seeds above 1 and
+    -profile, ported since, run: `-seeds 2` writes the `.seed1` estimate,
+    `-profile traces` prints JAX's line and leaves a trace."""
     extra = {} if flags else {"compute_dtype": "bfloat16"}
-    monkeypatch.chdir(_workdir(tmp_path, [_record(34, **extra)], []))
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ais_eval.main(["-device", "cpu", *flags])
-    assert not os.path.exists(tmp_path / "experiments")
+    record = _record(34, n_ais_dist=3, n_ais_iwae=2, **extra)
+    cfg = tcfg.RunConfig.from_jsonl_record(record)
+    if slice_name is not None:
+        monkeypatch.chdir(_workdir(tmp_path, [record], []))
+        with pytest.raises(NotImplementedError, match=slice_name):
+            ais_eval.main(["-device", "cpu", *flags])
+        assert not os.path.exists(tmp_path / "experiments")
+        return
+    monkeypatch.chdir(_workdir(tmp_path, [record], [cfg]))
+    path = tckpt.checkpoint_path(cfg, "experiments")
+    shutil.copy(path, path + ".seed1")
+    assert ais_eval.main(["-device", "cpu", *flags]) == 0
+    out = capsys.readouterr().out
+    base = os.path.join("experiments", "reg_vae1", "wine", "elbos",
+                        "30_missing", "3000_epochs")
+    assert os.path.isfile(os.path.join(base, "test_ais.pt"))
+    seeds = flags[0] == "-seeds"
+    assert os.path.isfile(os.path.join(base, "test_ais.pt.seed1")) == seeds
+    if not seeds:
+        assert "[profile] tracing to traces" in out
+        assert any(os.path.getsize(os.path.join("traces", f)) > 0
+                   for f in os.listdir("traces"))

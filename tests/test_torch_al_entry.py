@@ -5,8 +5,8 @@ the CPU: after the imputation entry point trains a one-record grid (record
 in a temporary directory, it runs one episode a record on the 17 wine test
 rows, prints the JAX package's lines, writes the four artifacts at the JAX
 package's paths with its shapes and dtypes and appends `al_final_mse`;
-it refuses the flags whose engine the port lacks and stops with the path
-of a checkpoint never trained."""
+it refuses `-mesh`, runs the ensemble flags and stops with the path of a
+checkpoint never trained."""
 
 import json
 import os
@@ -82,14 +82,36 @@ def test_one_record_episode_writes_what_jax_writes(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["-mesh", "dp=2"], "slice 10"),
-    (["-ensemble", "true"], "slice 9"),
-    (["-seeds", "2"], "slice 9"),
+    # ported since (slice 9 part 2): they run
+    (["-ensemble", "true"], None),
+    (["-seeds", "2"], None),
 ])
-def test_unported_flags_are_refused(tmp_path, monkeypatch, flags,
+def test_unported_flags_are_refused(tmp_path, monkeypatch, capsys, flags,
                                     slice_name):
-    monkeypatch.chdir(_workdir(tmp_path, [_record(VANILLA_VAE)]))
-    with pytest.raises(NotImplementedError, match=slice_name):
-        active_learning.main(flags + ["-device", "cpu"])
+    """-mesh stops the run before it starts, naming its slice. The
+    ensemble flags run: over a record trained with -seeds 2, `-ensemble
+    true` makes one ensemble episode and writes the seed-0 artifacts, and
+    `-seeds 2` a two-seed episode writing the `.seed1` siblings too."""
+    if slice_name is not None:
+        monkeypatch.chdir(_workdir(tmp_path, [_record(VANILLA_VAE)]))
+        with pytest.raises(NotImplementedError, match=slice_name):
+            active_learning.main(flags + ["-device", "cpu"])
+        return
+    record = _record(VANILLA_VAE, epoch=1, M=2)
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    assert imputation.main(["-device", "cpu", "-seeds", "2"]) == 0
+    capsys.readouterr()
+    assert active_learning.main(flags + ["-device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    seeds = 2 if "-seeds" in flags else 1
+    assert ("=== active learning vanilla_vae1 (ensemble" in out
+            if seeds == 1 else
+            "=== active learning vanilla_vae1 (seeds=2) ===" in out)
+    jc = jcfg.RunConfig.from_jsonl_record(record, alpha=1.0,
+                                          p_missingness=30)
+    for name, path in jart.active_learning_paths(jc, "experiments").items():
+        assert os.path.isfile(path), name
+        assert os.path.isfile(path + ".seed1") == (seeds == 2), name
 
 
 def test_a_missing_checkpoint_stops_the_run_with_its_path(tmp_path,

@@ -5,6 +5,7 @@ does, the flags whose engine the port lacks raise naming their slice, and
 get_model routes the gauss families and refuses the rest by name."""
 
 import argparse
+import contextlib
 import dataclasses
 import json
 
@@ -182,10 +183,19 @@ def test_bdmc_flag_is_ais_entry_only():
 
 @pytest.mark.parametrize("argv,slice_name", [
     (["-mesh", "auto"], "slice 10"), (["-mesh", "2,1"], "slice 10"),
-    (["-ensemble", "true"], "slice 9"), (["-seeds", "4"], "slice 9"),
-    (["-profile", "traces"], "slice 11")])
+    # ported since: every entry point has its ensembles and -profile
+    (["-ensemble", "true"], None), (["-seeds", "4"], None),
+    (["-profile", "traces"], None)])
 def test_unported_flags_name_their_slice(argv, slice_name):
+    """-mesh is refused naming its slice; the flags ported since pass
+    `check_unported`, and -profile makes `maybe_profile` a trace."""
     args = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args(argv)
+    if slice_name is None:
+        tcfg.check_unported(args)
+        traced = not isinstance(tcfg.maybe_profile(args),
+                                contextlib.nullcontext)
+        assert traced == (argv[0] == "-profile")
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         tcfg.check_unported(args)
 

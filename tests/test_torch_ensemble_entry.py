@@ -3,8 +3,8 @@ JAX package's: each path run by both over the same small grid (synth_small,
 2 epochs) writes the same checkpoint, `.seed{s}`, resume-file and artifact
 names and prints the same banners; the per-replica early stopper reaches
 the ensembles; `restrict_grid_records` cuts an ensemble grid to one record;
-and the active-learning and AIS entry points still refuse their ensemble
-flags, naming the slice that brings them."""
+and `check_unported` lets the ensemble flags through for every entry
+point."""
 
 import os
 import shutil
@@ -190,11 +190,13 @@ def test_ensemble_vae_type_flag_runs_one_record(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags", [["-ensemble", "true"], ["-seeds", "2"]])
 def test_active_learning_ensemble_flags_still_name_their_slice(flags):
-    """The AL entry point's and ais_eval's ensembles come with slice 9 part
-    2: `check_unported` without the entry point's ensembles refuses them;
-    with them (the imputation entry points) it lets them through."""
+    """The AL entry point's and ais_eval's ensembles came with slice 9 part
+    2: `check_unported`, which every entry point calls, lets the ensemble
+    flags through (it names a slice for -mesh alone), in both parsers."""
     record = {"vae_type": {"default": "reg_vae1", "help": ""}}
-    args = tcfg.setup_parser(record, "impute_eval").parse_args(flags)
-    with pytest.raises(NotImplementedError, match="slice 9 part 2"):
+    for title in ("impute_eval", "ais_eval"):
+        args = tcfg.setup_parser(record, title).parse_args(flags)
         tcfg.check_unported(args)
-    tcfg.check_unported(args, ensembles=True)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        tcfg.check_unported(tcfg.setup_parser(record, "impute_eval")
+                            .parse_args(flags + ["-mesh", "auto"]))

@@ -212,9 +212,20 @@ def test_the_module_runs_from_the_command_line(tmp_path):
 
 
 def test_a_missing_grid_raises(tmp_path, monkeypatch):
+    """A missing grid no longer raises: the entry point writes the JAX
+    package's default grids into Data/ first, as JAX's does, and runs
+    (here one record, cut by -vae_type in ensemble mode, 1 epoch)."""
+    os.makedirs(tmp_path / "Data")
+    shutil.copytree(os.path.join(REPO, "Data", "wine"),
+                    tmp_path / "Data" / "wine")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(FileNotFoundError, match="imputation_args.json"):
-        imputation.main(["-device", "cpu"])
+    assert imputation.main(["-device", "cpu", "-ensemble", "true",
+                            "-vae_type", "vanilla_vae1", "-epoch", "1",
+                            "-M", "1"]) == 0
+    with open(os.path.join("Data", "imputation_args.json")) as fh:
+        assert [json.loads(line) for line in fh] == RECORDS
+    jc = jcfg.RunConfig.from_jsonl_record(RECORDS[21], epoch=1)
+    assert os.path.isfile(jckpt.checkpoint_path(jc, "experiments"))
 
 
 def test_port_checkpoint_path_is_jax_path_for_every_grid_record():

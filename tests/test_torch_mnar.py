@@ -295,14 +295,24 @@ def test_entry_point_runs_both_records_and_writes_jax_names(
     # the ensemble flags pass now (slice 9); beside a refused flag the run
     # still stops before it starts
     (["-seeds", "2", "-mesh", "auto"], "slice 10"),
-    (["-ensemble", "true", "-profile", "t"], "slice 11"),
-    (["-mesh", "dp:2"], "slice 10"), (["-profile", "traces"], "slice 11")])
+    # -profile passes now too (slice 11): the run goes on under a trace
+    (["-ensemble", "true", "-profile", "t"], None),
+    (["-mesh", "dp:2"], "slice 10"), (["-profile", "traces"], None)])
 def test_entry_point_refuses_unported_flags_by_slice(tmp_path, monkeypatch,
-                                                     flags, slice_):
+                                                     capsys, flags, slice_):
     monkeypatch.chdir(_workdir(tmp_path))
-    with pytest.raises(NotImplementedError, match=slice_):
-        imputation_mnar.main(["-device", "cpu", *flags])
-    assert not os.path.exists(tmp_path / "experiments")
+    if slice_ is not None:
+        with pytest.raises(NotImplementedError, match=slice_):
+            imputation_mnar.main(["-device", "cpu", *flags])
+        assert not os.path.exists(tmp_path / "experiments")
+        return
+    assert imputation_mnar.main(["-device", "cpu", "-valid_k", "20",
+                                 *flags]) == 0
+    logdir = flags[flags.index("-profile") + 1]
+    assert f"[profile] tracing to {logdir}" in capsys.readouterr().out
+    assert any(os.path.getsize(os.path.join(logdir, f)) > 0
+               for f in os.listdir(logdir))
+    assert os.path.isdir(tmp_path / "experiments")
 
 
 @pytest.mark.parametrize("flags", [
@@ -357,6 +367,14 @@ def test_entry_point_passes_restart_and_early_stop_flags_to_train(
 
 
 def test_entry_point_without_its_grid_raises(tmp_path, monkeypatch):
+    """Without its grid the entry point no longer raises for it: it writes
+    the JAX package's default grids into Data/ first, as JAX's does, and
+    stops at the first file it then misses, the first record's data."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(FileNotFoundError, match="imputation_args_mnar"):
+    with pytest.raises(FileNotFoundError, match="data.pt") as err:
         imputation_mnar.main(["-device", "cpu"])
+    assert "imputation_args" not in str(err.value)
+    with open(os.path.join("Data", "imputation_args_mnar.json")) as fh:
+        assert [json.loads(line) for line in fh] == [
+            json.loads(line) for line in open(os.path.join(
+                REPO, "Data", "imputation_args_mnar.json"))]

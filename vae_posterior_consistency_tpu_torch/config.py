@@ -7,16 +7,19 @@ an argparse parser whose single-dash flags override the record (reference:
 src/utils/utils.py:177-189). The flags the JAX package adds (`-mesh`,
 `-ensemble`, `-seeds`, `-alphas`, `-missings`, `-checkpoint_every`,
 `-resume`, `-early_stop`, `-profile`, and `-bdmc` for the `ais_eval`
-parser) parse the same way here; those whose engine the port has not yet
-ported raise `NotImplementedError` naming the slice of ROADMAP.md queue A
-that brings it. The port adds one flag of its own, `-device`. The
-ensemble flags reach the two imputation entry points' ensembles;
-`restrict_grid_records` is their `-vae_type` rule.
+parser) parse the same way here; `-mesh`, whose engine the port has not
+yet ported, raises `NotImplementedError` naming the slice of ROADMAP.md
+queue A that brings it (`check_unported`). The port adds one flag of its
+own, `-device` (its default `set_default_device`'s, `cuda` unless
+VPC_PLATFORM says otherwise). The ensemble flags reach every entry point's
+ensembles; `restrict_grid_records` is their `-vae_type` rule, and
+`maybe_profile` wraps a run in a trace under `-profile DIR`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 from typing import Any, Iterator
@@ -56,17 +59,21 @@ _EXTRA_FLAGS = {
                    "(cfg.patience counts chunk-boundary validation checks, "
                    "one per 200 epochs; stops on plateau and keeps the "
                    "best-check parameters)"),
-    "profile": (str, "", "write a profiler trace to this directory (not "
-                "ported yet)"),
+    "profile": (str, "", "write a torch.profiler trace of the run to this "
+                "directory (Chrome trace format; meant for short runs)"),
     "device": (str, "cuda", "torch device the run uses: 'cuda' (the "
                "kernels) or 'cpu' (their plain versions)"),
 }
 
-#: flags whose engine is not ported yet -> the ROADMAP.md slice that brings it
-SLICE_ENSEMBLE = ("slice 9 part 2 (the active-learning and AIS "
-                  "ensembles)")
+#: the ROADMAP.md slice that brings the one flag not ported yet, `-mesh`
 SLICE_MESH = "slice 10 (multi-device)"
-SLICE_PROFILE = "slice 11 (utils/logging through torch.profiler)"
+
+
+def set_default_device(device: str) -> None:
+    """Make `device` the default of the `-device` flag of every parser
+    built from now on (`utils/debugging.apply_platform_from_env`)."""
+    typ, _, help_ = _EXTRA_FLAGS["device"]
+    _EXTRA_FLAGS["device"] = (typ, device, help_)
 
 
 def setup_parser(arguments: dict, title: str) -> argparse.ArgumentParser:
@@ -258,27 +265,28 @@ class RunConfig:
 # ---------------------------------------------------------------------------
 
 
-def check_unported(args, ensembles: bool = False) -> None:
-    """Raise NotImplementedError, naming the slice, for a flag whose engine
-    the port does not have yet: `-mesh` other than '', `-profile`, and,
-    unless the entry point has its ensembles (`ensembles`: the two
-    imputation entry points), `-ensemble true` and `-seeds` above 1."""
+def check_unported(args) -> None:
+    """Raise NotImplementedError, naming the slice, for the one flag whose
+    engine the port does not have yet: `-mesh` other than ''."""
     if (getattr(args, "mesh", "") or "").strip():
         raise NotImplementedError(
             f"-mesh {args.mesh!r}: the multi-device engine is not ported "
             f"yet; it comes with {SLICE_MESH}")
-    if not ensembles and bool(getattr(args, "ensemble", False)):
-        raise NotImplementedError(
-            "-ensemble true: this entry point's ensemble is not ported yet; "
-            f"it comes with {SLICE_ENSEMBLE}")
-    if not ensembles and int(getattr(args, "seeds", 1)) > 1:
-        raise NotImplementedError(
-            f"-seeds {args.seeds}: this entry point's seed ensembles are not "
-            f"ported yet; they come with {SLICE_ENSEMBLE}")
-    if getattr(args, "profile", ""):
-        raise NotImplementedError(
-            f"-profile: tracing is not ported yet; it comes with "
-            f"{SLICE_PROFILE}")
+
+
+def maybe_profile(args):
+    """A context manager: under `-profile DIR` a `utils/logging.
+    profile_trace` into DIR (the card's activity too when `-device` is a
+    CUDA device), announced by the JAX package's line; else a no-op."""
+    spec = getattr(args, "profile", "") or ""
+    if not spec:
+        return contextlib.nullcontext()
+    from vae_posterior_consistency_tpu_torch.utils.logging import (
+        profile_trace,
+    )
+
+    print(f"[profile] tracing to {spec}", flush=True)
+    return profile_trace(spec, getattr(args, "device", "cpu"))
 
 
 def restart_opts(args):

@@ -39,6 +39,15 @@ shape)` hands out whole stacked standard-normal tensors:
 By default one `torch.Generator` seeded with cfg.seed + 3 on the device
 draws them in that order. The JAX package also draws a `mask_p` a repeat
 that no reward reads (evaluate.py:351-352); the port draws none.
+
+`active_learning_ensemble` runs the episode of S seed replicas (stacked
+parameters, `checkpoint.load_seed_ensemble`) as one `torch.func.vmap` of
+`run_episode` over the replicas. Every replica sees the same draws: a
+repeat's are made before the vmap, in the serial episode's order
+(`replay_noise`), and handed out unbatched inside it, so replica s is the
+serial episode of replica s's parameters. The rows are shared; the masks
+part after the first reveal. B2f stays one launch a call for all replicas
+(`EmbedPool.vmap`).
 """
 
 from __future__ import annotations
@@ -237,6 +246,24 @@ def default_noise(cfg: RunConfig, device):
     return lambda kind, repeat, step, shape: src("eps", repeat, step, shape)
 
 
+def replay_noise(noise, cfg: RunConfig, n: int, D: int, repeat: int,
+                 flow: bool):
+    """Repeat `repeat`'s draws of an episode over n rows of width D, made
+    from `noise` now in the order `run_episode` asks for them ("init", then
+    each step's "im", the flow's "flow" and "mse"), as a source that hands
+    them out again by (kind, step): the draws of a vmapped episode, which
+    may not draw inside the vmap."""
+    shape = (cfg.M, *eps_shape(cfg, n, D))
+    draws = {("init", 0): noise("init", repeat, 0, shape)}
+    for t in range(D - 1):
+        draws["im", t] = noise("im", repeat, t, shape)
+        if flow:
+            draws["flow", t] = noise("flow", repeat, t,
+                                     (4, D - 1, cfg.M, n, cfg.latent_dim))
+        draws["mse", t] = noise("mse", repeat, t, shape)
+    return lambda kind, r, step, shape: draws[kind, step]
+
+
 def active_learning_func(dataset_train, test_data, test_mask, cfg: RunConfig,
                          experiments_root: str = "experiments",
                          Repeat: int = 1, params=None, noise=None,
@@ -283,5 +310,56 @@ def active_learning_func(dataset_train, test_data, test_mask, cfg: RunConfig,
         artifacts.log_metric(
             cfg, "al_final_mse",
             stacked["information_curve"][:, 0, -1].cpu().numpy(), "test",
+            experiments_root)
+    return stacked
+
+
+def active_learning_ensemble(test_data, test_mask, cfg: RunConfig, params_ens,
+                             experiments_root: str = "experiments",
+                             Repeat: int = 1, noise=None, save: bool = True,
+                             mesh=None, device="cuda"):
+    """`Repeat` selection episodes of each of the S seed replicas of
+    `params_ens` (every leaf [S, ...], `checkpoint.load_seed_ensemble`'s
+    layout) on the test rows, as one vmapped episode a repeat
+    (engine/active_learning.py:328-415 of the JAX package). Every replica
+    sees the same draws, those `active_learning_func` would draw from
+    `noise` (by default `default_noise(cfg, device)`), so replica s is the
+    serial episode of replica s's parameters. Returns the four tensors with
+    a leading [S, Repeat] on the device: information_curve [S, R, n, D],
+    action [S, R, n, D-1], R_hist [S, R, D-1, n, D-1], im [S, R, D-1, M, n,
+    D]; with `save`, replica s writes each at its `active_learning_paths`
+    name + `checkpoint.seed_suffix(s)` (replica 0 at the reference names)
+    and replica 0's al_final_mse is logged at stage 'test'. `test_mask` is
+    unused, as in the serial driver."""
+    del test_mask
+    if mesh is not None:
+        raise NotImplementedError(
+            f"active_learning_ensemble(mesh=...): the multi-device engine is "
+            f"not ported yet; it comes with {SLICE_MESH}")
+    device = check_device(device)
+    x = torch.as_tensor(test_data, dtype=torch.float32).to(device)
+    n, D = x.shape
+    params_ens = checkpoint.on_device(params_ens, device)
+    noise = default_noise(cfg, device) if noise is None else noise
+    model = get_model(cfg)
+    flow = model.encode_stats is None
+    runs = []
+    with torch.no_grad():
+        for r in range(Repeat):
+            src = replay_noise(noise, cfg, n, D, r, flow)
+            runs.append(torch.func.vmap(
+                lambda p: run_episode(model, p, cfg, x, src, r))(params_ens))
+    stacked = {name: torch.stack([run[name] for run in runs], dim=1)
+               for name in ARTIFACTS}
+    if save:
+        paths = artifacts.active_learning_paths(cfg, experiments_root)
+        host = {name: t.cpu() for name, t in stacked.items()}
+        for s in range(host["im"].shape[0]):
+            for name in ARTIFACTS:
+                artifacts.save_tensor(host[name][s].contiguous(),
+                                      paths[name] + checkpoint.seed_suffix(s))
+        artifacts.log_metric(
+            cfg, "al_final_mse",
+            host["information_curve"][0, :, 0, -1].numpy(), "test",
             experiments_root)
     return stacked

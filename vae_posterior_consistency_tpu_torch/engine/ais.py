@@ -36,8 +36,14 @@ Every random draw comes from a noise source called as
   "v_rev", "u_rev"  BDMC's reverse chains' momenta and uniforms.
 `GeneratorNoise`, the default, draws them from a seeded `torch.Generator`
 on the device; a caller may pass its own, for instance one that replays
-the JAX package's keys. `eval_ais_ensemble` and the ensembles' runner
-come with slice 9, the `mesh` option with slice 10.
+the JAX package's keys. The `mesh` option comes with slice 10.
+
+`eval_ais_ensemble` anneals the same chains for S seed replicas at once
+(`_ensemble_runner`): the chain state carries a leading [S] axis, the
+bridge's forward is `torch.func.vmap` of `log_lik` over the stacked
+parameters and z [S, B, L], and the gradient to z is `torch.autograd.grad`
+of its sum, each replica's own since a replica's chains depend on its
+parameters alone. The draws [B, L] and [B] are shared and broadcast over S.
 """
 
 from __future__ import annotations
@@ -85,14 +91,14 @@ def sigmoidial_schedule(T: int, delta: float = 4.0) -> np.ndarray:
 
 
 def _log_normal_nc(x, mean=None, logvar=None):
-    """log N without the constant, summed over dim 1 (reference:
+    """log N without the constant, summed over the last axis (reference:
     AIS.py:32-46)."""
     if mean is None:
         mean = torch.zeros_like(x)
     if logvar is None:
         logvar = torch.zeros_like(x)
     return -0.5 * torch.sum(logvar + torch.square(x - mean)
-                            * torch.exp(-logvar), dim=1)
+                            * torch.exp(-logvar), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -261,15 +267,16 @@ class GeneratorNoise:
 
 @dataclasses.dataclass
 class AISResult:
-    logw: float  # mean log marginal-likelihood estimate
-    latents: np.ndarray  # final chain positions [B, n_sample, L]
+    logw: float  # mean log marginal-likelihood estimate ([S] for S replicas)
+    latents: np.ndarray  # final chain positions [(S,) B, n_sample, L]
 
 
 @dataclasses.dataclass
 class AISState:
-    """The chains between two temperatures: positions z [B, L], step sizes
-    eps [B], accepts so far accept_hist [B], weights logw [B], and j, the
-    number of the next step (1-based)."""
+    """The chains between two temperatures: positions z [..., B, L], step
+    sizes eps [..., B], accepts so far accept_hist [..., B], weights logw
+    [..., B], and j, the number of the next step (1-based). The leading
+    axes are an ensemble's replicas."""
 
     z: torch.Tensor
     eps: torch.Tensor
@@ -325,7 +332,7 @@ def _grad_U(ll_fn, z, t):
 
 def _hmc_leapfrog(ll_fn, z, v, eps, t, leapfrog: int):
     """(reference: AIS.py:237-262)."""
-    eps_c = eps[:, None]
+    eps_c = eps[..., None]
     v = v - 0.5 * eps_c * _grad_U(ll_fn, z, t)
     for i in range(1, leapfrog + 1):
         z = z + eps_c * v
@@ -341,18 +348,20 @@ def ais_step(ll_fn, state: AISState, t0, t1, v, u, leapfrog: int = 10):
     where its probability exceeds `u` [B], and the step sizes adapted
     (reference: AIS.py:265-304). `ll_fn(z) -> [B]` is the bridge's log
     p(x|z), closed over the data and parameters; t0, t1 are 0-d float32
-    tensors. Returns (the next state, the accept probabilities [B])."""
+    tensors. A state with leading replica axes ([S, B, L]) takes `ll_fn(z)
+    -> [S, B]`, and the draws broadcast over S. Returns (the next state,
+    the accept probabilities [..., B])."""
     with torch.no_grad():
         z = state.z
         lp_z, ll_z = _log_normal_nc(z), ll_fn(z)
         logw = state.logw + (t1 - t0) * ll_z
         z_new, v_new = _hmc_leapfrog(ll_fn, z, v, state.eps, t1, leapfrog)
-        cur_H = 0.5 * torch.sum(torch.square(v), 1) - (lp_z + t1 * ll_z)
-        prop_H = (0.5 * torch.sum(torch.square(v_new), 1)
+        cur_H = 0.5 * torch.sum(torch.square(v), -1) - (lp_z + t1 * ll_z)
+        prop_H = (0.5 * torch.sum(torch.square(v_new), -1)
                   - (_log_normal_nc(z_new) + t1 * ll_fn(z_new)))
         prob = torch.exp(cur_H - prop_H)
         accept = (prob > u).to(z.dtype)
-        z = z_new * accept[:, None] + z * (1.0 - accept[:, None])
+        z = z_new * accept[..., None] + z * (1.0 - accept[..., None])
         accept_hist = state.accept_hist + accept
         criteria = (accept_hist / state.j > 0.65).to(z.dtype)
         eps = torch.clamp(state.eps * (1.02 * criteria
@@ -362,9 +371,9 @@ def ais_step(ll_fn, state: AISState, t0, t1, v, u, leapfrog: int = 10):
 
 
 def init_state(z0, initial_eps: float = 0.01) -> AISState:
-    B = z0.shape[0]
-    zeros = torch.zeros(B, device=z0.device)
-    return AISState(z0, torch.full((B,), initial_eps, device=z0.device),
+    lead = tuple(z0.shape[:-1])
+    zeros = torch.zeros(lead, device=z0.device)
+    return AISState(z0, torch.full(lead, initial_eps, device=z0.device),
                     zeros, zeros.clone(), 1.0)
 
 
@@ -377,9 +386,10 @@ def as_schedule(schedule, device) -> torch.Tensor:
 def _ais_chain(ll_fn, z0, schedule, noise, initial_eps: float = 0.01,
                leapfrog: int = 10, kinds=("v", "u")):
     """Annealed HMC over the float32 `schedule` for B independent chains
-    from z0 [B, L]; step i's momenta and uniforms are the source's
-    kinds[0] and kinds[1] at t = i. Returns (logw [B], final z [B, L])."""
-    B, L = z0.shape
+    from z0 [..., B, L]; step i's momenta [B, L] and uniforms [B] are the
+    source's kinds[0] and kinds[1] at t = i, shared by any leading
+    (replica) axes. Returns (logw [..., B], final z [..., B, L])."""
+    B, L = z0.shape[-2:]
     state = init_state(z0, initial_eps)
     for i in range(len(schedule) - 1):
         v = noise(kinds[0], i, (B, L)).to(z0.device)
@@ -417,6 +427,27 @@ def ais_batch(decoder_fn, x, n_sample: int, latent_dim: int, schedule, noise,
     logw_mat, lats = _chain_views(logw, z, n_sample, B0, latent_dim)
     lw = _log_mean_exp_rows(logw_mat, n_sample)
     return AISResult(logw=lw.mean().item(), latents=lats.cpu().numpy())
+
+
+def _ensemble_runner(bridge: BridgeLik):
+    """The chain runner of S replicas of one family's bridge: run(params_ens,
+    x_rep, z0, schedule, noise, initial_eps=0.01, leapfrog=10) -> (logw [S,
+    B], z [S, B, L]), every replica annealing the chains of z0 [B, L] on
+    the rows x_rep [B, D] with the same draws. The forward is
+    `torch.func.vmap` of the bridge's log_lik over the stacked parameters
+    and z [S, B, L]; `_grad_U` differentiates its sum with plain autograd,
+    which gives each replica its own gradient."""
+
+    def run(params_ens, x_rep, z0, schedule, noise, initial_eps=0.01,
+            leapfrog=10):
+        S = next(iter(checkpoint.flatten(params_ens).values())).shape[0]
+        forward = torch.func.vmap(
+            lambda p, z: bridge.log_lik(p, z, x_rep))
+        return _ais_chain(lambda z: forward(params_ens, z),
+                          z0.expand(S, *z0.shape), schedule, noise,
+                          initial_eps, leapfrog)
+
+    return run
 
 
 @dataclasses.dataclass
@@ -532,6 +563,62 @@ def eval_ais(dataset, cfg: RunConfig, params=None, schedule=None,
                              f"{split.stage}_ais_true_latents.pt"))
             artifacts.log_metric(cfg, "ais_logw", res.logw, split.stage,
                                  experiments_root)
+    return results
+
+
+def eval_ais_ensemble(dataset, cfg: RunConfig, params_ens, schedule=None,
+                      n_sample: int = 100, noise: Optional[Callable] = None,
+                      experiments_root: str = "experiments",
+                      save: bool = True, mesh=None, device="cuda") -> dict:
+    """AIS over the dataset's splits for the S seed replicas of
+    `params_ens` (every leaf [S, ...], `checkpoint.load_seed_ensemble`'s
+    layout) at once (engine/ais.py:500-569 of the JAX package): every
+    replica anneals the same chains, the same z0, momenta and uniforms as
+    `eval_ais` draws from `noise(split_index)`, so replica s is `eval_ais`
+    of replica s's parameters; each keeps its own step sizes, accepts and
+    weights. Returns {stage: AISResult} with logw a float64 [S] array and
+    latents [S, B0, n_sample, L]. With `save`, replica s writes `eval_ais`'s
+    two artifacts with `checkpoint.seed_suffix(s)` appended (replica 0 at
+    the reference names), and replica 0's `ais_logw` is logged."""
+    _check_mesh(mesh)
+    device = check_device(device)
+    bridge = bridge_for(cfg)
+    params_ens = checkpoint.on_device(params_ens, device)
+    if schedule is None:
+        schedule = default_schedule(cfg, bridge)
+    if noise is None:
+        def noise(split_idx):
+            return GeneratorNoise(epoch_seed(cfg.seed + 4, split_idx), device)
+
+    run = _ensemble_runner(bridge)
+    results = {}
+    for split_idx, split in enumerate((dataset.train, dataset.test)):
+        if split is None:
+            continue
+        x = split.x.to(device=device, dtype=torch.float32)
+        src = noise(split_idx)
+        x_rep, z0 = _prep_chains(x, n_sample, cfg.latent_dim, src)
+        logw, z = run(params_ens, x_rep, z0, as_schedule(schedule, device),
+                      src)
+        logw_mat, lats = _chain_views(logw, z, n_sample, x.shape[0],
+                                      cfg.latent_dim)
+        logws = _log_mean_exp_rows(logw_mat, n_sample).mean(dim=-1)
+        res = AISResult(logw=logws.cpu().numpy().astype(np.float64),
+                        latents=lats.cpu().numpy())
+        results[split.stage] = res
+        if save:
+            base = _elbos_dir(cfg, experiments_root)
+            for s in range(res.logw.shape[0]):
+                sfx = checkpoint.seed_suffix(s)
+                artifacts.save_tensor(
+                    float(res.logw[s]),
+                    os.path.join(base, f"{split.stage}_ais.pt{sfx}"))
+                artifacts.save_tensor(
+                    res.latents[s],
+                    os.path.join(base.replace("elbos", "latents"),
+                                 f"{split.stage}_ais_true_latents.pt{sfx}"))
+            artifacts.log_metric(cfg, "ais_logw", float(res.logw[0]),
+                                 split.stage, experiments_root)
     return results
 
 

@@ -50,7 +50,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from typing import Callable, Optional
 
 import torch
@@ -328,21 +327,6 @@ def train(
     if save:
         checkpoint.save(params, final_path)
     return params, history
-
-
-def epoch_logger(max_epochs: int) -> Callable[[int, float], None]:
-    """A `log_fn` for `train` that prints each epoch in the reference's
-    format ('Epoch: [i/max], Total Loss: x', src/experiment_main/
-    train.py:118) with the epochs a second so far, as the JAX package's
-    `utils/logging.epoch_logger` does."""
-    start = time.time()
-
-    def log(done: int, loss: float):
-        rate = done / max(time.time() - start, 1e-9)
-        print(f"Epoch: [{done - 1}/{max_epochs}], Total Loss: {loss}"
-              f"  ({rate:.1f} epochs/s)", flush=True)
-
-    return log
 
 
 def load_trained(dataset: Dataset, cfg: RunConfig,

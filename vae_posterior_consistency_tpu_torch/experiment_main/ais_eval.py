@@ -1,9 +1,10 @@
 """AIS marginal-likelihood evaluation of a trained checkpoint (port of the
-serial path of the JAX package's `experiment_main/ais_eval.py`; reference:
-src/utils/AIS.py:80-91, a library the reference wires into no script).
+JAX package's `experiment_main/ais_eval.py`; reference: src/utils/AIS.py:
+80-91, a library the reference wires into no script).
 
     python -m vae_posterior_consistency_tpu_torch.experiment_main.ais_eval \
-        -vae_type reg_vae1 [-bdmc true] [-<field> <value> ...] [-device cpu]
+        -vae_type reg_vae1 [-bdmc true] [-seeds N] [-<field> <value> ...] \
+        [-device cpu]
 
 Run from the directory that holds `Data/` and the `experiments/` tree that
 `experiment_main/imputation.py` trained there. The record of
@@ -14,34 +15,40 @@ data as the imputation entry point does, estimates log p(x) of both splits
 with `engine/ais.eval_ais` at `n_ais_iwae` chains a row on the record's
 `ais_schedule` / `n_ais_dist` bridge (artifacts under elbos/ and
 latents/), and with `-bdmc true` runs `engine/ais.eval_bdmc`'s sandwich on
-rows simulated from the model; then prints the JAX package's lines.
+rows simulated from the model; then prints the JAX package's lines. With
+`-seeds N` it loads the record's N seed-replica checkpoints (checkpoint.pt
+and its `.seed{s}` siblings) and scores them together with
+`engine/ais.eval_ais_ensemble` (artifacts `.seed{s}` for seed s), printing
+each split's mean±std and every seed's estimate; `-bdmc` is then skipped,
+as in the JAX package. `-ensemble` is accepted and ignored.
 
 The run uses the card (`-device cuda`, the default; it raises without
-CUDA) or, with `-device cpu`, the CPU. `-seeds` above 1 waits for slice 9,
-`-mesh` for slice 10, `-profile` and a record whose compute_dtype is
-'bfloat16' for slice 11: they stop the run before it starts.
+CUDA) or, with `-device cpu`, the CPU. `-profile DIR` traces the
+estimates (`config.maybe_profile`). `-mesh` waits for slice 10 and a
+record whose compute_dtype is 'bfloat16' for slice 11: they stop the run
+before it starts.
 """
 
 from __future__ import annotations
 
-import os
 import sys
 
+import numpy as np
 import torch
 
 from vae_posterior_consistency_tpu_torch.config import (
-    SLICE_ENSEMBLE,
     SLICE_MESH,
-    SLICE_PROFILE,
     RunConfig,
     iter_jsonl_configs,
+    maybe_profile,
     setup_parser,
 )
-from vae_posterior_consistency_tpu_torch.engine import ais
+from vae_posterior_consistency_tpu_torch.engine import ais, checkpoint
 from vae_posterior_consistency_tpu_torch.engine.train import check_device
 from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     GRID,
     load_dataset,
+    start_up,
 )
 
 
@@ -61,26 +68,34 @@ def _check_flags(args) -> None:
         raise NotImplementedError(
             f"-mesh {args.mesh!r}: AIS over a device mesh is not ported "
             f"yet; it comes with {SLICE_MESH}")
-    if int(getattr(args, "seeds", 1)) > 1:
-        raise NotImplementedError(
-            f"-seeds {args.seeds}: AIS over seed ensembles is not ported "
-            f"yet; it comes with {SLICE_ENSEMBLE}")
-    if getattr(args, "profile", ""):
-        raise NotImplementedError(
-            f"-profile: tracing is not ported yet; it comes with "
-            f"{SLICE_PROFILE}")
     if getattr(args, "compute_dtype", "float32") == "bfloat16":
         raise NotImplementedError(
             f"compute_dtype 'bfloat16' ({args.vae_type}): mixed precision "
             "is not ported yet; it comes with slice 11")
 
 
+def _run_seed_ensemble(dataset, cfg: RunConfig, n_seeds: int, bdmc: bool,
+                       device) -> None:
+    """`-seeds N`: the N seed-replica checkpoints scored together; BDMC
+    certifies one checkpoint's schedule and is skipped."""
+    params_ens = checkpoint.load_seed_ensemble(cfg, dataset.obs_dim, n_seeds,
+                                               device=device)
+    results = ais.eval_ais_ensemble(dataset, cfg, params_ens,
+                                    n_sample=cfg.n_ais_iwae, device=device)
+    for stage, res in results.items():
+        # the float32 estimates, averaged in float32 as JAX's array is
+        lw = res.logw.astype(np.float32)
+        mu, sd = float(lw.mean()), float(lw.std())
+        per = " ".join(f"s{s}={v:.4f}" for s, v in enumerate(res.logw))
+        print(f"  [{stage}] AIS log p(x) = {mu:.4f}±{sd:.4f}  {per}")
+    if bdmc:
+        print("  [bdmc] skipped: -bdmc certifies one checkpoint's "
+              "schedule; run it without -seeds")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if not os.path.isfile(GRID):
-        raise FileNotFoundError(
-            f"{os.path.abspath(GRID)} not found: run from the directory that "
-            f"holds {GRID}")
+    start_up()
     records = list(iter_jsonl_configs(GRID))
     # two passes: argparse resolves the requested vae_type (`-vae_type=x`
     # and unambiguous abbreviations too), then the matching record gives
@@ -95,10 +110,15 @@ def main(argv=None) -> int:
             else "the CPU")
     print(f"Device: {device} ({name})", flush=True)
     dataset = load_dataset(cfg, device)
-    results = ais.eval_ais(dataset, cfg, n_sample=cfg.n_ais_iwae,
-                           device=device)
-    bdmc_res = (ais.eval_bdmc(dataset, cfg, n_sample=cfg.n_ais_iwae,
-                              device=device) if args.bdmc else None)
+    n_seeds = max(1, int(args.seeds))
+    with maybe_profile(args):
+        if n_seeds > 1:
+            _run_seed_ensemble(dataset, cfg, n_seeds, args.bdmc, device)
+            return 0
+        results = ais.eval_ais(dataset, cfg, n_sample=cfg.n_ais_iwae,
+                               device=device)
+        bdmc_res = (ais.eval_bdmc(dataset, cfg, n_sample=cfg.n_ais_iwae,
+                                  device=device) if args.bdmc else None)
     for stage, res in results.items():
         print(f"  [{stage}] AIS log p(x) = {res.logw:.4f}")
     if bdmc_res is not None:

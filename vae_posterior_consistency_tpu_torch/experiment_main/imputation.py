@@ -6,15 +6,17 @@ imputation.py:20-59).
     python -m vae_posterior_consistency_tpu_torch.experiment_main.imputation \
         [-<field> <value> ...] [-device cpu]
 
-Run from the directory that holds `Data/`; checkpoints and artifacts go to
-`experiments/` there. Each record is parsed with `config.setup_parser`, so a
-CLI flag overrides that field in every record (a `-vae_type` too: the
-reference's parse-per-record contract). For each record and each
-(p_missingness, alpha) of the sweep (`-missings`, `-alphas`; by default 30
-and 1.0, as the reference hard-codes them) it loads the data, trains with
-`engine/train.train`, saves the reference-named checkpoint, evaluates with
-`engine/evaluate.eval_vae`, which writes the artifacts, and prints each
-split's metrics.
+Run from the directory that holds `Data/` (the two default grids are
+written into it first where they are missing, as the JAX package does:
+`data/default_configs.write_default_configs`); checkpoints and artifacts
+go to `experiments/` there. Each record is parsed with
+`config.setup_parser`, so a CLI flag overrides that field in every record
+(a `-vae_type` too: the reference's parse-per-record contract). For each
+record and each (p_missingness, alpha) of the sweep (`-missings`,
+`-alphas`; by default 30 and 1.0, as the reference hard-codes them) it
+loads the data, trains with `engine/train.train`, saves the
+reference-named checkpoint, evaluates with `engine/evaluate.eval_vae`,
+which writes the artifacts, and prints each split's metrics.
 
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the kernels' plain versions on the CPU. Every
@@ -24,8 +26,11 @@ is not run: one line names it and the slice that brings it, and the run
 goes on; the exit code is then 1 and the end of the output lists those
 records. `-checkpoint_every N`, `-resume true` and `-early_stop true`
 (patience `-patience` checks, one each 200 epochs) reach `train` as in the
-JAX package. Flags whose engine the port lacks (`-mesh`, `-profile`) stop
-the run before it starts, naming their slice.
+JAX package. `-profile DIR` traces the whole run with torch.profiler
+(`config.maybe_profile`); VPC_DEBUG_NANS=1 turns on autograd's anomaly
+detection and VPC_PLATFORM=cpu|cuda sets the default of `-device`
+(`start_up`, which every entry point calls first). `-mesh` stops the run
+before it starts, naming its slice.
 
 Ensembles (`parallel/sweep`; the JAX package's experiment_main/
 imputation.py:63-79, 110-476, 487-513), with its banners, checkpoint names,
@@ -60,6 +65,7 @@ from vae_posterior_consistency_tpu_torch.config import (
     check_unported,
     early_stopper,
     iter_jsonl_configs,
+    maybe_profile,
     parse_alphas,
     parse_missings,
     restart_opts,
@@ -67,10 +73,18 @@ from vae_posterior_consistency_tpu_torch.config import (
     setup_parser,
 )
 from vae_posterior_consistency_tpu_torch.data import loaders
+from vae_posterior_consistency_tpu_torch.data.default_configs import (
+    write_default_configs,
+)
 from vae_posterior_consistency_tpu_torch.engine import checkpoint, evaluate
 from vae_posterior_consistency_tpu_torch.engine import train as train_engine
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.parallel import sweep
+from vae_posterior_consistency_tpu_torch.utils.debugging import (
+    apply_platform_from_env,
+    enable_nan_debugging_from_env,
+)
+from vae_posterior_consistency_tpu_torch.utils.logging import epoch_logger
 
 #: the grid, relative to the working directory
 GRID = os.path.join("Data", "imputation_args.json")
@@ -102,7 +116,7 @@ def train_and_eval_one(dataset, cfg: RunConfig, device, checkpoint_every=None,
                        resume=False, early_stopping=None) -> dict:
     """Train `cfg` (the checkpoint saved under its reference name), then
     evaluate it and write its artifacts."""
-    train_engine.train(dataset, cfg, log_fn=train_engine.epoch_logger(
+    train_engine.train(dataset, cfg, log_fn=epoch_logger(
         cfg.epoch), device=device, checkpoint_every=checkpoint_every,
         resume=resume, early_stopping=early_stopping)
     print(f"=== eval {cfg.vae_type} ===", flush=True)
@@ -460,18 +474,23 @@ def run_grid(records, probe, argv) -> list:
     return not_run
 
 
-def open_grid(grid: str, argv, ensembles: bool = False):
-    """The records of the JSONL `grid` and the parse of `argv` against the
-    first; flags whose engine the port lacks are refused (`-ensemble` and
-    `-seeds` pass where the entry point has its ensembles, `ensembles`) and
-    the device is checked and printed before anything runs."""
-    if not os.path.isfile(grid):
-        raise FileNotFoundError(
-            f"{os.path.abspath(grid)} not found: run from the directory that "
-            f"holds {grid}")
+def start_up() -> None:
+    """What every entry point does first, as the JAX package's do: the
+    environment switches (VPC_PLATFORM, VPC_DEBUG_NANS) and the default
+    grids written into `Data/` where they are missing."""
+    apply_platform_from_env()
+    enable_nan_debugging_from_env()
+    write_default_configs("Data")
+
+
+def open_grid(grid: str, argv):
+    """`start_up`, then the records of the JSONL `grid` and the parse of
+    `argv` against the first; `-mesh` is refused and the device is checked
+    and printed before anything runs."""
+    start_up()
     records = list(iter_jsonl_configs(grid))
     probe = setup_parser(records[0], "impute_eval").parse_args(argv)
-    check_unported(probe, ensembles=ensembles)
+    check_unported(probe)
     device = train_engine.check_device(probe.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the kernels' plain versions")
@@ -481,9 +500,10 @@ def open_grid(grid: str, argv, ensembles: bool = False):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    records, probe = open_grid(GRID, argv, ensembles=True)
-    not_run = (run_ensembles(records, probe, argv) if probe.ensemble
-               else run_grid(records, probe, argv))
+    records, probe = open_grid(GRID, argv)
+    with maybe_profile(probe):
+        not_run = (run_ensembles(records, probe, argv) if probe.ensemble
+                   else run_grid(records, probe, argv))
     if not_run:
         print(f"{len(not_run)} run(s) not made, not ported yet:",
               flush=True)

@@ -7,9 +7,11 @@ src/experiment_main/imputation_mnar.py:27-85).
         vae_posterior_consistency_tpu_torch.experiment_main.imputation_mnar \
         [-<field> <value> ...] [-device cpu]
 
-Run from the directory that holds `Data/`; checkpoints and artifacts go to
-`experiments/` there. Each record is parsed with `config.setup_parser`, so a
-CLI flag overrides that field in every record (a `-vae_type` too). For each
+Run from the directory that holds `Data/` (the default grids are written
+into it first where they are missing, `imputation.start_up`); checkpoints
+and artifacts go to `experiments/` there. Each record is parsed with
+`config.setup_parser`, so a CLI flag overrides that field in every record
+(a `-vae_type` too). For each
 record and each (p_missingness, alpha) of the sweep (`-missings`,
 `-alphas`; by default 50 and 1.0, as the reference hard-codes them), with
 `data_transform` 'minmax' and `not_miwae_type` 'changed' pinned as the
@@ -22,8 +24,8 @@ and prints the RMSE and the wall-clock of both.
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the CPU (`imputation.open_grid`, as the MCAR entry
 point). `-checkpoint_every`, `-resume` and `-early_stop` reach `train` as
-in the JAX package. Flags whose engine the port lacks (`-mesh`,
-`-profile`) stop the run before it starts, naming their slice.
+in the JAX package, `-profile DIR` traces the run (`config.maybe_profile`).
+`-mesh` stops the run before it starts, naming its slice.
 
 Ensembles (`parallel/sweep`; the JAX package's experiment_main/
 imputation_mnar.py:79-118, 153-283): `-seeds N` trains each (record,
@@ -46,6 +48,7 @@ import numpy as np
 from vae_posterior_consistency_tpu_torch.config import (
     RunConfig,
     early_stopper,
+    maybe_profile,
     parse_alphas,
     parse_missings,
     restart_opts,
@@ -63,6 +66,7 @@ from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
 )
 from vae_posterior_consistency_tpu_torch.parallel import sweep
+from vae_posterior_consistency_tpu_torch.utils.logging import epoch_logger
 
 #: the grid, relative to the working directory
 GRID = os.path.join("Data", "imputation_args_mnar.json")
@@ -117,7 +121,7 @@ def run_grid(records, probe, argv) -> None:
                       f"alpha={alpha}) ===", flush=True)
                 t0 = time.perf_counter()
                 train_engine.train(dataset, cfg,
-                                   log_fn=train_engine.epoch_logger(
+                                   log_fn=epoch_logger(
                                        cfg.epoch), device=args.device,
                                    checkpoint_every=ck, resume=rs,
                                    early_stopping=early_stopper(args, cfg))
@@ -231,8 +235,9 @@ def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    records, probe = open_grid(GRID, argv, ensembles=True)
-    run_grid(records, probe, argv)
+    records, probe = open_grid(GRID, argv)
+    with maybe_profile(probe):
+        run_grid(records, probe, argv)
     return 0
 
 
