@@ -186,7 +186,26 @@ Run from the root of a checkout. It drives only the port
    memory, busy share over its first 4 temperatures; (d) a 2-epoch record
    34 run through experiment_main/imputation.py with -profile DIR: a
    Chrome trace naming B1's kernel; and with VPC_DEBUG_NANS=1: the run
-   finishes with anomaly detection on.
+   finishes with the NaN tripwire (a dispatch mode checking every
+   operator's output) and anomaly detection on.
+21. the mesh (slice 10 part 1): (a) a world-size-1 NCCL process group in
+   this process (a file store, destroyed at the phase's end) and a 1x1
+   (dp, tp) mesh; for records 34 (reg_vae1) and 37 (reg_EDDI1) at their
+   full widths on wine: the first `make_parallel_train_step` step's loss
+   and gradients on the card against the serial step's on the CPU from the
+   same parameters, batch and recorded draws (the training (a)
+   tolerances), the step's device operations under torch.profiler with
+   any NCCL kernel named, then `train_sharded` for 10 epochs, B1 and its
+   backward (and on record 37 B2f and B2b) exactly once a step, no plain
+   version on a CUDA tensor, every loss finite, the step's host-clock p50
+   beside the serial engine's; (b) `torchrun --standalone --nproc_per_node
+   1 -m ...experiment_main.imputation -mesh 1,1 -epoch 2` over records 34
+   and 37 in a temporary directory: exit 0, JAX's `mesh={'dp': 1, 'tp':
+   1}` tag, each checkpoint and artifact at its reference name and finite;
+   (c) `-mesh auto` in this process resolves to no mesh: no process group,
+   no tag, and its record-34 checkpoint equal bit for bit to a `-mesh ''`
+   run's; then `-mesh 1,1` in this process (its own world-size-1 NCCL
+   group, no torchrun) under VPC_DEBUG_NANS=1 finishes.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
@@ -197,7 +216,8 @@ its launches on the AIS phases, `ais_launches`, 0; and the four replica
 forms, their launches on the ensemble phases, their times at R=128 and
 by R; and for every kernel its launches on the AL ensemble entry point's
 run, `al_ensemble_launches`, and on the 128-replica reg_EDDI1 episode,
-`al_ensemble_128_launches`), then, as its last line,
+`al_ensemble_128_launches`; and its launches on the mesh phase's
+`train_sharded` runs (a), `mesh_launches`), then, as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 600 s. It writes nothing in the checkout but the kernels' build
@@ -369,6 +389,12 @@ ENS_VAE_RECORDS = (34, 35, 36)
 ENS_RESUME_STOP = 5
 #: CUDA-event runs a replica kernel's time is the median of
 ENS_RUNS = 20
+#: the mesh phase: its records (the flagship reg_vae1 and reg_EDDI1, at
+#: wine width), epochs of its train_sharded runs, and of its entry-point
+#: runs
+MESH_RECORDS = (34, 37)
+MESH_EPOCHS = 10
+MESH_ENTRY_EPOCHS = 2
 
 
 @contextlib.contextmanager
@@ -2646,6 +2672,7 @@ def main() -> int:
     env = locals()
     ens_kernels = ensembles(env)
     al_ens_launches = al_ais_ensembles(env)
+    mesh_launches = mesh_phase(env)
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -2698,6 +2725,8 @@ def main() -> int:
     for k in kernels:
         k["al_ensemble_launches"] = al_ens_launches["entry"][k["name"]]
         k["al_ensemble_128_launches"] = al_ens_launches["R128"][k["name"]]
+        # launches on the mesh phase's train_sharded runs ((a))
+        k["mesh_launches"] = mesh_launches[k["name"]]
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -3225,6 +3254,7 @@ def al_ais_ensembles(env) -> dict:
     )
     from vae_posterior_consistency_tpu_torch.models import get_model
     from vae_posterior_consistency_tpu_torch.parallel import sweep
+    from vae_posterior_consistency_tpu_torch.utils import debugging
 
     card, counts, reset_counts = env["card"], env["counts"], env[
         "reset_counts"]
@@ -3558,7 +3588,7 @@ def al_ais_ensembles(env) -> dict:
                 anomaly = torch.is_anomaly_enabled()
             finally:
                 del os.environ["VPC_DEBUG_NANS"]
-                torch.autograd.set_detect_anomaly(False)
+                debugging.enable_nan_debugging(False)
         if not named or rc != 0 or not anomaly:
             raise AssertionError(f"the trace names B1 {named} times; "
                                  f"VPC_DEBUG_NANS run: rc {rc}, anomaly "
@@ -3568,6 +3598,278 @@ def al_ais_ensembles(env) -> dict:
               f"VPC_DEBUG_NANS=1: the run finished with anomaly detection "
               f"on [{card}]", flush=True)
     return launches
+
+
+def mesh_phase(env) -> dict:
+    """The mesh phase (slice 10 part 1) on the names main() set up (`env`):
+    (a) `make_parallel_train_step` and `train_sharded` on a world-size-1
+    NCCL group in this process, records 34 and 37, first step card vs CPU;
+    (b) the imputation entry point under torchrun at -mesh 1,1; (c) -mesh
+    auto against -mesh ''. Returns the kernels' launches on (a)'s
+    `train_sharded` runs."""
+    import torch
+    import torch.distributed as dist
+
+    from vae_posterior_consistency_tpu_torch.config import RunConfig
+    from vae_posterior_consistency_tpu_torch.engine import (
+        artifacts,
+        checkpoint,
+        profile_train,
+    )
+    from vae_posterior_consistency_tpu_torch.engine import train as trainer
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation as imputation_main,
+    )
+    from vae_posterior_consistency_tpu_torch.models import get_model
+    from vae_posterior_consistency_tpu_torch.parallel import mesh as tmesh
+    from vae_posterior_consistency_tpu_torch.parallel import multihost
+    from vae_posterior_consistency_tpu_torch.parallel import train_parallel
+    from vae_posterior_consistency_tpu_torch.utils import debugging
+
+    card, counts, reset_counts = env["card"], env["counts"], env[
+        "reset_counts"]
+    no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
+    records = env["records"]
+    launches = collections.Counter()
+
+    def step_times(marks):
+        """Host-clock ms between consecutive step ends after epoch 0."""
+        later = [t for e, t in marks if e >= 1]
+        return [(b - a) * 1e3 for a, b in zip(later, later[1:])]
+
+    def grads_close(card_grads, cpu_grads, what):
+        worst = 0.0
+        for key, g in cpu_grads.items():
+            if (g is None) != (card_grads[key] is None):
+                raise AssertionError(f"{what} gradient {key}: on one device "
+                                     "only")
+            if g is None:
+                continue
+            scale = g.abs().max().item()
+            diff = max_abs(card_grads[key].cpu(), g)
+            if diff > STEP_GRAD_REL * scale:
+                raise AssertionError(f"{what} gradient {key}: card vs CPU "
+                                     f"max abs diff {diff:.3e} > "
+                                     f"{STEP_GRAD_REL} * {scale:.3e}")
+            worst = max(worst, diff / scale if scale else 0.0)
+        return worst
+
+    with phase("mesh (a): make_parallel_train_step and train_sharded on a "
+               "world-size-1 NCCL group, records "
+               + ", ".join(map(str, MESH_RECORDS))):
+        multihost.ensure_group("cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            mesh = tmesh.make_mesh(dp=1, tp=1, device="cuda")
+            for number in MESH_RECORDS:
+                cfg = RunConfig.from_jsonl_record(
+                    records[number - 1], alpha=1.0, p_missingness=30,
+                    seed=SEED, epoch=MESH_EPOCHS,
+                    data_path=str(REPO / "Data"))
+                model = get_model(cfg)
+                ds = imputation_main.load_dataset(cfg, "cuda")
+                obs = ds.obs_dim
+                cpu_params = model.init(torch.Generator().manual_seed(SEED),
+                                        cfg, obs, device="cpu")
+                xb, mb = (ds.train.x[:cfg.batch_size],
+                          ds.train.mask[:cfg.batch_size])
+                # the first sharded step on the card, its draws recorded
+                step, shard_inputs = train_parallel.make_parallel_train_step(
+                    cfg, mesh)
+                sp, opt = shard_inputs(checkpoint.on_device(cpu_params,
+                                                            mesh.device))
+                recorded = []
+                gen_noise = trainer.GeneratorNoise(SEED + 1, mesh.device)
+
+                def recording(kind, epoch, step_, shape):
+                    t = gen_noise(kind, epoch, step_, shape)
+                    recorded.append(t)
+                    return t
+
+                reset_counts()
+                with no_plain_on_card():
+                    card_loss = step(sp, opt, xb, mb, recording, 0, 0)
+                first = counts()
+                card_grads = {k: (None if p.grad is None
+                                  else p.grad.full_tensor())
+                              for k, p in checkpoint.flatten(sp).items()}
+                # the serial step's math on the CPU, the same draws
+                replay = iter([t.cpu() for t in recorded])
+                leaves = {k: v.clone().requires_grad_() for k, v in
+                          checkpoint.flatten(cpu_params).items()}
+                eff, mask_p, eps, extra = trainer.draw_step(
+                    cfg, lambda *a: next(replay), mb.cpu(), 0, 0)
+                cpu_loss, _ = model.train_loss(
+                    checkpoint.unflatten(leaves), xb.cpu(), eff, mask_p,
+                    eps, 1.0, cfg, **extra)
+                cpu_grads = dict(zip(leaves, torch.autograd.grad(
+                    cpu_loss, list(leaves.values()), allow_unused=True)))
+                torch.testing.assert_close(card_loss.cpu(),
+                                           cpu_loss.detach(),
+                                           rtol=STEP_LOSS_RTOL, atol=0)
+                worst = grads_close(card_grads, cpu_grads, cfg.vae_type)
+                eddi = "EDDI" in cfg.vae_type
+                want_first = {"fused_posterior_fwd": 1,
+                              "fused_posterior_bwd": 1,
+                              "embed_pool_fwd": int(eddi),
+                              "embed_pool_bwd": int(eddi)}
+                if first != want_first:
+                    raise AssertionError(f"first sharded step launched "
+                                         f"{first}, want {want_first}")
+                print(f"record {number} ({cfg.vae_type}, D={obs}) first "
+                      f"sharded step: loss card {card_loss.item():.6f} CPU "
+                      f"{cpu_loss.item():.6f}; worst gradient max|diff| / "
+                      f"max|leaf| {worst:.3e}; launches {first}",
+                      flush=True)
+                # one step under the profiler: the device operations and
+                # the NCCL all-reduce among them
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    step(sp, opt, xb, mb, gen_noise, 0, 1)
+                    torch.cuda.synchronize()
+                on_card = profile_train.device_events(prof)
+                nccl = sorted({e.name for e in on_card
+                               if "nccl" in e.name.lower()})
+                # over one rank NCCL's in-place all-reduce launches nothing
+                top = profile_train.top_device_ms(on_card).most_common(3)
+                print("  one sharded step under torch.profiler: "
+                      + (f"{len(on_card)} device operations, NCCL kernels "
+                         f"{nccl or 'none'}, top device ms "
+                         + "; ".join(f"{nm} {t:.6f}" for nm, t in top)
+                         if on_card else "device operations not measured "
+                         "(no device event in the trace)")
+                      + f" [{card}]", flush=True)
+                # the loop, then the serial engine's for its step time
+                marks = {}
+                for engine in ("sharded", "serial"):
+                    marks[engine] = []
+
+                    def on_step(epoch, s, loss, _m=marks[engine]):
+                        _m.append((epoch, time.perf_counter()))
+
+                    reset_counts()
+                    with no_plain_on_card():
+                        if engine == "sharded":
+                            _, hist = train_parallel.train_sharded(
+                                ds, cfg, mesh, on_step=on_step)
+                        else:
+                            _, hist = trainer.train(ds, cfg, save=False,
+                                                    device="cuda",
+                                                    on_step=on_step)
+                    got = counts()
+                    if engine == "sharded":
+                        launches.update(got)
+                    n_steps = len(marks[engine])
+                    want = {k: n_steps * v for k, v in want_first.items()}
+                    if got != want or not np.isfinite(hist).all():
+                        raise AssertionError(f"{engine} {cfg.vae_type}: "
+                                             f"launched {got}, want {want}; "
+                                             f"history {hist}")
+                sharded_ms = statistics.median(step_times(marks["sharded"]))
+                serial_ms = statistics.median(step_times(marks["serial"]))
+                print(f"  train_sharded {MESH_EPOCHS} epochs, "
+                      f"{len(marks['sharded'])} steps, launches once a "
+                      f"step; step p50 after the first epoch (host clock) "
+                      f"{sharded_ms:.6f} ms against the serial engine's "
+                      f"{serial_ms:.6f} ms ({sharded_ms / serial_ms:.2f}x) "
+                      f"[{card}]", flush=True)
+        finally:
+            multihost.shutdown()
+        if dist.is_initialized():
+            raise AssertionError("the process group outlived the phase")
+
+    entry_recs = [records[i - 1] for i in MESH_RECORDS]
+    with phase("mesh (b): torchrun --standalone --nproc_per_node 1 -m "
+               "...experiment_main.imputation -mesh 1,1 -epoch "
+               f"{MESH_ENTRY_EPOCHS} over records "
+               + ", ".join(map(str, MESH_RECORDS))):
+        with grid_dir(entry_recs) as tmp:
+            env_vars = dict(os.environ, PYTHONPATH=str(REPO))
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "1", "-m",
+                 "vae_posterior_consistency_tpu_torch.experiment_main."
+                 "imputation", "-mesh", "1,1", "-epoch",
+                 str(MESH_ENTRY_EPOCHS)],
+                cwd=tmp, env=env_vars, capture_output=True, text=True,
+                timeout=300)
+            tag = "mesh={'dp': 1, 'tp': 1}"
+            if proc.returncode != 0 or proc.stdout.count(tag) != len(
+                    entry_recs):
+                raise AssertionError(f"torchrun -mesh 1,1: rc "
+                                     f"{proc.returncode}\n{proc.stdout}"
+                                     f"\n{proc.stderr[-3000:]}")
+            for rec in entry_recs:
+                cfg = RunConfig.from_jsonl_record(rec, alpha=1.0,
+                                                  p_missingness=30)
+                ck = torch.load(checkpoint.checkpoint_path(
+                    cfg, str(tmp / "experiments")), weights_only=False)
+                paths = [artifacts.eval_vae_paths(cfg, st, str(
+                    tmp / "experiments")) for st in ("train", "test")]
+                vals = [torch.load(p, weights_only=False).item()
+                        for ps in paths for p in ps.values()]
+                if not (all(np.isfinite(np.asarray(v)).all()
+                            for v in ck.values()) and np.isfinite(vals)
+                        .all()):
+                    raise AssertionError(f"{cfg.vae_type}: a checkpoint "
+                                         f"leaf or an artifact not finite")
+            print(f"torchrun -mesh 1,1: exit 0, {tag} on each of "
+                  f"{len(entry_recs)} records, checkpoints and the four "
+                  f"artifacts a split at their reference names, finite",
+                  flush=True)
+
+    flagship = records[MESH_RECORDS[0] - 1]
+    with phase("mesh (c): -mesh auto against -mesh '' in this process, "
+               f"record {MESH_RECORDS[0]}, -epoch {MESH_ENTRY_EPOCHS}; -mesh "
+               "1,1 under VPC_DEBUG_NANS=1"):
+        cfg = RunConfig.from_jsonl_record(flagship, alpha=1.0,
+                                          p_missingness=30)
+        ck = {}
+        for spec in ("auto", ""):
+            with grid_dir([flagship]) as tmp:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = imputation_main.main(
+                        ["-mesh", spec, "-epoch", str(MESH_ENTRY_EPOCHS),
+                         "-M", "1"])
+                if rc != 0 or "mesh=" in buf.getvalue() or \
+                        dist.is_initialized():
+                    raise AssertionError(f"-mesh {spec!r}: rc {rc}, "
+                                         f"group {dist.is_initialized()}")
+                ck[spec] = torch.load(checkpoint.checkpoint_path(
+                    cfg, str(tmp / "experiments")), weights_only=False)
+        if sorted(ck["auto"]) != sorted(ck[""]) or not all(
+                np.array_equal(np.asarray(ck["auto"][k]),
+                               np.asarray(ck[""][k])) for k in ck[""]):
+            raise AssertionError("-mesh auto's checkpoint differs from "
+                                 "-mesh ''s")
+        print(f"-mesh auto: no mesh, no process group; its checkpoint "
+              f"equals -mesh ''s bit for bit ({len(ck[''])} leaves)",
+              flush=True)
+        # a one-device mesh with no torchrun (the run makes its own
+        # world-size-1 NCCL group), under the NaN tripwire
+        with grid_dir([flagship]):
+            os.environ["VPC_DEBUG_NANS"] = "1"
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = imputation_main.main(["-mesh", "1,1", "-epoch", "1",
+                                               "-M", "1"])
+            finally:
+                del os.environ["VPC_DEBUG_NANS"]
+                debugging.enable_nan_debugging(False)
+            if (rc != 0 or "mesh={'dp': 1, 'tp': 1}" not in buf.getvalue()
+                    or dist.is_initialized()):
+                raise AssertionError(f"-mesh 1,1 under VPC_DEBUG_NANS: rc "
+                                     f"{rc}\n{buf.getvalue()}")
+        print("-mesh 1,1 in this process under VPC_DEBUG_NANS=1: its own "
+              "NCCL group, the tag, no NaN, the group destroyed",
+              flush=True)
+    return {k: launches[k] for k in ("embed_pool_fwd", "embed_pool_bwd",
+                                     "fused_posterior_fwd",
+                                     "fused_posterior_bwd")}
 
 
 def iter_records(path):

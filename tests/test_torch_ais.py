@@ -547,14 +547,18 @@ def test_entry_point_prints_jax_lines_and_writes_jax_artifacts(
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["-seeds", "2"], None), (["-mesh", "auto"], "slice 10"),
+    (["-seeds", "2"], None),
+    # 'auto' on one device resolves to no mesh and runs, as in JAX; a mesh
+    # ('1,1') waits for AIS over a mesh, slice 10 part 2
+    (["-mesh", "auto"], None), (["-mesh", "1,1"], "slice 10 part 2"),
     (["-profile", "traces"], None), ([], "slice 11")])
 def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
                                             flags, slice_name):
-    """-mesh and (no flag) a record asking for compute_dtype 'bfloat16':
-    refused before anything runs, naming the slice. -seeds above 1 and
-    -profile, ported since, run: `-seeds 2` writes the `.seed1` estimate,
-    `-profile traces` prints JAX's line and leaves a trace."""
+    """A resolved -mesh and (no flag) a record asking for compute_dtype
+    'bfloat16': refused before anything runs, naming the slice. -seeds
+    above 1, -profile and -mesh auto run: `-seeds 2` writes the `.seed1`
+    estimate, `-profile traces` prints JAX's line and leaves a trace,
+    `-mesh auto` prints no mesh line."""
     extra = {} if flags else {"compute_dtype": "bfloat16"}
     record = _record(34, n_ais_dist=3, n_ais_iwae=2, **extra)
     cfg = tcfg.RunConfig.from_jsonl_record(record)
@@ -574,7 +578,9 @@ def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
     assert os.path.isfile(os.path.join(base, "test_ais.pt"))
     seeds = flags[0] == "-seeds"
     assert os.path.isfile(os.path.join(base, "test_ais.pt.seed1")) == seeds
-    if not seeds:
+    if flags[0] == "-mesh":
+        assert "mesh=" not in out and "[test] AIS log p(x) = " in out
+    elif not seeds:
         assert "[profile] tracing to traces" in out
         assert any(os.path.getsize(os.path.join("traces", f)) > 0
                    for f in os.listdir("traces"))

@@ -81,20 +81,25 @@ def test_one_record_episode_writes_what_jax_writes(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["-mesh", "dp=2"], "slice 10"),
+    # a spec that is not integers: int()'s ValueError, as in JAX
+    (["-mesh", "dp=2"], (ValueError, "invalid literal for int")),
+    # a mesh (one device, '1,1'): the AL mesh comes with slice 10 part 2
+    (["-mesh", "1,1"], (NotImplementedError, "slice 10 part 2")),
     # ported since (slice 9 part 2): they run
     (["-ensemble", "true"], None),
     (["-seeds", "2"], None),
 ])
 def test_unported_flags_are_refused(tmp_path, monkeypatch, capsys, flags,
                                     slice_name):
-    """-mesh stops the run before it starts, naming its slice. The
+    """A -mesh that is not integers raises int()'s ValueError, and one
+    that resolves to a mesh stops the run before it starts, naming its
+    slice. The
     ensemble flags run: over a record trained with -seeds 2, `-ensemble
     true` makes one ensemble episode and writes the seed-0 artifacts, and
     `-seeds 2` a two-seed episode writing the `.seed1` siblings too."""
     if slice_name is not None:
         monkeypatch.chdir(_workdir(tmp_path, [_record(VANILLA_VAE)]))
-        with pytest.raises(NotImplementedError, match=slice_name):
+        with pytest.raises(slice_name[0], match=slice_name[1]):
             active_learning.main(flags + ["-device", "cpu"])
         return
     record = _record(VANILLA_VAE, epoch=1, M=2)

@@ -181,22 +181,30 @@ def test_bdmc_flag_is_ais_entry_only():
             []), "bdmc")
 
 
-@pytest.mark.parametrize("argv,slice_name", [
-    (["-mesh", "auto"], "slice 10"), (["-mesh", "2,1"], "slice 10"),
+@pytest.mark.parametrize("argv,refusal", [
+    # -mesh resolves as in JAX: 'auto' on one device is the single-device
+    # engine, '2,1' needs two devices (JAX's ValueError and message)
+    (["-mesh", "auto"], None),
+    (["-mesh", "2,1"], (ValueError, "needs 2 devices, have 1")),
+    # a mesh beside the ensemble flags waits for slice 10 part 2
+    (["-mesh", "1,1", "-seeds", "4"], (NotImplementedError,
+                                       "slice 10 part 2")),
     # ported since: every entry point has its ensembles and -profile
     (["-ensemble", "true"], None), (["-seeds", "4"], None),
     (["-profile", "traces"], None)])
-def test_unported_flags_name_their_slice(argv, slice_name):
-    """-mesh is refused naming its slice; the flags ported since pass
-    `check_unported`, and -profile makes `maybe_profile` a trace."""
+def test_unported_flags_name_their_slice(argv, refusal):
+    """`check_unported` refuses a -mesh no device count satisfies (JAX's
+    ValueError) and a resolved mesh on a path of slice 10 part 2, naming
+    it; the flags ported since pass, and -profile makes `maybe_profile` a
+    trace."""
     args = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args(argv)
-    if slice_name is None:
+    if refusal is None:
         tcfg.check_unported(args)
         traced = not isinstance(tcfg.maybe_profile(args),
                                 contextlib.nullcontext)
         assert traced == (argv[0] == "-profile")
         return
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(refusal[0], match=refusal[1]):
         tcfg.check_unported(args)
 
 

@@ -192,11 +192,16 @@ def test_ensemble_vae_type_flag_runs_one_record(tmp_path, monkeypatch,
 def test_active_learning_ensemble_flags_still_name_their_slice(flags):
     """The AL entry point's and ais_eval's ensembles came with slice 9 part
     2: `check_unported`, which every entry point calls, lets the ensemble
-    flags through (it names a slice for -mesh alone), in both parsers."""
+    flags through, in both parsers; it names slice 10 part 2 for a mesh
+    beside them."""
     record = {"vae_type": {"default": "reg_vae1", "help": ""}}
     for title in ("impute_eval", "ais_eval"):
         args = tcfg.setup_parser(record, title).parse_args(flags)
         tcfg.check_unported(args)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    # beside them -mesh 'auto' resolves to no mesh on one device and
+    # passes; a mesh ('1,1') waits for slice 10 part 2
+    tcfg.check_unported(tcfg.setup_parser(record, "impute_eval")
+                        .parse_args(flags + ["-mesh", "auto"]))
+    with pytest.raises(NotImplementedError, match="slice 10 part 2"):
         tcfg.check_unported(tcfg.setup_parser(record, "impute_eval")
-                            .parse_args(flags + ["-mesh", "auto"]))
+                            .parse_args(flags + ["-mesh", "1,1"]))

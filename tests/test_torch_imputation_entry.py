@@ -190,7 +190,8 @@ def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
 def test_the_module_runs_from_the_command_line(tmp_path):
     """Record 10 asking for compute_dtype 'bfloat16' beside the flagship,
     each at 1 epoch: the flagship runs, record 10 is named, the exit code is
-    1. A flag whose engine is not ported stops the run before it starts."""
+    1. `-mesh auto`, which resolves to no mesh on one device, runs the same
+    single-device engine and prints no mesh tag."""
     work = _workdir(tmp_path, [_record(REG_FLOW, epoch=1,
                                        compute_dtype="bfloat16"),
                                _record(FLAGSHIP, epoch=1, M=1)])
@@ -207,8 +208,10 @@ def test_the_module_runs_from_the_command_line(tmp_path):
             in proc.stdout)
     proc = subprocess.run(cmd + ["-mesh", "auto"], cwd=work, env=env,
                           capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 1
-    assert "slice 10" in proc.stderr and "Traceback" not in proc.stderr
+    assert proc.returncode == 1, proc.stderr
+    assert "=== not run: reg_flow1" in proc.stdout
+    assert "  [test] loss=" in proc.stdout
+    assert "mesh=" not in proc.stdout and "Traceback" not in proc.stderr
 
 
 def test_a_missing_grid_raises(tmp_path, monkeypatch):

@@ -40,6 +40,9 @@ def test_every_port_module_imports_with_the_jax_side_refused():
 
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                        pkg.__name__ + ".")]
+        for mod in ("parallel.mesh", "parallel.multihost",
+                    "parallel.train_parallel", "engine.evaluate_sharded"):
+            assert pkg.__name__ + "." + mod in names, mod
         for name in names:
             importlib.import_module(name)
         leaked = sorted(m for m in sys.modules

@@ -292,17 +292,21 @@ def test_entry_point_runs_both_records_and_writes_jax_names(
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    # the ensemble flags pass now (slice 9); beside a refused flag the run
-    # still stops before it starts
-    (["-seeds", "2", "-mesh", "auto"], "slice 10"),
+    # the ensemble flags pass now (slice 9); beside a mesh ('1,1' resolves
+    # to one, where 'auto' on one device does not) the run still stops
+    # before it starts, naming the slice that brings the ensembles' mesh
+    (["-seeds", "2", "-mesh", "1,1"], (NotImplementedError,
+                                       "slice 10 part 2")),
     # -profile passes now too (slice 11): the run goes on under a trace
     (["-ensemble", "true", "-profile", "t"], None),
-    (["-mesh", "dp:2"], "slice 10"), (["-profile", "traces"], None)])
+    # a spec that is not integers: int()'s ValueError, as in JAX
+    (["-mesh", "dp:2"], (ValueError, "invalid literal for int")),
+    (["-profile", "traces"], None)])
 def test_entry_point_refuses_unported_flags_by_slice(tmp_path, monkeypatch,
                                                      capsys, flags, slice_):
     monkeypatch.chdir(_workdir(tmp_path))
     if slice_ is not None:
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(slice_[0], match=slice_[1]):
             imputation_mnar.main(["-device", "cpu", *flags])
         assert not os.path.exists(tmp_path / "experiments")
         return

@@ -39,9 +39,10 @@ def device_default(monkeypatch):
 
 @pytest.fixture
 def no_anomaly():
-    """Leaves autograd's anomaly detection off after the test."""
+    """Leaves the NaN tripwire (the dispatch mode and autograd's anomaly
+    detection) off after the test."""
     yield
-    torch.autograd.set_detect_anomaly(False)
+    debugging.enable_nan_debugging(False)
 
 
 def _read(path):
@@ -204,3 +205,84 @@ def test_vpc_platform_reaches_an_entry_point(tmp_path, monkeypatch, capsys,
     monkeypatch.chdir(_one_record_dir(tmp_path))
     assert imputation.main([]) == 0
     assert capsys.readouterr().out.startswith("Device: cpu ")
+
+
+def _inf_decoder_eval(jc):
+    """JAX and port eval_vae inputs whose parameters hold no NaN but whose
+    forward makes one: an encoder bias at +inf makes z infinite, and the
+    decoder's first matmul adds +inf and -inf."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from vae_posterior_consistency_tpu.data import loaders as jloaders
+    from vae_posterior_consistency_tpu.engine import checkpoint as jckpt
+    from vae_posterior_consistency_tpu.models import get_model as jget_model
+    from vae_posterior_consistency_tpu_torch.data import loaders as tloaders
+    from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0.0, 1.0, (8, 5)).astype(np.float32)
+    m = (rng.random((8, 5)) < 0.7).astype(np.float32)
+    jparams = jget_model(jc).init(jax.random.PRNGKey(1), jc, 5)
+    flat = jckpt._flatten(jparams)
+    key = sorted(k for k in flat
+                 if k.startswith("encoder") and k.endswith("/b"))[-1]
+    flat[key] = np.full_like(flat[key], np.inf)
+    *path, leaf = key.split("/")
+    node = jparams
+    for part in path:
+        node = node[part]
+    node[leaf] = jnp.asarray(flat[key])
+    assert all(not np.isnan(v).any() for v in flat.values())
+    jds = jloaders.Dataset(jloaders.Split(jnp.asarray(x), jnp.asarray(m),
+                                          "train"), None, 5)
+    tds = tloaders.Dataset(tloaders.Split(torch.from_numpy(x),
+                                          torch.from_numpy(m), "train"),
+                           None, 5)
+    return jds, tds, jparams, tckpt.params_from_jax(flat, "cpu")
+
+
+def test_a_nan_made_in_an_eval_forward_raises_in_both_packages(no_anomaly):
+    """VPC_DEBUG_NANS (ROADMAP C.7): a NaN made only in `eval_vae`'s
+    forward, where autograd's anomaly mode sees nothing, raises
+    FloatingPointError under JAX's jax_debug_nans and the port's tripwire;
+    with the tripwire off both evaluate to NaN metrics, and popping it
+    leaves no mode behind."""
+    import jax
+    import numpy as np
+
+    from vae_posterior_consistency_tpu.engine import evaluate as jeval
+    from vae_posterior_consistency_tpu_torch.engine import evaluate as teval
+
+    kw = dict(vae_type="vanilla_vae1", epoch=1, batch_size=8, M=1)
+    jc, tc = jcfg.RunConfig(**kw), tcfg.RunConfig(**kw)
+    jds, tds, jparams, tparams = _inf_decoder_eval(jc)
+    assert np.isnan(teval.eval_vae(tds, tc, params=tparams, save=False,
+                                   device="cpu")["train"]["rmse"])
+    debugging.enable_nan_debugging(True)
+    with pytest.raises(FloatingPointError, match="NaN in the output of"):
+        teval.eval_vae(tds, tc, params=tparams, save=False, device="cpu")
+    debugging.enable_nan_debugging(False)
+    assert np.isnan(teval.eval_vae(tds, tc, params=tparams, save=False,
+                                   device="cpu")["train"]["rmse"])
+    before = jax.config.jax_debug_nans
+    jax.config.update("jax_debug_nans", True)
+    try:
+        with pytest.raises(FloatingPointError):
+            jeval.eval_vae(jds, jc, params=jparams, save=False)
+    finally:
+        jax.config.update("jax_debug_nans", before)
+
+
+def test_a_nan_made_in_a_backward_raises_naming_its_operator(no_anomaly):
+    """The tripwire checks the backward's operators too: d sqrt(x) at 0 is
+    inf, times 0 a NaN, which raises where anomaly detection's own NaN
+    check is off; the forward made none."""
+    debugging.enable_nan_debugging(True)
+    assert torch.is_anomaly_enabled()
+    x = torch.zeros(3, requires_grad=True)
+    y = (torch.sqrt(x) * 0.0).sum()
+    assert y.item() == 0.0
+    with pytest.raises(FloatingPointError, match="NaN in the output of"):
+        y.backward()

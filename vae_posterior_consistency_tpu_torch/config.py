@@ -7,13 +7,16 @@ an argparse parser whose single-dash flags override the record (reference:
 src/utils/utils.py:177-189). The flags the JAX package adds (`-mesh`,
 `-ensemble`, `-seeds`, `-alphas`, `-missings`, `-checkpoint_every`,
 `-resume`, `-early_stop`, `-profile`, and `-bdmc` for the `ais_eval`
-parser) parse the same way here; `-mesh`, whose engine the port has not
-yet ported, raises `NotImplementedError` naming the slice of ROADMAP.md
-queue A that brings it (`check_unported`). The port adds one flag of its
-own, `-device` (its default `set_default_device`'s, `cuda` unless
-VPC_PLATFORM says otherwise). The ensemble flags reach every entry point's
-ensembles; `restrict_grid_records` is their `-vae_type` rule, and
-`maybe_profile` wraps a run in a trace under `-profile DIR`.
+parser) parse the same way here. `-mesh` resolves as the JAX package
+resolves it (`mesh_shape`, `resolve_mesh`): '' and a one-device 'auto' are
+the single-device engine, 'DP' or 'DP,TP' a mesh over the ranks of the
+process group; `check_unported` refuses a resolved mesh on the paths whose
+mesh comes with part 2 of slice 10 (the ensembles, active learning, AIS).
+The port adds one flag of its own, `-device` (its default
+`set_default_device`'s, `cuda` unless VPC_PLATFORM says otherwise). The
+ensemble flags reach every entry point's ensembles; `restrict_grid_records`
+is their `-vae_type` rule, and `maybe_profile` wraps a run in a trace under
+`-profile DIR`.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ def str2bool(v: Any) -> bool:
 #: package's framework extensions, and the port's `-device`):
 #: name -> (type, default, help)
 _EXTRA_FLAGS = {
-    "mesh": (str, "", "device mesh: '' = single-device engine (the only one "
-             "the port has so far)"),
+    "mesh": (str, "", "device mesh: '' = single-device engine; 'auto' = all "
+             "ranks, (dp, tp) auto-factored; 'DP' or 'DP,TP' = explicit "
+             "split (the process group's world size must equal DP*TP)"),
     "ensemble": (str2bool, False, "train each family's split triple as one "
                  "ensemble"),
     "seeds": (int, 1, "seed replicas per config"),
@@ -65,8 +69,9 @@ _EXTRA_FLAGS = {
                "kernels) or 'cpu' (their plain versions)"),
 }
 
-#: the ROADMAP.md slice that brings the one flag not ported yet, `-mesh`
-SLICE_MESH = "slice 10 (multi-device)"
+#: the ROADMAP.md slice that brings the mesh of the ensembles, active
+#: learning, AIS and serving
+SLICE_MESH = "slice 10 part 2 (the multi-device ensembles, AL, AIS, serving)"
 
 
 def set_default_device(device: str) -> None:
@@ -227,7 +232,7 @@ class RunConfig:
     #: 'float32' only in the port so far; 'bfloat16' comes with the
     #: mixed-precision slice (models/registry.get_model raises)
     compute_dtype: str = "float32"
-    #: '' only in the port so far (check_unported raises for any other)
+    #: '' | 'auto' | 'DP' | 'DP,TP' (`resolve_mesh`)
     mesh: str = ""
 
     @property
@@ -265,13 +270,79 @@ class RunConfig:
 # ---------------------------------------------------------------------------
 
 
-def check_unported(args) -> None:
-    """Raise NotImplementedError, naming the slice, for the one flag whose
-    engine the port does not have yet: `-mesh` other than ''."""
-    if (getattr(args, "mesh", "") or "").strip():
+def device_count() -> int:
+    """The devices a mesh may span: the world size of the default process
+    group (one process a device), 1 when there is none."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def mesh_shape(spec: str, n_devices: int):
+    """The rule of the JAX package's `resolve_mesh` (config.py:359-386)
+    without the building: '' -> None; 'auto' -> None under 2 devices, else
+    `parallel/mesh.factor_devices(n_devices)`; 'DP' or 'DP,TP' -> (dp, tp),
+    ValueError with JAX's message when it needs more devices than there
+    are, and the ValueError of `int()` for a spec that is not integers.
+    One divergence: JAX takes the first DP*TP devices and leaves the rest
+    idle, but a rank of a torch process group cannot be left out, so a
+    world larger than DP*TP raises ValueError too."""
+    from vae_posterior_consistency_tpu_torch.parallel.mesh import (
+        factor_devices,
+    )
+
+    norm = (spec or "").strip().lower()
+    if not norm:
+        return None
+    if norm == "auto":
+        return None if n_devices < 2 else factor_devices(n_devices)
+    parts = [int(p) for p in norm.split(",")]
+    dp, tp = (parts + [1])[:2]
+    need = dp * tp
+    if n_devices < need:
+        raise ValueError(
+            f"-mesh {spec!r} needs {need} devices, have {n_devices}")
+    if n_devices > need:
+        raise ValueError(
+            f"-mesh {spec!r} spans {need} devices but the process group has "
+            f"{n_devices} ranks: start one rank a device of the mesh")
+    return dp, tp
+
+
+def resolve_mesh(cfg: "RunConfig", device=None):
+    """cfg.mesh -> a `parallel/mesh.Mesh` over the process group's ranks,
+    or None (the single-device engine), by `mesh_shape`'s rule. A mesh of
+    one device with no process group (a plain `python` run, as JAX builds
+    one) first makes a world-size-1 group on a file store in a temporary
+    directory, with `device`'s backend. `device` defaults to the `-device`
+    flag's default."""
+    shape = mesh_shape(cfg.mesh, device_count())
+    if shape is None:
+        return None
+    from vae_posterior_consistency_tpu_torch.parallel import mesh as meshlib
+    from vae_posterior_consistency_tpu_torch.parallel import multihost
+
+    device = _EXTRA_FLAGS["device"][1] if device is None else device
+    multihost.ensure_group(device)
+    return meshlib.make_mesh(dp=shape[0], tp=shape[1], device=device)
+
+
+def check_unported(args, mesh_ported: bool = True) -> None:
+    """Refuse, naming the slice, a `-mesh` that resolves to a mesh on a
+    path whose mesh the port does not have yet: `-ensemble true`, `-seeds`
+    above 1, and every path of an entry point that passes `mesh_ported`
+    False (active learning, AIS). Raises `mesh_shape`'s ValueError for a
+    spec no device count satisfies, before anything runs."""
+    shape = mesh_shape(getattr(args, "mesh", ""), device_count())
+    if shape is None:
+        return
+    if (not mesh_ported or bool(getattr(args, "ensemble", False))
+            or int(getattr(args, "seeds", 1) or 1) > 1):
         raise NotImplementedError(
-            f"-mesh {args.mesh!r}: the multi-device engine is not ported "
-            f"yet; it comes with {SLICE_MESH}")
+            f"-mesh {args.mesh!r} on this path: its multi-device engine is "
+            f"not ported yet; it comes with {SLICE_MESH}")
 
 
 def maybe_profile(args):

@@ -36,7 +36,7 @@ Every random draw comes from a noise source called as
   "v_rev", "u_rev"  BDMC's reverse chains' momenta and uniforms.
 `GeneratorNoise`, the default, draws them from a seeded `torch.Generator`
 on the device; a caller may pass its own, for instance one that replays
-the JAX package's keys. The `mesh` option comes with slice 10.
+the JAX package's keys. The `mesh` option comes with slice 10 part 2.
 
 `eval_ais_ensemble` anneals the same chains for S seed replicas at once
 (`_ensemble_runner`): the chain state carries a leading [S] axis, the

@@ -18,7 +18,8 @@ branches (K = cfg.valid_k, as the JAX `eval_step` takes it). The noise comes
 from a `torch.Generator` on the server's device seeded with `cfg.seed + 9`,
 as the JAX server seeds its key. A caller may pass its own noise source
 instead: `noise(kind, ctr, shape)` returns the draw of `kind`, a float32
-tensor of `shape`, for request number `ctr` (1, 2, ...).
+tensor of `shape`, for request number `ctr` (1, 2, ...). The `mesh` option
+(rows dp-sharded) comes with slice 10 part 2.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import json
 import numpy as np
 import torch
 
-from vae_posterior_consistency_tpu_torch.config import RunConfig
+from vae_posterior_consistency_tpu_torch.config import SLICE_MESH, RunConfig
 from vae_posterior_consistency_tpu_torch.engine import checkpoint
 from vae_posterior_consistency_tpu_torch.models import get_model
 
@@ -53,7 +54,12 @@ class GeneratorNoise:
 
 class ImputationServer:
     def __init__(self, params, cfg: RunConfig, obs_dim: int,
-                 buckets=DEFAULT_BUCKETS, device="cuda", noise=None):
+                 buckets=DEFAULT_BUCKETS, device="cuda", noise=None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                f"ImputationServer(mesh=...): serving over a device mesh is "
+                f"not ported yet; it comes with {SLICE_MESH}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ImputationServer: CUDA is not available; "

@@ -31,8 +31,9 @@ episode for all replicas:
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the kernels' plain versions on the CPU. A record
 the port cannot run yet (`compute_dtype` 'bfloat16') is named and skipped,
-and the exit code is then 1. `-mesh` waits for slice 10 and stops the run
-before it starts (`imputation.open_grid`); `-profile DIR` traces it.
+and the exit code is then 1. A `-mesh` that resolves to a mesh waits for
+slice 10 part 2 and stops the run before it starts (`imputation.open_grid`;
+'' and a one-device 'auto' run); `-profile DIR` traces it.
 `-checkpoint_every`, `-resume` and `-early_stop` are accepted and ignored,
 as in the JAX package: nothing trains here.
 """
@@ -63,6 +64,7 @@ from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
     unported,
 )
+from vae_posterior_consistency_tpu_torch.parallel import multihost
 
 #: the grid, relative to the working directory
 GRID = os.path.join("Data", "imputation_args.json")
@@ -213,9 +215,12 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    records, probe = open_grid(GRID, argv)
-    with maybe_profile(probe):
-        not_run = run_grid(records, probe, argv)
+    try:
+        records, probe = open_grid(GRID, argv, mesh_ported=False)
+        with maybe_profile(probe):
+            not_run = run_grid(records, probe, argv)
+    finally:
+        multihost.shutdown()
     if not_run:
         print(f"{len(not_run)} run(s) not made, not ported yet:", flush=True)
         for vae_type, missing, alpha, reason in not_run:

@@ -24,9 +24,10 @@ as in the JAX package. `-ensemble` is accepted and ignored.
 
 The run uses the card (`-device cuda`, the default; it raises without
 CUDA) or, with `-device cpu`, the CPU. `-profile DIR` traces the
-estimates (`config.maybe_profile`). `-mesh` waits for slice 10 and a
-record whose compute_dtype is 'bfloat16' for slice 11: they stop the run
-before it starts.
+estimates (`config.maybe_profile`). A `-mesh` that resolves to a mesh
+waits for slice 10 part 2 ('' and a one-device 'auto' run), a record whose
+compute_dtype is 'bfloat16' for slice 11: they stop the run before it
+starts.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ import numpy as np
 import torch
 
 from vae_posterior_consistency_tpu_torch.config import (
-    SLICE_MESH,
     RunConfig,
+    check_unported,
     iter_jsonl_configs,
     maybe_profile,
     setup_parser,
@@ -50,6 +51,7 @@ from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     load_dataset,
     start_up,
 )
+from vae_posterior_consistency_tpu_torch.parallel import multihost
 
 
 def _record_for_vae_type(records, vae_type):
@@ -63,11 +65,9 @@ def _record_for_vae_type(records, vae_type):
 
 
 def _check_flags(args) -> None:
-    """The flags whose engine the port lacks, each naming its slice."""
-    if (getattr(args, "mesh", "") or "").strip():
-        raise NotImplementedError(
-            f"-mesh {args.mesh!r}: AIS over a device mesh is not ported "
-            f"yet; it comes with {SLICE_MESH}")
+    """The flags whose engine the port lacks, each naming its slice: a
+    `-mesh` that resolves to a mesh (AIS over a mesh) and bfloat16."""
+    check_unported(args, mesh_ported=False)
     if getattr(args, "compute_dtype", "float32") == "bfloat16":
         raise NotImplementedError(
             f"compute_dtype 'bfloat16' ({args.vae_type}): mixed precision "
@@ -94,7 +94,13 @@ def _run_seed_ensemble(dataset, cfg: RunConfig, n_seeds: int, bdmc: bool,
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
+    try:
+        return _main(sys.argv[1:] if argv is None else list(argv))
+    finally:
+        multihost.shutdown()
+
+
+def _main(argv) -> int:
     start_up()
     records = list(iter_jsonl_configs(GRID))
     # two passes: argparse resolves the requested vae_type (`-vae_type=x`
@@ -103,6 +109,7 @@ def main(argv=None) -> int:
     probe = setup_parser(records[0], "ais_eval").parse_args(argv)
     record = _record_for_vae_type(records, probe.vae_type)
     args = setup_parser(record, "ais_eval").parse_args(argv)
+    multihost.initialize(args.device)
     _check_flags(args)
     cfg = RunConfig.from_args(args)
     device = check_device(args.device)

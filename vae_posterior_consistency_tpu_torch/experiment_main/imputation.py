@@ -27,10 +27,23 @@ goes on; the exit code is then 1 and the end of the output lists those
 records. `-checkpoint_every N`, `-resume true` and `-early_stop true`
 (patience `-patience` checks, one each 200 epochs) reach `train` as in the
 JAX package. `-profile DIR` traces the whole run with torch.profiler
-(`config.maybe_profile`); VPC_DEBUG_NANS=1 turns on autograd's anomaly
-detection and VPC_PLATFORM=cpu|cuda sets the default of `-device`
-(`start_up`, which every entry point calls first). `-mesh` stops the run
-before it starts, naming its slice.
+(`config.maybe_profile`); VPC_DEBUG_NANS=1 turns on the NaN tripwire
+(`utils/debugging.enable_nan_debugging`) and VPC_PLATFORM=cpu|cuda sets
+the default of `-device` (`start_up`, which every entry point calls
+first).
+
+`-mesh` (`config.resolve_mesh`, per record, as the JAX package resolves
+it): '' and a one-device 'auto' run the engines above; 'DP' or 'DP,TP'
+train with `parallel/train_parallel.train_sharded` (rows dp-sharded, wide
+leaves tp-sharded) and evaluate with `engine/evaluate_sharded.
+eval_vae_sharded`, the train line tagged with the mesh, `mesh={'dp': 2,
+'tp': 1}`. A mesh spans the ranks of the process group: run one process a
+device with `torchrun --nproc_per_node N -m
+vae_posterior_consistency_tpu_torch.experiment_main.imputation -mesh DP,TP`
+(`open_grid` joins the group torchrun describes; a one-device mesh needs
+no torchrun). Every rank runs the grid; only rank 0 prints and writes.
+A mesh beside `-seeds N` or `-ensemble true` is refused before anything
+runs: the ensembles' mesh comes with slice 10 part 2.
 
 Ensembles (`parallel/sweep`; the JAX package's experiment_main/
 imputation.py:63-79, 110-476, 487-513), with its banners, checkpoint names,
@@ -68,6 +81,7 @@ from vae_posterior_consistency_tpu_torch.config import (
     maybe_profile,
     parse_alphas,
     parse_missings,
+    resolve_mesh,
     restart_opts,
     restrict_grid_records,
     setup_parser,
@@ -78,8 +92,14 @@ from vae_posterior_consistency_tpu_torch.data.default_configs import (
 )
 from vae_posterior_consistency_tpu_torch.engine import checkpoint, evaluate
 from vae_posterior_consistency_tpu_torch.engine import train as train_engine
+from vae_posterior_consistency_tpu_torch.engine.evaluate_sharded import (
+    eval_vae_sharded,
+)
 from vae_posterior_consistency_tpu_torch.models import get_model
-from vae_posterior_consistency_tpu_torch.parallel import sweep
+from vae_posterior_consistency_tpu_torch.parallel import multihost, sweep
+from vae_posterior_consistency_tpu_torch.parallel.train_parallel import (
+    train_sharded,
+)
 from vae_posterior_consistency_tpu_torch.utils.debugging import (
     apply_platform_from_env,
     enable_nan_debugging_from_env,
@@ -113,9 +133,17 @@ def load_dataset(cfg: RunConfig, device):
 
 
 def train_and_eval_one(dataset, cfg: RunConfig, device, checkpoint_every=None,
-                       resume=False, early_stopping=None) -> dict:
+                       resume=False, early_stopping=None, mesh=None) -> dict:
     """Train `cfg` (the checkpoint saved under its reference name), then
-    evaluate it and write its artifacts."""
+    evaluate it and write its artifacts: on `mesh` with the sharded
+    engines when one is given (as the JAX package's `_train_and_eval_one`,
+    no epoch lines), else with the single-device ones."""
+    if mesh is not None:
+        train_sharded(dataset, cfg, mesh, save=True,
+                      checkpoint_every=checkpoint_every, resume=resume,
+                      early_stopping=early_stopping)
+        print(f"=== eval {cfg.vae_type} ===", flush=True)
+        return eval_vae_sharded(dataset, cfg, mesh)
     train_engine.train(dataset, cfg, log_fn=epoch_logger(
         cfg.epoch), device=device, checkpoint_every=checkpoint_every,
         resume=resume, early_stopping=early_stopping)
@@ -449,9 +477,11 @@ def run_grid(records, probe, argv) -> list:
                     not_run.append((cfg.vae_type, missing, alpha, reason))
                     continue
                 dataset = load_dataset(cfg, args.device)
+                mesh = resolve_mesh(cfg, device=args.device)
+                tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
                 seed_tag = f", seeds={n_seeds}" if n_seeds > 1 else ""
                 print(f"=== train {cfg.vae_type} (missing={missing}, "
-                      f"alpha={alpha}{seed_tag}) ===", flush=True)
+                      f"alpha={alpha}{seed_tag}){tag} ===", flush=True)
                 ck, rs = restart_opts(args)
                 if n_seeds > 1:
                     results = _train_and_eval_seeds(
@@ -466,7 +496,7 @@ def run_grid(records, probe, argv) -> list:
                     continue
                 results = train_and_eval_one(
                     dataset, cfg, args.device, checkpoint_every=ck, resume=rs,
-                    early_stopping=early_stopper(args, cfg))
+                    early_stopping=early_stopper(args, cfg), mesh=mesh)
                 for stage, metrics in results.items():
                     print(f"  [{stage}] " + "  ".join(
                         f"{k}={v:.5f}" for k, v in metrics.items()),
@@ -483,35 +513,41 @@ def start_up() -> None:
     write_default_configs("Data")
 
 
-def open_grid(grid: str, argv):
+def open_grid(grid: str, argv, mesh_ported: bool = True):
     """`start_up`, then the records of the JSONL `grid` and the parse of
-    `argv` against the first; `-mesh` is refused and the device is checked
-    and printed before anything runs."""
+    `argv` against the first; under torchrun the process group is joined
+    (`multihost.initialize`, on the `-device` parsed); a `-mesh` on a path
+    without its mesh yet is refused (`check_unported`), and the device is
+    checked and printed (by rank 0) before anything runs."""
     start_up()
     records = list(iter_jsonl_configs(grid))
     probe = setup_parser(records[0], "impute_eval").parse_args(argv)
-    check_unported(probe)
+    multihost.initialize(probe.device)
+    check_unported(probe, mesh_ported=mesh_ported)
     device = train_engine.check_device(probe.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the kernels' plain versions")
-    print(f"Device: {device} ({name})", flush=True)
+    with multihost.coordinator_stdout():
+        print(f"Device: {device} ({name})", flush=True)
     return records, probe
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    records, probe = open_grid(GRID, argv)
-    with maybe_profile(probe):
-        not_run = (run_ensembles(records, probe, argv) if probe.ensemble
-                   else run_grid(records, probe, argv))
-    if not_run:
-        print(f"{len(not_run)} run(s) not made, not ported yet:",
-              flush=True)
-        for vae_type, missing, alpha, reason in not_run:
-            print(f"  {vae_type} (missing={missing}, alpha={alpha}): "
-                  f"{reason}", flush=True)
-        return 1
-    return 0
+    try:
+        records, probe = open_grid(GRID, argv)
+        with multihost.coordinator_stdout(), maybe_profile(probe):
+            not_run = (run_ensembles(records, probe, argv) if probe.ensemble
+                       else run_grid(records, probe, argv))
+            if not_run:
+                print(f"{len(not_run)} run(s) not made, not ported yet:",
+                      flush=True)
+                for vae_type, missing, alpha, reason in not_run:
+                    print(f"  {vae_type} (missing={missing}, "
+                          f"alpha={alpha}): {reason}", flush=True)
+    finally:
+        multihost.shutdown()
+    return 1 if not_run else 0
 
 
 if __name__ == "__main__":

@@ -25,7 +25,13 @@ The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the CPU (`imputation.open_grid`, as the MCAR entry
 point). `-checkpoint_every`, `-resume` and `-early_stop` reach `train` as
 in the JAX package, `-profile DIR` traces the run (`config.maybe_profile`).
-`-mesh` stops the run before it starts, naming its slice.
+`-mesh` resolves per record (`config.resolve_mesh`): with a mesh the
+record trains with `parallel/train_parallel.train_sharded` (under torchrun
+for more than one device, as `experiment_main/imputation`), its train line
+tagged with the mesh, and the MNAR evaluation stays single-program on the
+gathered parameters, as in the JAX package (imputation_mnar.py:124-145);
+rank 0 alone prints and writes. A mesh beside `-seeds N` or `-ensemble
+true` is refused before anything runs (slice 10 part 2).
 
 Ensembles (`parallel/sweep`; the JAX package's experiment_main/
 imputation_mnar.py:79-118, 153-283): `-seeds N` trains each (record,
@@ -51,6 +57,7 @@ from vae_posterior_consistency_tpu_torch.config import (
     maybe_profile,
     parse_alphas,
     parse_missings,
+    resolve_mesh,
     restart_opts,
     restrict_grid_records,
     setup_parser,
@@ -65,7 +72,10 @@ from vae_posterior_consistency_tpu_torch.engine import train as train_engine
 from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
 )
-from vae_posterior_consistency_tpu_torch.parallel import sweep
+from vae_posterior_consistency_tpu_torch.parallel import multihost, sweep
+from vae_posterior_consistency_tpu_torch.parallel.train_parallel import (
+    train_sharded,
+)
 from vae_posterior_consistency_tpu_torch.utils.logging import epoch_logger
 
 #: the grid, relative to the working directory
@@ -117,20 +127,32 @@ def run_grid(records, probe, argv) -> None:
                                        early_stopping=early_stopper(
                                            args, cfg, ensemble=True))
                     continue
+                mesh = resolve_mesh(cfg, device=args.device)
+                tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
                 print(f"=== train {cfg.vae_type} (MNAR, missing={missing}, "
-                      f"alpha={alpha}) ===", flush=True)
+                      f"alpha={alpha}){tag} ===", flush=True)
                 t0 = time.perf_counter()
-                train_engine.train(dataset, cfg,
-                                   log_fn=epoch_logger(
-                                       cfg.epoch), device=args.device,
-                                   checkpoint_every=ck, resume=rs,
-                                   early_stopping=early_stopper(args, cfg))
+                params, device = None, args.device
+                if mesh is not None:
+                    # MNAR evaluation is one full-matrix pass a rep: it
+                    # runs single-program on the gathered parameters
+                    params, _ = train_sharded(
+                        dataset, cfg, mesh, save=True, checkpoint_every=ck,
+                        resume=rs, early_stopping=early_stopper(args, cfg))
+                    device = mesh.device
+                else:
+                    train_engine.train(dataset, cfg,
+                                       log_fn=epoch_logger(cfg.epoch),
+                                       device=device, checkpoint_every=ck,
+                                       resume=rs,
+                                       early_stopping=early_stopper(args,
+                                                                    cfg))
                 t_train = time.perf_counter() - t0
                 print(f"=== eval {cfg.vae_type} (MNAR) ===", flush=True)
                 t0 = time.perf_counter()
-                rmse = evaluate.eval_vae_mnar(dataset.train.x,
-                                              dataset.train.mask, cfg,
-                                              device=args.device)
+                rmse = evaluate.eval_vae_mnar(
+                    dataset.train.x, dataset.train.mask, cfg, params=params,
+                    save=multihost.is_coordinator(), device=device)
                 print(f"  rmse={rmse:.5f}")
                 print(f"  [timing] train {t_train:.1f}s  "
                       f"eval {time.perf_counter() - t0:.1f}s", flush=True)
@@ -235,9 +257,12 @@ def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    records, probe = open_grid(GRID, argv)
-    with maybe_profile(probe):
-        run_grid(records, probe, argv)
+    try:
+        records, probe = open_grid(GRID, argv)
+        with multihost.coordinator_stdout(), maybe_profile(probe):
+            run_grid(records, probe, argv)
+    finally:
+        multihost.shutdown()
     return 0
 
 

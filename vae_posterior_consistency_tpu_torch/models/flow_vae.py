@@ -41,6 +41,17 @@ def eval_noise(cfg, B, D):
     return {"eps": (B, cfg.latent_dim)}
 
 
+def train_noise_rows(cfg):
+    """The batch-row axis of each `train_noise` kind."""
+    return {"eps": 1 if cfg.info.regularized else 0}
+
+
+def eval_noise_rows(cfg):
+    """The batch-row axis of each `eval_noise` kind."""
+    del cfg
+    return {"eps": 0}
+
+
 def init(generator, cfg, obs_dim, device="cuda"):
     params = {
         "encoder": layers.flow_context_encoder_init(

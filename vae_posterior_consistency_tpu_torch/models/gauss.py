@@ -84,6 +84,18 @@ def eval_noise(cfg, B, D):
     return {"eps": (B, cfg.latent_dim)}
 
 
+def train_noise_rows(cfg):
+    """The batch-row axis of each `train_noise` kind (a regularized type
+    stacks q and p on axis 0)."""
+    return {"eps": 1 if cfg.info.regularized else 0, "eps_z": 0}
+
+
+def eval_noise_rows(cfg):
+    """The batch-row axis of each `eval_noise` kind."""
+    del cfg
+    return {"eps": 0}
+
+
 def init(generator, cfg, obs_dim, device="cuda"):
     enc_init, _ = _encoder_fns(cfg)
     return {

@@ -59,6 +59,16 @@ def eval_noise(cfg, B, D):
     return shapes
 
 
+def train_noise_rows(cfg):
+    """The batch-row axis of each `train_noise` kind (`_eps_shape`)."""
+    return {"eps": 1 if cfg.info.regularized else 0}
+
+
+def eval_noise_rows(cfg):
+    """The batch-row axis of each `eval_noise` kind."""
+    return {"mask_p": 0, "eps": 1 if cfg.info.regularized else 0}
+
+
 def init(generator, cfg, obs_dim, device="cuda"):
     return {
         "encoder": layers.miwae_encoder_init(generator, obs_dim,

@@ -62,6 +62,17 @@ def eval_noise(cfg, B, D):
     return {"eps": (B, cfg.valid_k, cfg.latent_dim)}
 
 
+def train_noise_rows(cfg):
+    """The batch-row axis of each `train_noise` kind."""
+    return {"eps": 1 if cfg.info.regularized else 0, "mask_s": 0}
+
+
+def eval_noise_rows(cfg):
+    """The batch-row axis of each `eval_noise` kind."""
+    del cfg
+    return {"eps": 0}
+
+
 def init(generator, cfg, obs_dim, device="cuda"):
     return {
         "encoder": layers.notmiwae_encoder_init(generator, obs_dim,

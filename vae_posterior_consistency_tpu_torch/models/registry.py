@@ -35,6 +35,11 @@ class ModelDef:
     #: where `eval_step` reads a mask_p), in the order they are drawn
     train_noise: Callable
     eval_noise: Callable
+    #: (cfg) -> {noise kind: its batch-row axis}, for `train_noise` and
+    #: `eval_noise`: a multi-device run draws a global batch's noise and
+    #: takes each rank's rows along these axes (`parallel/train_parallel`)
+    train_noise_rows: Callable
+    eval_noise_rows: Callable
     uses_p_branch: bool
     #: 'vae' (four artifacts a split) | 'miwae' (the rmse artifact only,
     #: cfg.valid_k importance samples)
@@ -69,6 +74,8 @@ def _def(name, module, **kw):
                     eval_step=module.eval_step,
                     train_noise=module.train_noise,
                     eval_noise=module.eval_noise,
+                    train_noise_rows=module.train_noise_rows,
+                    eval_noise_rows=module.eval_noise_rows,
                     uses_p_branch=True,  # refined per vae_type in get_model
                     **kw)
 

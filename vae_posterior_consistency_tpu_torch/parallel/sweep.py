@@ -1,7 +1,7 @@
 """Sweep parallelism: whole training runs over seeds, splits, alphas and
 missing rates trained as one ensemble (port of the JAX package's
 `parallel/sweep.py`, all of it but `shard_ensemble`, `_shard_fn` and the
-`mesh` arguments, which come with the multi-device slice).
+`mesh` arguments, which come with slice 10 part 2).
 
 The reference runs its (3 data splits) x (alpha) x (missing-rate) sweep as
 serial Python loops (reference: src/experiment_main/imputation.py:21-25).

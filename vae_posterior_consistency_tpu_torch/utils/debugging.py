@@ -5,10 +5,14 @@ The reference enables torch's anomaly detection in every entry point
 (reference: src/experiment_main/imputation.py:19, a NaN/inf tripwire at a
 heavy runtime cost). Here it is opt-in, as in the JAX package:
 
-- `enable_nan_debugging()`: `torch.autograd.set_detect_anomaly(True)`, so a
-  backward that makes a NaN raises with the forward's stack trace; every
-  entry point turns it on when VPC_DEBUG_NANS is set
-  (`enable_nan_debugging_from_env`).
+- `enable_nan_debugging()`: the JAX package's `jax_debug_nans`, which
+  raises at the first NaN any operation makes: a dispatch mode
+  (`NanTripwire`) raises FloatingPointError at the first floating output
+  of an operator that holds a NaN, forward or backward, and autograd's
+  anomaly detection prints the forward of a failing backward; every entry
+  point turns both on when VPC_DEBUG_NANS is set
+  (`enable_nan_debugging_from_env`). Each operator's output is then read
+  back on the host: a slow, debugging-only mode.
 - `checked(fn)`: fn with its outputs checked, raising FloatingPointError at
   the first non-finite one (torch has no `checkify`).
 - `apply_platform_from_env()`: VPC_PLATFORM=cpu or cuda sets the default of
@@ -20,14 +24,61 @@ from __future__ import annotations
 import os
 
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 #: the values VPC_PLATFORM may take: the port's two devices
 PLATFORMS = ("cpu", "cuda")
 
+#: operators whose output is uninitialised memory, not a result (the
+#: kernels' wrappers allocate their outputs with torch.empty and the
+#: kernel writes them)
+UNINITIALISED = frozenset({
+    torch.ops.aten.empty, torch.ops.aten.empty_like,
+    torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
+    torch.ops.aten.new_empty_strided})
+
+
+class NanTripwire(TorchDispatchMode):
+    """Raises FloatingPointError, naming the operator, at the first
+    floating output that holds a NaN (infinities pass, as under
+    `jax_debug_nans`). A sharded tensor (a DTensor of the multi-device
+    engine) is checked on this rank's shard."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.overloadpacket in UNINITIALISED:
+            return out
+        for t in pytree.tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            if hasattr(t, "to_local"):
+                t = t.to_local()
+            if t.is_floating_point() and bool(torch.isnan(t).any()):
+                raise FloatingPointError(
+                    f"NaN in the output of {func} (shape {list(t.shape)})")
+        return out
+
+
+#: the tripwire pushed by `enable_nan_debugging`, or None
+_TRIPWIRE = None
+
 
 def enable_nan_debugging(enable: bool = True) -> None:
-    """The global NaN tripwire: autograd's anomaly detection."""
-    torch.autograd.set_detect_anomaly(enable)
+    """The global NaN tripwire: `NanTripwire` pushed (or, with `enable`
+    False, popped) and autograd's anomaly detection set to `enable`, for
+    the forward's stack trace of an error raised in a backward. Its own
+    NaN check stays off: the tripwire checks every backward operator
+    already, and that check calls an operator (aten._is_any_true) that the
+    multi-device engine's DTensor gradients do not have."""
+    global _TRIPWIRE
+    torch.autograd.set_detect_anomaly(enable, check_nan=False)
+    if enable and _TRIPWIRE is None:
+        _TRIPWIRE = NanTripwire()
+        _TRIPWIRE.__enter__()
+    elif not enable and _TRIPWIRE is not None:
+        _TRIPWIRE.__exit__(None, None, None)
+        _TRIPWIRE = None
 
 
 def _leaves(out, path="output"):
@@ -61,7 +112,7 @@ def checked(fn):
 
 
 def enable_nan_debugging_from_env(var: str = "VPC_DEBUG_NANS") -> bool:
-    """Turn on anomaly detection when the environment variable `var` is set
+    """Turn on the NaN tripwire when the environment variable `var` is set
     and not empty, the opt-in form of the reference's unconditional
     detect_anomaly (PARITY.md documented deviation #7). Every entry point
     calls it first. Returns whether it did."""
