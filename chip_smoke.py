@@ -206,6 +206,19 @@ Run from the root of a checkout. It drives only the port
    no tag, and its record-34 checkpoint equal bit for bit to a `-mesh ''`
    run's; then `-mesh 1,1` in this process (its own world-size-1 NCCL
    group, no torchrun) under VPC_DEBUG_NANS=1 finishes.
+22. the mesh (slice 10 part 2), each on a world-size-1 NCCL group in this
+   process (no torchrun): (i) `train_seed_ensemble` of record 37
+   (reg_EDDI1) with 2 seeds on a 1x1 mesh for 3 epochs against the same
+   call without one: B1, its backward, B2f and B2b each launched once a
+   step for both replicas, histories within rtol 1e-6; (ii)
+   experiment_main/active_learning.py -mesh 1,1 on record 37 (seeded
+   parameters at its checkpoint name, M cut to 5): B2f exactly 1 + 6 (D-1)
+   = 73 times and no other kernel, every artifact equal to the -mesh ''
+   run's within the AL (a) bounds; (iii) experiment_main/ais_eval.py
+   -mesh 1,1 on record 34 (the wine reg_vae1 of phase 7) against -mesh
+   '': both splits' estimates and latents, no kernel; (iv)
+   ImputationServer(mesh=...) answering 4 requests of the wine reg_vae1
+   against the plain server.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
@@ -217,7 +230,9 @@ forms, their launches on the ensemble phases, their times at R=128 and
 by R; and for every kernel its launches on the AL ensemble entry point's
 run, `al_ensemble_launches`, and on the 128-replica reg_EDDI1 episode,
 `al_ensemble_128_launches`; and its launches on the mesh phase's
-`train_sharded` runs (a), `mesh_launches`), then, as its last line,
+`train_sharded` runs (a), `mesh_launches`, and on the slice 10 part 2
+mesh runs, `mesh_ensemble_launches` (i) and `mesh_al_launches` (ii)),
+then, as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
 after 600 s. It writes nothing in the checkout but the kernels' build
@@ -395,6 +410,11 @@ ENS_RUNS = 20
 MESH_RECORDS = (34, 37)
 MESH_EPOCHS = 10
 MESH_ENTRY_EPOCHS = 2
+#: the part-2 mesh phase (d): record 34 (AIS, serving) and record 37 (the
+#: seed ensemble, the AL episode), the ensemble's seeds and epochs
+MESH_D_RECORDS = (34, 37)
+MESH_D_SEEDS = 2
+MESH_D_EPOCHS = 3
 
 
 @contextlib.contextmanager
@@ -2472,7 +2492,8 @@ def main() -> int:
                                      f"{worst}, {flips} flips, launched "
                                      f"{launched}")
             lw = torch.logsumexp(ais._chain_views(
-                state.logw, state.z, n, AL_ROWS, acfg.latent_dim)[0], -1)
+                state.logw, state.z, n, AL_ROWS, AL_ROWS,
+                acfg.latent_dim)[0], -1)
             print(f"{acfg.vae_type}: {B} chains x {len(sched) - 1} "
                   f"temperatures, card vs CPU from the card's states: max "
                   f"|dz| {worst['z']:.3e}, |deps| {worst['eps']:.3e}, "
@@ -2673,6 +2694,7 @@ def main() -> int:
     ens_kernels = ensembles(env)
     al_ens_launches = al_ais_ensembles(env)
     mesh_launches = mesh_phase(env)
+    mesh_d_launches = mesh_part2_phase(env)
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -2727,6 +2749,10 @@ def main() -> int:
         k["al_ensemble_128_launches"] = al_ens_launches["R128"][k["name"]]
         # launches on the mesh phase's train_sharded runs ((a))
         k["mesh_launches"] = mesh_launches[k["name"]]
+        # launches on the part-2 mesh phase's seed ensemble ((i)) and AL
+        # episode ((ii))
+        k["mesh_ensemble_launches"] = mesh_d_launches["ensemble"][k["name"]]
+        k["mesh_al_launches"] = mesh_d_launches["al"][k["name"]]
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -3870,6 +3896,221 @@ def mesh_phase(env) -> dict:
     return {k: launches[k] for k in ("embed_pool_fwd", "embed_pool_bwd",
                                      "fused_posterior_fwd",
                                      "fused_posterior_bwd")}
+
+
+def mesh_part2_phase(env) -> dict:
+    """The part-2 mesh phase (slice 10 part 2) on the names main() set up
+    (`env`), each run on a world-size-1 NCCL group made in this process:
+    (i) a seed ensemble, (ii) an AL episode through its entry point, (iii)
+    AIS through its entry point, (iv) serving, each on a 1x1 mesh against
+    the same run without one. Returns the kernels' launches on (i) and
+    (ii)."""
+    import torch
+    import torch.distributed as dist
+
+    from vae_posterior_consistency_tpu_torch.config import RunConfig
+    from vae_posterior_consistency_tpu_torch.engine import (
+        artifacts,
+        checkpoint,
+        serve,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        active_learning as al_main,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        ais_eval as ais_main,
+    )
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation as imputation_main,
+    )
+    from vae_posterior_consistency_tpu_torch.models import get_model
+    from vae_posterior_consistency_tpu_torch.parallel import mesh as tmesh
+    from vae_posterior_consistency_tpu_torch.parallel import multihost, sweep
+
+    counts, reset_counts = env["counts"], env["reset_counts"]
+    no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
+    records, card = env["records"], env["card"]
+    out = {}
+
+    @contextlib.contextmanager
+    def one_rank_mesh():
+        multihost.ensure_group("cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            yield tmesh.make_mesh(dp=1, tp=1, device="cuda")
+        finally:
+            multihost.shutdown()
+        if dist.is_initialized():
+            raise AssertionError("the process group outlived the run")
+
+    def quiet(main, argv):
+        buf = io.StringIO()
+        reset_counts()
+        with no_plain_on_card(), contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        if rc != 0 or dist.is_initialized():
+            raise AssertionError(f"{argv}: rc {rc}\n{buf.getvalue()}")
+        return buf.getvalue(), counts()
+
+    eddi = records[MESH_D_RECORDS[1] - 1]
+    with phase(f"mesh (d)(i): train_seed_ensemble of record "
+               f"{MESH_D_RECORDS[1]} with {MESH_D_SEEDS} seeds on a 1x1 mesh "
+               f"against no mesh, {MESH_D_EPOCHS} epochs"):
+        cfg = RunConfig.from_jsonl_record(
+            eddi, alpha=1.0, p_missingness=30, seed=SEED,
+            epoch=MESH_D_EPOCHS, data_path=str(REPO / "Data"))
+        ds = imputation_main.load_dataset(cfg, "cuda")
+        seeds = [SEED + s for s in range(MESH_D_SEEDS)]
+
+        def plain_run():
+            t0 = time.perf_counter()
+            with no_plain_on_card():
+                _, hist = sweep.train_seed_ensemble(ds, cfg, seeds,
+                                                    device="cuda")
+            return hist, time.perf_counter() - t0
+
+        # no mesh, the mesh, no mesh again: the times compared are the
+        # mesh run's and the second plain run's, both warm
+        plain_hist, _ = plain_run()
+        with one_rank_mesh() as mesh:
+            reset_counts()
+            t0 = time.perf_counter()
+            with no_plain_on_card():
+                _, mesh_hist = sweep.train_seed_ensemble(ds, cfg, seeds,
+                                                         mesh=mesh)
+            mesh_s = time.perf_counter() - t0
+            launched = counts()
+        again_hist, plain_s = plain_run()
+        np.testing.assert_array_equal(again_hist, plain_hist)
+        steps = MESH_D_EPOCHS * -(-ds.train.n // cfg.batch_size)
+        want = {k: steps for k in launched}
+        if launched != want or mesh_hist.shape != (MESH_D_SEEDS,
+                                                   MESH_D_EPOCHS):
+            raise AssertionError(f"mesh seed ensemble: launched {launched}, "
+                                 f"want {want}; history {mesh_hist.shape}")
+        np.testing.assert_allclose(mesh_hist, plain_hist, rtol=1e-6)
+        out["ensemble"] = launched
+        print(f"seed ensemble of {cfg.vae_type}, {MESH_D_SEEDS} replicas on "
+              f"a 1x1 mesh: {steps} steps, each kernel once a step for both "
+              f"({launched}); history max |diff| against no mesh "
+              f"{float(np.abs(mesh_hist - plain_hist).max()):.3e}; "
+              f"host clock {mesh_s:.6f} s against {plain_s:.6f} s without "
+              f"a mesh (each read back once a chunk) [{card}]", flush=True)
+
+    with phase(f"mesh (d)(ii): experiment_main/active_learning.py -mesh 1,1 "
+               f"on record {MESH_D_RECORDS[1]} against -mesh '', -M "
+               f"{AL_CHECK_M}"):
+        params = get_model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg, WINE_D,
+            device="cuda")
+        cfg37 = RunConfig.from_jsonl_record(eddi, alpha=1.0,
+                                            p_missingness=30)
+        saved, launched, timing = {}, {}, {}
+        for spec in ("", "1,1"):
+            with grid_dir([eddi]) as tmp:
+                root = str(tmp / "experiments")
+                checkpoint.save(params, checkpoint.checkpoint_path(cfg37,
+                                                                   root))
+                printed, launched[spec] = quiet(
+                    al_main.main, ["-mesh", spec, "-M", str(AL_CHECK_M)])
+                if ("mesh={'dp': 1, 'tp': 1}" in printed) != bool(spec):
+                    raise AssertionError(f"-mesh {spec!r}: tag\n{printed}")
+                timing[spec] = [ln.strip() for ln in printed.splitlines()
+                                if "[timing]" in ln]
+                saved[spec] = {
+                    name: torch.load(path, weights_only=True)
+                    for name, path in artifacts.active_learning_paths(
+                        cfg37.replace(M=AL_CHECK_M), root).items()}
+        want = {"embed_pool_fwd": 1 + 6 * (WINE_D - 1), "embed_pool_bwd": 0,
+                "fused_posterior_fwd": 0, "fused_posterior_bwd": 0}
+        if launched["1,1"] != want:
+            raise AssertionError(f"AL -mesh 1,1 launched {launched['1,1']}, "
+                                 f"want {want}")
+        a, b = saved[""], saved["1,1"]
+        if not torch.equal(a["action"], b["action"]):
+            raise AssertionError("AL -mesh 1,1: the reveals differ")
+        torch.testing.assert_close(b["R_hist"], a["R_hist"],
+                                   rtol=AL_REWARD_RTOL, atol=AL_REWARD_ATOL)
+        torch.testing.assert_close(b["im"], a["im"], rtol=0,
+                                   atol=AL_IM_ATOL)
+        torch.testing.assert_close(b["information_curve"],
+                                   a["information_curve"],
+                                   rtol=AL_CURVE_RTOL, atol=0)
+        out["al"] = launched["1,1"]
+        print(f"AL -mesh 1,1 on {cfg37.vae_type}: B2f "
+              f"{launched['1,1']['embed_pool_fwd']} times, nothing else; "
+              f"artifacts against -mesh '': R_hist max |diff| "
+              f"{max_abs(a['R_hist'], b['R_hist']):.3e}, curve max |diff| "
+              f"{max_abs(a['information_curve'], b['information_curve']):.3e}"
+              f", the reveals equal; -mesh '' {timing['']}, -mesh 1,1 "
+              f"{timing['1,1']} [{card}]", flush=True)
+
+    flagship = records[MESH_D_RECORDS[0] - 1]
+    with phase(f"mesh (d)(iii): experiment_main/ais_eval.py -mesh 1,1 on "
+               f"record {MESH_D_RECORDS[0]} against -mesh ''"):
+        acfg = RunConfig.from_jsonl_record(flagship, seed=SEED, alpha=1.0,
+                                           p_missingness=30)
+        est = {}
+        for spec in ("", "1,1"):
+            with grid_dir([flagship]) as tmp:
+                root = str(tmp / "experiments")
+                checkpoint.save(env["wine_params"],
+                                checkpoint.checkpoint_path(acfg, root))
+                printed, launched = quiet(
+                    ais_main.main, ["-vae_type", acfg.vae_type, "-mesh", spec])
+                tagged = "mesh={'dp': 1, 'tp': 1}: AIS chains dp-sharded"
+                if (tagged in printed) != bool(spec) or any(
+                        launched.values()):
+                    raise AssertionError(f"ais_eval -mesh {spec!r}: "
+                                         f"launched {launched}\n{printed}")
+                base = os.path.join(root, acfg.vae_type, acfg.data_type,
+                                    "elbos", f"{acfg.missing_rate}_missing",
+                                    f"{acfg.epoch}_epochs")
+                est[spec] = {st: (torch.load(os.path.join(
+                    base, f"{st}_ais.pt"), weights_only=False).item(),
+                    torch.load(os.path.join(base.replace("elbos", "latents"),
+                                            f"{st}_ais_true_latents.pt"),
+                               weights_only=False))
+                    for st in ("train", "test")}
+        for st, (logw, lats) in est[""].items():
+            m_logw, m_lats = est["1,1"][st]
+            if (abs(m_logw - logw) > AIS_LOGW_ATOL + AIS_LOGW_RTOL * abs(logw)
+                    or max_abs(torch.as_tensor(m_lats),
+                               torch.as_tensor(lats)) > AIS_Z_ATOL):
+                raise AssertionError(f"ais_eval -mesh 1,1 {st}: {m_logw} "
+                                     f"against {logw}")
+        print("ais_eval -mesh 1,1: "
+              + "; ".join(f"{st} log p(x) {est['1,1'][st][0]:.6f} against "
+                          f"{v[0]:.6f}" for st, v in est[""].items())
+              + ", the latents equal, no kernel", flush=True)
+
+    with phase("mesh (d)(iv): ImputationServer(mesh=...) on a 1x1 mesh "
+               "against the plain server, 4 requests"):
+        scfg = RunConfig.from_jsonl_record(flagship, seed=SEED)
+        wine = env["wine"]
+        plain = serve.ImputationServer(env["wine_params"], scfg, WINE_D,
+                                       device="cuda")
+        rows = (1, 8, 17, 64)
+        x = wine.train.x[:max(rows)].cpu().numpy()
+        m = wine.train.mask[:max(rows)].cpu().numpy()
+        want = [plain.impute(x[:n], m[:n]) for n in rows]
+        with one_rank_mesh() as mesh:
+            meshed = serve.ImputationServer(env["wine_params"], scfg, WINE_D,
+                                            mesh=mesh)
+            got = [meshed.impute(x[:n], m[:n]) for n in rows]
+        worst = 0.0
+        for (f, sc), (wf, ws) in zip(got, want):
+            if f.shape != wf.shape or not np.isfinite(f).all():
+                raise AssertionError("mesh server: shape or finiteness")
+            worst = max(worst, float(np.abs(f - wf).max()),
+                        float(np.abs(sc - ws).max()))
+        if worst > SERVE_ATOL:
+            raise AssertionError(f"mesh server against plain: {worst:.3e}")
+        print(f"ImputationServer on a 1x1 mesh: requests of {rows} rows, "
+              f"max |diff| against the plain server {worst:.3e} [{card}]",
+              flush=True)
+    return out
 
 
 def iter_records(path):

@@ -378,11 +378,21 @@ def test_default_noise_is_seeded_and_drawn_on_the_device():
 
 
 def test_mesh_and_a_missing_checkpoint_raise(tmp_path):
-    tc = tcfg.RunConfig(vae_type="vanilla_vae1")
+    """A one-device mesh runs the single-device episode (nothing padded,
+    no reduce), bit for bit; a missing checkpoint raises with its path."""
+    from torch_dist_worker import one_rank_mesh
+
+    tc = tcfg.RunConfig(vae_type="vanilla_vae1", M=2)
     x, mask = _data()
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tal.active_learning_func(None, x, mask, tc, mesh=object(),
-                                 device="cpu")
+    _, tparams = _params(jcfg.RunConfig(vae_type="vanilla_vae1", M=2))
+    plain = tal.active_learning_func(None, x, mask, tc, params=tparams,
+                                     save=False, device="cpu")
+    with one_rank_mesh() as mesh:
+        meshed = tal.active_learning_func(None, x, mask, tc, params=tparams,
+                                          save=False, mesh=mesh,
+                                          device="cpu")
+    for name in tal.ARTIFACTS:
+        assert torch.equal(plain[name], meshed[name]), name
     path = tckpt.checkpoint_path(tc, str(tmp_path))
     with pytest.raises(FileNotFoundError, match=re.escape(path)):
         tal.active_learning_func(None, x, mask, tc,

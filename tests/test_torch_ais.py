@@ -457,10 +457,26 @@ def test_student_t_draw_is_seeded_and_leaves_the_global_stream():
 
 
 def test_mesh_option_waits_for_slice_10():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tais.ais_batch(lambda z: (z, z), torch.zeros(2, 3), 2, 3,
-                       tais.linear_schedule(3), tais.GeneratorNoise(0, "cpu"),
-                       mesh=object())
+    """Since slice 10 part 2 the chains run on a mesh: on a one-device
+    mesh nothing is padded and `ais_batch` is the single-device one, bit
+    for bit."""
+    from torch_dist_worker import one_rank_mesh
+
+    x = torch.rand((3, D), generator=torch.Generator().manual_seed(1))
+    _, tc, _, tp = _params("reg_vae1", {})
+    bridge = tais.bridge_for(tc)
+
+    def run(mesh):
+        return tais.ais_batch(
+            None, x, 3, L, tais.linear_schedule(4),
+            tais.GeneratorNoise(0, "cpu"), mesh=mesh,
+            log_lik_fn=lambda z, xr: bridge.log_lik(tp, z, xr))
+
+    plain = run(None)
+    with one_rank_mesh() as mesh:
+        meshed = run(mesh)
+    assert plain.logw == meshed.logw
+    np.testing.assert_array_equal(plain.latents, meshed.latents)
 
 
 # ---------------------------------------------------------------------------
@@ -549,16 +565,16 @@ def test_entry_point_prints_jax_lines_and_writes_jax_artifacts(
 @pytest.mark.parametrize("flags,slice_name", [
     (["-seeds", "2"], None),
     # 'auto' on one device resolves to no mesh and runs, as in JAX; a mesh
-    # ('1,1') waits for AIS over a mesh, slice 10 part 2
-    (["-mesh", "auto"], None), (["-mesh", "1,1"], "slice 10 part 2"),
+    # ('1,1') runs the chains on it since slice 10 part 2
+    (["-mesh", "auto"], None), (["-mesh", "1,1"], None),
     (["-profile", "traces"], None), ([], "slice 11")])
 def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
                                             flags, slice_name):
-    """A resolved -mesh and (no flag) a record asking for compute_dtype
-    'bfloat16': refused before anything runs, naming the slice. -seeds
-    above 1, -profile and -mesh auto run: `-seeds 2` writes the `.seed1`
-    estimate, `-profile traces` prints JAX's line and leaves a trace,
-    `-mesh auto` prints no mesh line."""
+    """(No flag) a record asking for compute_dtype 'bfloat16': refused
+    before anything runs, naming the slice. -seeds above 1, -profile and
+    -mesh run: `-seeds 2` writes the `.seed1` estimate, `-profile traces`
+    prints JAX's line and leaves a trace, `-mesh auto` prints no mesh line
+    and `-mesh 1,1` JAX's."""
     extra = {} if flags else {"compute_dtype": "bfloat16"}
     record = _record(34, n_ais_dist=3, n_ais_iwae=2, **extra)
     cfg = tcfg.RunConfig.from_jsonl_record(record)
@@ -578,8 +594,11 @@ def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
     assert os.path.isfile(os.path.join(base, "test_ais.pt"))
     seeds = flags[0] == "-seeds"
     assert os.path.isfile(os.path.join(base, "test_ais.pt.seed1")) == seeds
-    if flags[0] == "-mesh":
+    if flags == ["-mesh", "auto"]:
         assert "mesh=" not in out and "[test] AIS log p(x) = " in out
+    elif flags[0] == "-mesh":
+        assert "mesh={'dp': 1, 'tp': 1}: AIS chains dp-sharded" in out
+        assert "[test] AIS log p(x) = " in out
     elif not seeds:
         assert "[profile] tracing to traces" in out
         assert any(os.path.getsize(os.path.join("traces", f)) > 0

@@ -2,8 +2,9 @@
 JAX package's: S = 3 stacked replicas of the gauss, flow, MIWAE and
 notMIWAE bridges anneal the same chains (5 rows, 4 chains a row, linear
 T = 10) under JAX's replayed keys; replica s against the port's serial
-`eval_ais` of its parameters under the default noise; the `.seed{s}`
-artifacts; and `ais_eval -seeds 2` (with and without `-bdmc true`) against
+`eval_ais` of its parameters under the same draws, asked for in the same
+order (so any stateful source gives both the same values), and under the
+default noise for the gauss bridge; the `.seed{s}` artifacts; and `ais_eval -seeds 2` (with and without `-bdmc true`) against
 JAX's entry point over the same checkpoints.
 
 As in tests/test_torch_ais.py, every accept decision's log-space gap is
@@ -91,26 +92,65 @@ def _tree(root):
             if ".pt" in f}
 
 
+@pytest.fixture(scope="module")
+def ensembles(tmp_path_factory):
+    """Each family's ensemble run by both packages (the port's under JAX's
+    keys, each split's draws recorded), what each printed, and the port's
+    accept decisions, computed once for the module's tests."""
+    import contextlib
+    import io
+
+    cache = {}
+
+    def run(vae_type, extra):
+        if vae_type in cache:
+            return cache[vae_type]
+        jc, tc, jens, tens, singles = _stacked(vae_type, extra)
+        jds, tds = _datasets()
+        jroot = str(tmp_path_factory.mktemp(f"jax_{vae_type}"))
+        troot = str(tmp_path_factory.mktemp(f"port_{vae_type}"))
+        jax_out, port_out = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(jax_out):
+            want = jais.eval_ais_ensemble(jds, jc, jens, n_sample=CHAINS,
+                                          experiments_root=jroot)
+        key = jax.random.PRNGKey(tc.seed + 4)
+        draws, order = [{}, {}], [[], []]
+
+        def source(i):
+            keys = JaxChainKeys(jax.random.fold_in(key, i), T)
+
+            def recording(kind, t, shape, df=None):
+                draws[i][kind, t, tuple(shape)] = keys(kind, t, shape)
+                order[i].append((kind, t, tuple(shape)))
+                return draws[i][kind, t, tuple(shape)]
+
+            return recording
+
+        with pytest.MonkeyPatch.context() as mp, \
+                recorded_port_steps(mp) as steps, \
+                contextlib.redirect_stdout(port_out):
+            got = tais.eval_ais_ensemble(
+                tds, tc, tens, n_sample=CHAINS, experiments_root=troot,
+                noise=source, device="cpu")
+        cache[vae_type] = dict(
+            tc=tc, tds=tds, singles=singles, want=want, got=got,
+            steps=steps, draws=draws, order=order, jroot=jroot, troot=troot,
+            jax_out=jax_out.getvalue(), port_out=port_out.getvalue())
+        return cache[vae_type]
+
+    return run
+
+
 @pytest.mark.parametrize("vae_type,extra", FAMILIES,
                          ids=[f for f, _ in FAMILIES])
-def test_ensemble_matches_jax(tmp_path, monkeypatch, capsys, vae_type,
-                              extra):
+def test_ensemble_matches_jax(ensembles, vae_type, extra):
     """Every replica's estimate and final chains, and every artifact
     (`<stage>_ais.pt{sfx}`, `<stage>_ais_true_latents.pt{sfx}`, 0-d float64
     and [B0, n, L] float32) and metric record, against JAX's ensemble."""
-    jc, tc, jens, tens, _ = _stacked(vae_type, extra)
-    jds, tds = _datasets()
-    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
-    want = jais.eval_ais_ensemble(jds, jc, jens, n_sample=CHAINS,
-                                  experiments_root=jroot)
-    jax_out = capsys.readouterr().out
-    key = jax.random.PRNGKey(tc.seed + 4)
-    with recorded_port_steps(monkeypatch) as steps:
-        got = tais.eval_ais_ensemble(
-            tds, tc, tens, n_sample=CHAINS, experiments_root=troot,
-            noise=lambda i: JaxChainKeys(jax.random.fold_in(key, i), T),
-            device="cpu")
-    assert capsys.readouterr().out == jax_out
+    run = ensembles(vae_type, extra)
+    tc, want, got, steps = run["tc"], run["want"], run["got"], run["steps"]
+    jroot, troot = run["jroot"], run["troot"]
+    assert run["port_out"] == run["jax_out"]
     assert len(steps) == 2 * (T - 1)
     for prob, u, _ in steps:
         assert prob.shape == (S, ROWS * CHAINS)
@@ -147,9 +187,45 @@ def test_ensemble_matches_jax(tmp_path, monkeypatch, capsys, vae_type,
 
 @pytest.mark.parametrize("vae_type,extra", FAMILIES,
                          ids=[f for f, _ in FAMILIES])
-def test_each_replica_is_the_serial_eval_ais(monkeypatch, vae_type, extra):
-    """Replica s under the default noise is `eval_ais` of replica s's
-    parameters: the same chains, drawn from the same per-split source."""
+def test_each_replica_is_the_serial_eval_ais(ensembles, vae_type, extra):
+    """Replica s of the fixture's ensemble is `eval_ais` of replica s's
+    parameters: the same chains, drawn from the same per-split draws
+    (JAX's, as the ensemble drew them), which the serial run asks for in
+    the order and at the shapes the ensemble drew them: so under a
+    stateful source, the default noise of every CLI run, both get the
+    same values."""
+    run = ensembles(vae_type, extra)
+    tc, tds, ens, steps = run["tc"], run["tds"], run["got"], run["steps"]
+    draws = run["draws"]
+
+    for s, params in enumerate(run["singles"]):
+        asked = [[], []]
+
+        def source(i):
+            def replay(kind, t, shape, df=None):
+                asked[i].append((kind, t, tuple(shape)))
+                return draws[i][asked[i][-1]]
+
+            return replay
+
+        serial = tais.eval_ais(tds, tc, params=params, n_sample=CHAINS,
+                               noise=source, save=False, device="cpu")
+        assert asked == run["order"], s
+        for stage, res in serial.items():
+            np.testing.assert_allclose(ens[stage].logw[s], res.logw,
+                                       rtol=LOGW_RTOL, err_msg=stage)
+            np.testing.assert_allclose(ens[stage].latents[s], res.latents,
+                                       rtol=0, atol=Z_ATOL, err_msg=stage)
+    for prob, u, _ in steps:
+        _assert_gaps(prob, u)
+
+
+def test_a_replica_under_the_default_noise_is_the_serial_eval_ais(
+        monkeypatch):
+    """Under the default noise (a stateful generator a split, as every CLI
+    run draws) replica s of the gauss bridge's ensemble is `eval_ais` of
+    replica s's parameters."""
+    vae_type, extra = FAMILIES[0]
     _, tc, _, tens, singles = _stacked(vae_type, extra)
     _, tds = _datasets()
     with recorded_port_steps(monkeypatch) as steps:
@@ -168,10 +244,22 @@ def test_each_replica_is_the_serial_eval_ais(monkeypatch, vae_type, extra):
 
 
 def test_mesh_raises_naming_its_slice():
+    """Since slice 10 part 2 the ensemble's chains run on a mesh: on a
+    one-device mesh it is the single-device run, bit for bit."""
+    from torch_dist_worker import one_rank_mesh
+
     _, tc, _, tens, _ = _stacked("reg_vae1", {})
     _, tds = _datasets()
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tais.eval_ais_ensemble(tds, tc, tens, mesh=object(), device="cpu")
+    sched = tais.linear_schedule(3)
+    plain = tais.eval_ais_ensemble(tds, tc, tens, schedule=sched,
+                                   n_sample=2, save=False, device="cpu")
+    with one_rank_mesh() as mesh:
+        meshed = tais.eval_ais_ensemble(tds, tc, tens, schedule=sched,
+                                        n_sample=2, save=False, mesh=mesh,
+                                        device="cpu")
+    for stage, res in plain.items():
+        np.testing.assert_array_equal(res.logw, meshed[stage].logw)
+        np.testing.assert_array_equal(res.latents, meshed[stage].latents)
 
 
 @pytest.mark.parametrize("flags", [[], ["-bdmc", "true"]],

@@ -3,8 +3,9 @@
 across through the checkpoint flat keys) under JAX's replayed key tree
 (`JaxALKeys`) for the gauss, EDDI, flow and MIWAE families; each replica
 against the port's serial `active_learning_func` of its parameters under
-the default noise; the `.seed{s}` artifacts against JAX's in name, shape
-and dtype; and the AL entry point's `-seeds` and `-ensemble true` paths
+the same draws, asked for in the same order (so any stateful source gives
+both the same values), and under the default noise for the gauss family;
+the `.seed{s}` artifacts against JAX's in name, shape and dtype; and the AL entry point's `-seeds` and `-ensemble true` paths
 against JAX's, run over the same trained checkpoints."""
 
 import json
@@ -91,12 +92,20 @@ def ensembles(tmp_path_factory):
             want = jal.active_learning_ensemble(
                 x, mask, jc, jens, experiments_root=jroot, Repeat=repeat,
                 key=key)
+            keys, draws, order = JaxALKeys(key, tc), {}, []
+
+            def recording(kind, r, step, shape):
+                drawn = keys(kind, r, step, shape)
+                draws[kind, r, step, tuple(shape)] = drawn
+                order.append((kind, r, step, tuple(shape)))
+                return drawn
+
             got = tal.active_learning_ensemble(
                 x, mask, tc, tens, experiments_root=troot, Repeat=repeat,
-                noise=JaxALKeys(key, tc), device="cpu")
+                noise=recording, device="cpu")
             cache[vae_type] = dict(
                 jc=jc, tc=tc, jroot=jroot, troot=troot, x=x, mask=mask,
-                singles=singles, tens=tens,
+                singles=singles, tens=tens, draws=draws, order=order,
                 want={k: np.asarray(v) for k, v in want.items()},
                 got={k: v.numpy() for k, v in got.items()})
         return cache[vae_type]
@@ -134,19 +143,53 @@ def test_ensemble_matches_jax(ensembles, vae_type):
 
 @pytest.mark.parametrize("vae_type", sorted(EPISODES))
 def test_each_replica_is_the_serial_episode(ensembles, vae_type):
-    """Replica s under the default noise equals the port's serial episode
-    of replica s's parameters (the same draws: the ensemble replays the
-    serial episode's stream)."""
+    """Replica s of the fixture's ensemble equals the port's serial episode
+    of replica s's parameters under the same draws (JAX's, as the
+    ensemble drew them), and the serial episode asks for its draws in the
+    order and at the shapes the ensemble drew them (`replay_noise`): so
+    under a stateful source, the default noise of every CLI run, both get
+    the same values."""
     run = ensembles(vae_type)
-    tc, x = run["tc"], run["x"]
+    tc, x, draws = run["tc"], run["x"], run["draws"]
     repeat = EPISODES[vae_type][1]
-    ens = tal.active_learning_ensemble(x, None, tc, run["tens"],
-                                       Repeat=repeat, save=False,
-                                       device="cpu")
+    ens = {k: torch.from_numpy(v) for k, v in run["got"].items()}
     for s, params in enumerate(run["singles"]):
-        serial = tal.active_learning_func(None, x, run["mask"], tc,
-                                          params=params, Repeat=repeat,
-                                          save=False, device="cpu")
+        asked = []
+
+        def replay(kind, r, step, shape):
+            asked.append((kind, r, step, tuple(shape)))
+            return draws[asked[-1]]
+
+        serial = tal.active_learning_func(
+            None, x, run["mask"], tc, params=params, Repeat=repeat,
+            noise=replay, save=False, device="cpu")
+        assert asked == run["order"], s
+        _assert_gaps(serial["R_hist"].numpy(),
+                     lambda R: SERIAL_ATOL + SERIAL_RTOL * np.abs(R))
+        assert torch.equal(ens["action"][s], serial["action"]), s
+        for name in tal.ARTIFACTS:
+            np.testing.assert_allclose(ens[name][s].numpy(),
+                                       serial[name].numpy(),
+                                       rtol=SERIAL_RTOL, atol=SERIAL_ATOL,
+                                       err_msg=f"replica {s}, {name}")
+
+
+def test_a_replica_under_the_default_noise_is_the_serial_episode():
+    """Under the default noise (one stateful generator, as every CLI run
+    draws) replica s of the gauss family's ensemble equals the port's
+    serial episode of replica s's parameters, over two repeats."""
+    M, repeat, head_scale, extra = EPISODES["vanilla_vae1"]
+    kw = dict(vae_type="vanilla_vae1", M=M, seed=3, missing_rate=30,
+              **extra)
+    tc = tcfg.RunConfig(**kw)
+    _, tens, singles = _stacked(jcfg.RunConfig(**kw), head_scale)
+    x, mask = _data()
+    ens = tal.active_learning_ensemble(x, mask, tc, tens, Repeat=repeat,
+                                       save=False, device="cpu")
+    for s, params in enumerate(singles):
+        serial = tal.active_learning_func(None, x, mask, tc, params=params,
+                                          Repeat=repeat, save=False,
+                                          device="cpu")
         _assert_gaps(serial["R_hist"].numpy(),
                      lambda R: SERIAL_ATOL + SERIAL_RTOL * np.abs(R))
         assert torch.equal(ens["action"][s], serial["action"]), s
@@ -186,11 +229,24 @@ def test_seed_artifacts_match_jax_in_names_shapes_and_dtypes(ensembles,
 
 
 def test_mesh_raises_naming_its_slice():
-    tc = tcfg.RunConfig(vae_type="vanilla_vae1")
+    """Since slice 10 part 2 the ensemble episode runs on a mesh: on a
+    one-device mesh it is the single-device episode, bit for bit."""
+    from torch_dist_worker import one_rank_mesh
+
+    kw = dict(vae_type="vanilla_vae1", M=2)
+    tc = tcfg.RunConfig(**kw)
     x, mask = _data()
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tal.active_learning_ensemble(x, mask, tc, {}, mesh=object(),
-                                     device="cpu")
+    x = x[:4]
+    _, tens, _ = _stacked(jcfg.RunConfig(**kw), 1.0)
+    tens = tckpt.unflatten({k: v[:1] for k, v in
+                            tckpt.flatten(tens).items()})
+    plain = tal.active_learning_ensemble(x, mask, tc, tens, save=False,
+                                         device="cpu")
+    with one_rank_mesh() as mesh:
+        meshed = tal.active_learning_ensemble(x, mask, tc, tens, save=False,
+                                              mesh=mesh, device="cpu")
+    for name in tal.ARTIFACTS:
+        assert torch.equal(plain[name], meshed[name]), name
 
 
 # ---------------------------------------------------------------------------

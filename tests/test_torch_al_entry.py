@@ -83,20 +83,19 @@ def test_one_record_episode_writes_what_jax_writes(tmp_path, monkeypatch,
 @pytest.mark.parametrize("flags,slice_name", [
     # a spec that is not integers: int()'s ValueError, as in JAX
     (["-mesh", "dp=2"], (ValueError, "invalid literal for int")),
-    # a mesh (one device, '1,1'): the AL mesh comes with slice 10 part 2
-    (["-mesh", "1,1"], (NotImplementedError, "slice 10 part 2")),
+    # a mesh (one device, '1,1') beside -seeds: runs since slice 10 part 2
+    (["-mesh", "1,1", "-seeds", "2"], None),
     # ported since (slice 9 part 2): they run
     (["-ensemble", "true"], None),
     (["-seeds", "2"], None),
 ])
 def test_unported_flags_are_refused(tmp_path, monkeypatch, capsys, flags,
                                     slice_name):
-    """A -mesh that is not integers raises int()'s ValueError, and one
-    that resolves to a mesh stops the run before it starts, naming its
-    slice. The
+    """A -mesh that is not integers raises int()'s ValueError. The
     ensemble flags run: over a record trained with -seeds 2, `-ensemble
     true` makes one ensemble episode and writes the seed-0 artifacts, and
-    `-seeds 2` a two-seed episode writing the `.seed1` siblings too."""
+    `-seeds 2` a two-seed episode writing the `.seed1` siblings too, on a
+    one-device mesh with `-mesh 1,1` (its line tagged)."""
     if slice_name is not None:
         monkeypatch.chdir(_workdir(tmp_path, [_record(VANILLA_VAE)]))
         with pytest.raises(slice_name[0], match=slice_name[1]):
@@ -109,9 +108,10 @@ def test_unported_flags_are_refused(tmp_path, monkeypatch, capsys, flags,
     assert active_learning.main(flags + ["-device", "cpu"]) == 0
     out = capsys.readouterr().out
     seeds = 2 if "-seeds" in flags else 1
+    tag = " mesh={'dp': 1, 'tp': 1}" if "-mesh" in flags else ""
     assert ("=== active learning vanilla_vae1 (ensemble" in out
             if seeds == 1 else
-            "=== active learning vanilla_vae1 (seeds=2) ===" in out)
+            f"=== active learning vanilla_vae1 (seeds=2){tag} ===" in out)
     jc = jcfg.RunConfig.from_jsonl_record(record, alpha=1.0,
                                           p_missingness=30)
     for name, path in jart.active_learning_paths(jc, "experiments").items():

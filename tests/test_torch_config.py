@@ -30,6 +30,12 @@ VAE_TYPES = [
 ]
 
 
+def _check_mesh(args):
+    """The check every entry point makes of its flags before it runs:
+    `mesh_shape`'s ValueError for a -mesh no device count satisfies."""
+    tcfg.mesh_shape(args.mesh, tcfg.device_count())
+
+
 @pytest.mark.parametrize("vae_type", VAE_TYPES)
 def test_parse_vae_type_matches_jax(vae_type):
     got = dataclasses.asdict(tcfg.parse_vae_type(vae_type))
@@ -186,32 +192,30 @@ def test_bdmc_flag_is_ais_entry_only():
     # engine, '2,1' needs two devices (JAX's ValueError and message)
     (["-mesh", "auto"], None),
     (["-mesh", "2,1"], (ValueError, "needs 2 devices, have 1")),
-    # a mesh beside the ensemble flags waits for slice 10 part 2
-    (["-mesh", "1,1", "-seeds", "4"], (NotImplementedError,
-                                       "slice 10 part 2")),
+    # a mesh beside the ensemble flags runs since slice 10 part 2
+    (["-mesh", "1,1", "-seeds", "4"], None),
     # ported since: every entry point has its ensembles and -profile
     (["-ensemble", "true"], None), (["-seeds", "4"], None),
     (["-profile", "traces"], None)])
 def test_unported_flags_name_their_slice(argv, refusal):
-    """`check_unported` refuses a -mesh no device count satisfies (JAX's
-    ValueError) and a resolved mesh on a path of slice 10 part 2, naming
-    it; the flags ported since pass, and -profile makes `maybe_profile` a
-    trace."""
+    """An entry point refuses a -mesh no device count satisfies (JAX's
+    ValueError); a resolved mesh beside the ensemble flags and the flags
+    ported since pass, and -profile makes `maybe_profile` a trace."""
     args = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args(argv)
     if refusal is None:
-        tcfg.check_unported(args)
+        _check_mesh(args)
         traced = not isinstance(tcfg.maybe_profile(args),
                                 contextlib.nullcontext)
         assert traced == (argv[0] == "-profile")
         return
     with pytest.raises(refusal[0], match=refusal[1]):
-        tcfg.check_unported(args)
+        _check_mesh(args)
 
 
 def test_ported_flags_pass():
     args = tcfg.setup_parser(RECORDS[33], "impute_eval").parse_args(
         ["-mesh", " ", "-seeds", "1", "-ensemble", "no", "-device", "cpu"])
-    tcfg.check_unported(args)
+    _check_mesh(args)
     assert args.device == "cpu"
 
 

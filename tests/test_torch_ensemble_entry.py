@@ -1,10 +1,10 @@
 """The ensemble paths of the port's two imputation entry points against the
 JAX package's: each path run by both over the same small grid (synth_small,
-2 epochs) writes the same checkpoint, `.seed{s}`, resume-file and artifact
+1 epoch) writes the same checkpoint, `.seed{s}`, resume-file and artifact
 names and prints the same banners; the per-replica early stopper reaches
 the ensembles; `restrict_grid_records` cuts an ensemble grid to one record;
-and `check_unported` lets the ensemble flags through for every entry
-point."""
+and the mesh check every entry point makes lets the ensemble flags
+through."""
 
 import os
 import shutil
@@ -22,14 +22,21 @@ from vae_posterior_consistency_tpu_torch.parallel import sweep as tsweep
 from vae_posterior_consistency_tpu_torch.utils import early_stopping as tes
 from cli_harness import REPO, grid_record
 
-#: small records of the grid's shape: synth_small (120 rows of 6) at 2
-#: epochs, narrow and with few importance samples
-BASE = dict(data_type="synth_small", epoch=2, batch_size=16, M=1, train_k=2,
+#: small records of the grid's shape: synth_small (120 rows of 6) at 1
+#: epoch (what is compared, the names written and the banners, does not
+#: depend on the epochs), narrow and with few importance samples
+BASE = dict(data_type="synth_small", epoch=1, batch_size=16, M=1, train_k=2,
             valid_k=3, latent_dim=4, missing_rate=30, hid_dim=32)
 MCAR_RECORDS = [grid_record(vae_type=f"{fam}{i}", **BASE)
                 for fam in ("reg_vae", "vanilla_EDDI") for i in "12"]
 MNAR_RECORDS = [grid_record(vae_type=v, **BASE)
                 for v in ("reg_notMIWAE1", "vanilla_vae1")]
+
+
+def _check_mesh(args):
+    """The check every entry point makes of its flags before it runs:
+    `mesh_shape`'s ValueError for a -mesh no device count satisfies."""
+    tcfg.mesh_shape(args.mesh, tcfg.device_count())
 
 
 def _workdir(path, mcar=MCAR_RECORDS, mnar=MNAR_RECORDS):
@@ -191,17 +198,18 @@ def test_ensemble_vae_type_flag_runs_one_record(tmp_path, monkeypatch,
 @pytest.mark.parametrize("flags", [["-ensemble", "true"], ["-seeds", "2"]])
 def test_active_learning_ensemble_flags_still_name_their_slice(flags):
     """The AL entry point's and ais_eval's ensembles came with slice 9 part
-    2: `check_unported`, which every entry point calls, lets the ensemble
-    flags through, in both parsers; it names slice 10 part 2 for a mesh
-    beside them."""
+    2: the mesh check every entry point makes lets the ensemble
+    flags through, in both parsers, and since slice 10 part 2 a mesh beside
+    them too."""
     record = {"vae_type": {"default": "reg_vae1", "help": ""}}
     for title in ("impute_eval", "ais_eval"):
         args = tcfg.setup_parser(record, title).parse_args(flags)
-        tcfg.check_unported(args)
-    # beside them -mesh 'auto' resolves to no mesh on one device and
-    # passes; a mesh ('1,1') waits for slice 10 part 2
-    tcfg.check_unported(tcfg.setup_parser(record, "impute_eval")
-                        .parse_args(flags + ["-mesh", "auto"]))
-    with pytest.raises(NotImplementedError, match="slice 10 part 2"):
-        tcfg.check_unported(tcfg.setup_parser(record, "impute_eval")
-                            .parse_args(flags + ["-mesh", "1,1"]))
+        _check_mesh(args)
+    # beside them -mesh 'auto' resolves to no mesh on one device and a
+    # mesh ('1,1') to one: both pass; '2,1' needs two devices
+    for mesh in ("auto", "1,1"):
+        _check_mesh(tcfg.setup_parser(record, "impute_eval")
+                    .parse_args(flags + ["-mesh", mesh]))
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        _check_mesh(tcfg.setup_parser(record, "impute_eval")
+                    .parse_args(flags + ["-mesh", "2,1"]))

@@ -4,7 +4,7 @@ virtual CPU devices under replayed keys; `imputation` and `imputation_mnar`
 with `-mesh 2,1` on two gloo ranks (`torch_dist_worker.spawn`, one spawn
 for the module); `-mesh auto` on one process, which resolves to the
 single-device engine in all four entry points; a resolved mesh on the
-paths of slice 10 part 2 refused before anything runs."""
+paths of slice 10 part 2 run on a one-device mesh."""
 
 import json
 import math
@@ -260,7 +260,8 @@ def _run_entry(name, path, flags):
     if name in ("active_learning", "ais_eval"):
         _seeded_checkpoint(path, record)
     argv = {"imputation": [], "imputation_mnar": ["-epoch", "1", "-valid_k",
-                                                  "20", "-M", "1"],
+                                                  "20", "-M", "1", "-train_k",
+                                                  "2"],
             "active_learning": ["-M", "2"], "ais_eval": []}[name]
     main = {"imputation": imputation, "imputation_mnar": imputation_mnar,
             "active_learning": active_learning, "ais_eval": ais_eval}[name]
@@ -333,23 +334,47 @@ def test_mesh_1_1_in_one_process_runs_the_sharded_engine(tmp_path,
 def test_a_resolved_mesh_on_a_part_2_path_is_refused(tmp_path, monkeypatch,
                                                      module, flags):
     """`-mesh 1,1` resolves to a mesh; beside the ensemble flags, and in
-    the AL and AIS entry points, it is refused naming slice 10 part 2
-    before anything runs or any process group is made."""
-    monkeypatch.chdir(_workdir(tmp_path, [_record(34, epoch=1)]))
-    with pytest.raises(NotImplementedError, match="slice 10 part 2"):
-        module.main(["-device", "cpu", "-mesh", "1,1", *flags])
-    assert not os.path.exists(tmp_path / "experiments")
+    the AL and AIS entry points, it runs since slice 10 part 2 (in one
+    process, on a world-size-1 group the run makes and destroys) and
+    writes the files the same flags write without a mesh, value for
+    value."""
+    name = {imputation: "imputation", imputation_mnar: "imputation_mnar",
+            active_learning: "active_learning", ais_eval: "ais_eval"}[module]
+    plain = _run_entry(name, tmp_path / "plain", flags)
+    meshed = _run_entry(name, tmp_path / "mesh", ["-mesh", "1,1", *flags])
+    assert "mesh={'dp': 1, 'tp': 1}" in meshed and "mesh=" not in plain
     assert not torch.distributed.is_initialized()
+    a = tmp_path / "plain" / "experiments"
+    b = tmp_path / "mesh" / "experiments"
+    files = _tree(a)
+    assert files and _tree(b) == files
+    for rel in files:
+        if rel.endswith(".jsonl"):
+            continue
+        x = torch.load(os.path.join(a, rel), weights_only=False)
+        y = torch.load(os.path.join(b, rel), weights_only=False)
+        for k, v in (x.items() if isinstance(x, dict) else [(rel, x)]):
+            w = y[k] if isinstance(y, dict) else y
+            np.testing.assert_array_equal(np.asarray(v), np.asarray(w))
 
 
 def test_serving_over_a_mesh_waits_for_part_2():
-    """The server's `mesh` (rows dp-sharded in JAX, engine/serve.py:32-48)
-    is refused naming its slice."""
+    """The server's `mesh` (rows dp-sharded, engine/serve.py:32-48) runs
+    since slice 10 part 2: on a one-device mesh it answers as the plain
+    server, bit for bit."""
     from vae_posterior_consistency_tpu_torch.engine import serve
+    from torch_dist_worker import one_rank_mesh
 
     cfg = tcfg.RunConfig(vae_type="reg_vae1")
     params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, 13,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10 part 2"):
-        serve.ImputationServer(params, cfg, 13, device="cpu", mesh=object())
-    serve.ImputationServer(params, cfg, 13, device="cpu", mesh=None)
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(5, 13)).astype(np.float32)
+    m = (rng.random((5, 13)) < 0.6).astype(np.float32)
+    plain = serve.ImputationServer(params, cfg, 13, device="cpu")
+    with one_rank_mesh() as mesh:
+        meshed = serve.ImputationServer(params, cfg, 13, device="cpu",
+                                        mesh=mesh)
+        assert meshed.buckets == plain.buckets
+        for a, b in zip(plain.impute(x, m), meshed.impute(x, m)):
+            np.testing.assert_array_equal(a, b)

@@ -292,11 +292,10 @@ def test_entry_point_runs_both_records_and_writes_jax_names(
 
 
 @pytest.mark.parametrize("flags,slice_", [
-    # the ensemble flags pass now (slice 9); beside a mesh ('1,1' resolves
-    # to one, where 'auto' on one device does not) the run still stops
-    # before it starts, naming the slice that brings the ensembles' mesh
-    (["-seeds", "2", "-mesh", "1,1"], (NotImplementedError,
-                                       "slice 10 part 2")),
+    # the ensemble flags pass now (slice 9), and beside a mesh ('1,1'
+    # resolves to one, where 'auto' on one device does not) since slice
+    # 10 part 2: the seed ensemble trains on it under a trace
+    (["-seeds", "2", "-mesh", "1,1", "-profile", "t2"], None),
     # -profile passes now too (slice 11): the run goes on under a trace
     (["-ensemble", "true", "-profile", "t"], None),
     # a spec that is not integers: int()'s ValueError, as in JAX

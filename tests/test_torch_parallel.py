@@ -306,14 +306,15 @@ def two_ranks(tmp_path_factory):
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     """The (2, 2) runs (the step, the reg_vae1 loop, checkpoint written,
-    and the loop at a width whose leaves tp shards), 3 rows on dp = 4, and
-    the dry run at hid_dim 256."""
+    the loop at a width whose leaves tp shards, and a seed ensemble), 3
+    rows on dp = 4, and the dry run at hid_dim 256."""
     tmp = tmp_path_factory.mktemp("four_ranks")
     cases = {
         "step": _step_case(2, 2),
         "step_wide": _step_case(2, 2, d=WIDE),
         "reg_vae1": _train_case("reg_vae1", 2, 2, root=str(tmp / "ck")),
         "wide": _train_case("reg_vae1", 2, 2, d=WIDE),
+        "seed_ensemble": _seed_ensemble_case(2, 2, str(tmp / "ens")),
     }
     x3 = np.random.default_rng(0).uniform(0, 1, (3, 5)).astype(np.float32)
     extra = {
@@ -331,6 +332,28 @@ def four_ranks(tmp_path_factory):
     got = [dict(zip(names, r)) for r in ranks]
     want = {k: w for k, (_, w) in cases.items()}
     return got, want, tmp
+
+
+def _seed_ensemble_case(dp, tp, root):
+    """JAX's seed ensemble of 3 replicas on a (dp, tp) mesh (padded to 4
+    on dp = 2) for one epoch, and the port job from JAX's padded init
+    under its keys, its resume file written into `root`."""
+    from vae_posterior_consistency_tpu.parallel import sweep as jsweep
+    from test_torch_mesh_sweep import _epochs, _init, _kw
+    from test_torch_sweep import JaxEnsembleKeys, _cfgs, _seed_keys
+
+    jc, tc = _cfgs("reg_vae1", epoch=1)
+    data = _data()
+    want_p, want_h = jsweep.train_seed_ensemble(_jds(data), jc, [0, 1, 2],
+                                                mesh=_jmesh(dp, tp))
+    run_seeds = [0, 1, 2, 2]
+    job = ("ensemble", dict(
+        trainer="train_seed_ensemble", cfg=_kw(tc), data=data,
+        params=_init(jc, _seed_keys(run_seeds)),
+        epochs=_epochs(JaxEnsembleKeys("seed", tc, 4, run_seeds), tc, N, 1),
+        kwargs=dict(seeds=[0, 1, 2]), mesh_shape=(dp, tp), root=root,
+        runs=[(1, 1, False)]))
+    return job, {"hist": np.asarray(want_h), "params": want_p}
 
 
 def _ranks(request, world):
@@ -431,6 +454,25 @@ def test_three_rows_train_on_dp_4(four_ranks):
 def test_dryrun_train_step_is_finite_on_a_2x2_mesh(four_ranks):
     losses = [r["dryrun"]["loss"] for r in four_ranks[0]]
     assert np.isfinite(losses).all() and len(set(losses)) == 1
+
+
+def test_seed_ensemble_on_a_2x2_mesh_matches_jax_s(four_ranks):
+    """3 seed replicas padded to 4 on (dp, tp) = (2, 2): every rank, the
+    tp ranks repeating their dp row's replicas, ends with JAX's history
+    and parameters; rank 0 alone writes the resume file."""
+    from test_torch_resume import HIST_RTOL
+    from test_torch_sweep import STEPS_PER_EPOCH, _close
+
+    got, want, _ = four_ranks
+    w = want["seed_ensemble"]
+    for rank in got:
+        r = rank["seed_ensemble"]
+        assert r["hist"].shape == (3, 1)
+        np.testing.assert_allclose(r["hist"], w["hist"], rtol=HIST_RTOL)
+        _close(tckpt.params_from_jax(r["params"], "cpu"), w["params"],
+               STEPS_PER_EPOCH)
+    saves = [rank["seed_ensemble"]["saves"]["save_resume"] for rank in got]
+    assert saves == [1, 0, 0, 0]
 
 
 def test_resumed_run_equals_the_straight_run_bit_for_bit(two_ranks):

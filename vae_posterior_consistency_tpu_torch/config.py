@@ -10,8 +10,9 @@ src/utils/utils.py:177-189). The flags the JAX package adds (`-mesh`,
 parser) parse the same way here. `-mesh` resolves as the JAX package
 resolves it (`mesh_shape`, `resolve_mesh`): '' and a one-device 'auto' are
 the single-device engine, 'DP' or 'DP,TP' a mesh over the ranks of the
-process group; `check_unported` refuses a resolved mesh on the paths whose
-mesh comes with part 2 of slice 10 (the ensembles, active learning, AIS).
+process group, which every path of every entry point runs on; the entry
+points refuse a spec no device count satisfies (`mesh_shape`'s ValueError)
+before anything runs.
 The port adds one flag of its own, `-device` (its default
 `set_default_device`'s, `cuda` unless VPC_PLATFORM says otherwise). The
 ensemble flags reach every entry point's ensembles; `restrict_grid_records`
@@ -68,11 +69,6 @@ _EXTRA_FLAGS = {
     "device": (str, "cuda", "torch device the run uses: 'cuda' (the "
                "kernels) or 'cpu' (their plain versions)"),
 }
-
-#: the ROADMAP.md slice that brings the mesh of the ensembles, active
-#: learning, AIS and serving
-SLICE_MESH = "slice 10 part 2 (the multi-device ensembles, AL, AIS, serving)"
-
 
 def set_default_device(device: str) -> None:
     """Make `device` the default of the `-device` flag of every parser
@@ -327,22 +323,6 @@ def resolve_mesh(cfg: "RunConfig", device=None):
     device = _EXTRA_FLAGS["device"][1] if device is None else device
     multihost.ensure_group(device)
     return meshlib.make_mesh(dp=shape[0], tp=shape[1], device=device)
-
-
-def check_unported(args, mesh_ported: bool = True) -> None:
-    """Refuse, naming the slice, a `-mesh` that resolves to a mesh on a
-    path whose mesh the port does not have yet: `-ensemble true`, `-seeds`
-    above 1, and every path of an entry point that passes `mesh_ported`
-    False (active learning, AIS). Raises `mesh_shape`'s ValueError for a
-    spec no device count satisfies, before anything runs."""
-    shape = mesh_shape(getattr(args, "mesh", ""), device_count())
-    if shape is None:
-        return
-    if (not mesh_ported or bool(getattr(args, "ensemble", False))
-            or int(getattr(args, "seeds", 1) or 1) > 1):
-        raise NotImplementedError(
-            f"-mesh {args.mesh!r} on this path: its multi-device engine is "
-            f"not ported yet; it comes with {SLICE_MESH}")
 
 
 def maybe_profile(args):

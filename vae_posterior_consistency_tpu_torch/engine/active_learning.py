@@ -40,6 +40,21 @@ By default one `torch.Generator` seeded with cfg.seed + 3 on the device
 draws them in that order. The JAX package also draws a `mask_p` a repeat
 that no reward reads (evaluate.py:351-352); the port draws none.
 
+Mesh (the JAX package's engine/active_learning.py:219-236, 89-115). With a
+(dp, tp) mesh the test rows are dp-sharded: they are padded with zero rows
+to a multiple of dp (`parallel/mesh.Rows`), each dp rank runs the episode
+on its block (the tp ranks of one dp index repeat it), its draws are the
+global draws at the padded row count cut to its rows (`parallel/mesh.
+RankRows`: the row axis of "init", "im", "mse" and the flow's "flow"), and
+rewards and reveals stay row-local. The one collective is the predictive
+MSE: each rank's squared errors are summed with the padded rows weighted
+out (`predictive_mse(row_weights=)`), the sums all-reduced over dp and
+divided by M times the real row count, as JAX's `sum(sq * w) / (M *
+sum(w))`. The MSE feeds no decision, so the reduce comes after the
+episode. The row artifacts are all-gathered and cut to the real rows;
+rank 0 alone writes. At dp = 1 nothing is padded or reduced: the mesh
+episode is the single-device one.
+
 `active_learning_ensemble` runs the episode of S seed replicas (stacked
 parameters, `checkpoint.load_seed_ensemble`) as one `torch.func.vmap` of
 `run_episode` over the replicas. Every replica sees the same draws: a
@@ -56,7 +71,7 @@ import os
 
 import torch
 
-from vae_posterior_consistency_tpu_torch.config import SLICE_MESH, RunConfig
+from vae_posterior_consistency_tpu_torch.config import RunConfig
 from vae_posterior_consistency_tpu_torch.data.loaders import Dataset, Split
 from vae_posterior_consistency_tpu_torch.engine import artifacts, checkpoint
 from vae_posterior_consistency_tpu_torch.engine.inference import completion
@@ -66,6 +81,8 @@ from vae_posterior_consistency_tpu_torch.engine.train import (
     load_trained,
 )
 from vae_posterior_consistency_tpu_torch.models import get_model
+from vae_posterior_consistency_tpu_torch.parallel import mesh as meshlib
+from vae_posterior_consistency_tpu_torch.parallel import multihost
 
 #: reward placeholder for already-revealed features
 #: (reference: evaluate.py:391)
@@ -117,11 +134,16 @@ def eps_shape(cfg: RunConfig, n: int, D: int) -> tuple:
     return tuple(get_model(cfg).eval_noise(cfg, n, D)["eps"])
 
 
-def predictive_mse(cfg, params, x, mask, eps):
+def predictive_mse(cfg, params, x, mask, eps, row_weights=None):
     """The mean over the M samples and the rows of the squared error of the
-    imputed target (reference: evaluate.py:364-385), a 0-d tensor."""
+    imputed target (reference: evaluate.py:364-385), a 0-d tensor; with
+    `row_weights` [n], the weighted sum of the squared errors instead (a
+    mesh rank's share, which the caller reduces and divides)."""
     im = _impute_samples(cfg, params, x, mask, eps)
-    return torch.mean(torch.square(im[:, :, -1] - x[None, :, -1]))
+    sq = torch.square(im[:, :, -1] - x[None, :, -1])
+    if row_weights is None:
+        return torch.mean(sq)
+    return torch.sum(sq * row_weights[None, :])
 
 
 def _onehots(D, device):
@@ -192,11 +214,12 @@ def rewards(model, params, cfg, x, mask, im, eps=None):
 
 
 def al_step(model, params, cfg: RunConfig, x, mask, noise, repeat: int,
-            t: int) -> dict:
+            t: int, row_weights=None) -> dict:
     """Selection step t of episode `repeat` from `mask` [n, D]: the M
     imputations, the rewards, the argmax reveal of each row and the
-    predictive MSE after it. Returns {"R" [n, D-1], "action" [n] (float32),
-    "mse" (0-d), "im" [M, n, D], "mask" [n, D] (the new mask)}."""
+    predictive MSE after it (`predictive_mse`'s, with `row_weights`).
+    Returns {"R" [n, D-1], "action" [n] (float32), "mse" (0-d), "im" [M,
+    n, D], "mask" [n, D] (the new mask)}."""
     n, D = x.shape
     M = cfg.M
     shape = (M, *eps_shape(cfg, n, D))
@@ -210,24 +233,29 @@ def al_step(model, params, cfg: RunConfig, x, mask, noise, repeat: int,
     i_opt = torch.argmax(R, dim=1)  # the first maximum, as jnp.argmax
     new_mask = mask + torch.nn.functional.one_hot(i_opt, D).to(mask.dtype)
     mse = predictive_mse(cfg, params, x, new_mask,
-                         noise("mse", repeat, t, shape).to(x.device))
+                         noise("mse", repeat, t, shape).to(x.device),
+                         row_weights)
     return {"R": R, "action": i_opt.to(torch.float32), "mse": mse, "im": im,
             "mask": new_mask}
 
 
-def run_episode(model, params, cfg: RunConfig, x, noise, repeat: int = 0):
+def run_episode(model, params, cfg: RunConfig, x, noise, repeat: int = 0,
+                row_weights=None):
     """One selection episode over the rows x [n, D] from an empty mask:
     {"information_curve" [n, D] (the target MSE after 0..D-1 reveals, the
-    same for every row, as the reference stores it), "action" [n, D-1],
-    "R_hist" [D-1, n, D-1], "im" [D-1, M, n, D]}."""
+    same for every row, as the reference stores it; with `row_weights`
+    the weighted sums of `predictive_mse`), "action" [n, D-1], "R_hist"
+    [D-1, n, D-1], "im" [D-1, M, n, D]}."""
     n, D = x.shape
     mask = torch.zeros_like(x)
     shape = (cfg.M, *eps_shape(cfg, n, D))
     curve = [predictive_mse(cfg, params, x, mask,
-                            noise("init", repeat, 0, shape).to(x.device))]
+                            noise("init", repeat, 0, shape).to(x.device),
+                            row_weights)]
     steps = []
     for t in range(D - 1):
-        out = al_step(model, params, cfg, x, mask, noise, repeat, t)
+        out = al_step(model, params, cfg, x, mask, noise, repeat, t,
+                      row_weights)
         mask = out["mask"]
         curve.append(out["mse"])
         steps.append(out)
@@ -264,6 +292,44 @@ def replay_noise(noise, cfg: RunConfig, n: int, D: int, repeat: int,
     return lambda kind, r, step, shape: draws[kind, step]
 
 
+#: the row axis of each episode artifact after its leading [Repeat] axis
+_ARTIFACT_ROWS = {"action": 1, "R_hist": 2, "im": 3}
+
+
+def _episode_rows(x, cfg: RunConfig, mesh, noise):
+    """The test rows of an episode on a mesh (the JAX package's
+    `_pad_rows_for_mesh`): their `Rows`, this rank's block of x padded
+    with zero rows to a multiple of dp, its row weights (None at dp = 1)
+    and its noise source. At dp = 1 it hands back x and `noise`."""
+    rows = meshlib.rows_of(mesh, x.shape[0])
+    if rows.dp == 1:
+        return rows, x, None, noise
+    eps_rows = get_model(cfg).eval_noise_rows(cfg)["eps"] + 1
+    noise = meshlib.RankRows(
+        noise, {"init": eps_rows, "im": eps_rows, "mse": eps_rows,
+                "flow": 3}, rows.dp, rows.r)
+    return rows, rows.take(rows.pad(x)), rows.weights(x.device), noise
+
+
+def _assemble(stacked: dict, rows, M: int, lead: int) -> dict:
+    """The episode artifacts of every rank from this rank's (each with
+    `lead` leading axes before its own): the MSE sums reduced over dp and
+    divided by M times the real rows, broadcast to them, and the row
+    artifacts gathered and cut to the real rows."""
+    if rows.dp == 1:
+        return stacked
+    import torch.distributed as dist
+
+    sums = stacked["information_curve"].select(lead, 0).contiguous()
+    dist.all_reduce(sums, group=rows.group)
+    curve = sums / (M * rows.n)
+    out = {"information_curve": curve.unsqueeze(lead).expand(
+        *curve.shape[:lead], rows.n, curve.shape[-1])}
+    for name, axis in _ARTIFACT_ROWS.items():
+        out[name] = rows.gather(stacked[name], lead + axis - 1)
+    return out
+
+
 def active_learning_func(dataset_train, test_data, test_mask, cfg: RunConfig,
                          experiments_root: str = "experiments",
                          Repeat: int = 1, params=None, noise=None,
@@ -277,13 +343,12 @@ def active_learning_func(dataset_train, test_data, test_mask, cfg: RunConfig,
     [R, D-1, n, D-1], im [R, D-1, M, n, D]; with `save`, writes each at its
     `artifacts.active_learning_paths` name as a float32 tensor and logs
     al_final_mse (information_curve[:, 0, -1]) at stage 'test'.
-    `dataset_train` is unused, as in the JAX package."""
+    `dataset_train` is unused, as in the JAX package. With `mesh`, every
+    rank of it calls this; the test rows are dp-sharded (see the module
+    docstring), every rank gets the whole artifacts and rank 0 writes
+    them."""
     del dataset_train
-    if mesh is not None:
-        raise NotImplementedError(
-            f"active_learning_func(mesh=...): the multi-device engine is not "
-            f"ported yet; it comes with {SLICE_MESH}")
-    device = check_device(device)
+    device = mesh.device if mesh is not None else check_device(device)
     x = torch.as_tensor(test_data, dtype=torch.float32).to(device)
     test_mask = torch.as_tensor(test_mask, dtype=torch.float32).to(device)
     D = x.shape[1]
@@ -297,12 +362,13 @@ def active_learning_func(dataset_train, test_data, test_mask, cfg: RunConfig,
         params = load_trained(ds, cfg, experiments_root, device=device)
     noise = default_noise(cfg, device) if noise is None else noise
     model = get_model(cfg)
+    rows, x, weights, noise = _episode_rows(x, cfg, mesh, noise)
     with torch.no_grad():
-        runs = [run_episode(model, params, cfg, x, noise, r)
+        runs = [run_episode(model, params, cfg, x, noise, r, weights)
                 for r in range(Repeat)]
-    stacked = {name: torch.stack([run[name] for run in runs])
-               for name in ARTIFACTS}
-    if save:
+        stacked = _assemble({name: torch.stack([run[name] for run in runs])
+                             for name in ARTIFACTS}, rows, cfg.M, 1)
+    if save and multihost.is_coordinator():
         paths = artifacts.active_learning_paths(cfg, experiments_root)
         for name in ARTIFACTS:
             artifacts.save_tensor(stacked[name].cpu().contiguous(),
@@ -330,28 +396,28 @@ def active_learning_ensemble(test_data, test_mask, cfg: RunConfig, params_ens,
     D]; with `save`, replica s writes each at its `active_learning_paths`
     name + `checkpoint.seed_suffix(s)` (replica 0 at the reference names)
     and replica 0's al_final_mse is logged at stage 'test'. `test_mask` is
-    unused, as in the serial driver."""
+    unused, as in the serial driver. With `mesh`, the test rows are
+    dp-sharded as in `active_learning_func` (the parameters replicated)."""
     del test_mask
-    if mesh is not None:
-        raise NotImplementedError(
-            f"active_learning_ensemble(mesh=...): the multi-device engine is "
-            f"not ported yet; it comes with {SLICE_MESH}")
-    device = check_device(device)
+    device = mesh.device if mesh is not None else check_device(device)
     x = torch.as_tensor(test_data, dtype=torch.float32).to(device)
-    n, D = x.shape
     params_ens = checkpoint.on_device(params_ens, device)
     noise = default_noise(cfg, device) if noise is None else noise
     model = get_model(cfg)
     flow = model.encode_stats is None
+    rows, x, weights, noise = _episode_rows(x, cfg, mesh, noise)
+    n, D = x.shape
     runs = []
     with torch.no_grad():
         for r in range(Repeat):
             src = replay_noise(noise, cfg, n, D, r, flow)
             runs.append(torch.func.vmap(
-                lambda p: run_episode(model, p, cfg, x, src, r))(params_ens))
-    stacked = {name: torch.stack([run[name] for run in runs], dim=1)
-               for name in ARTIFACTS}
-    if save:
+                lambda p: run_episode(model, p, cfg, x, src, r,
+                                      weights))(params_ens))
+        stacked = _assemble({name: torch.stack([run[name] for run in runs],
+                                               dim=1)
+                             for name in ARTIFACTS}, rows, cfg.M, 2)
+    if save and multihost.is_coordinator():
         paths = artifacts.active_learning_paths(cfg, experiments_root)
         host = {name: t.cpu() for name, t in stacked.items()}
         for s in range(host["im"].shape[0]):

@@ -36,7 +36,19 @@ Every random draw comes from a noise source called as
   "v_rev", "u_rev"  BDMC's reverse chains' momenta and uniforms.
 `GeneratorNoise`, the default, draws them from a seeded `torch.Generator`
 on the device; a caller may pass its own, for instance one that replays
-the JAX package's keys. The `mesh` option comes with slice 10 part 2.
+the JAX package's keys.
+
+Mesh (the JAX package's engine/ais.py:210-263). With a (dp, tp) mesh the
+chains are dp-sharded: the batch is padded with zero rows (zero latents
+for BDMC's reverse chains) until its B0_run * n_sample chains divide over
+dp, each dp rank anneals its block of them (`parallel/mesh.Rows`; the tp
+ranks of one dp index repeat it), its draws are the global draws of the
+chains cut to its rows ("z0", "v", "u", "v_rev", "u_rev" along their chain
+axis, `parallel/mesh.RankRows`; BDMC's simulated rows "z_true" and "x_sim"
+are shared), and the step sizes adapt chain by chain, so the temperature
+loop needs no collective. The weights and latents are all-gathered at the
+end, the padded rows' chains dropped (`_chain_views`). Rank 0 alone
+writes.
 
 `eval_ais_ensemble` anneals the same chains for S seed replicas at once
 (`_ensemble_runner`): the chain state carries a leading [S] axis, the
@@ -56,7 +68,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from vae_posterior_consistency_tpu_torch.config import SLICE_MESH, RunConfig
+from vae_posterior_consistency_tpu_torch.config import RunConfig
 from vae_posterior_consistency_tpu_torch.engine import artifacts, checkpoint
 from vae_posterior_consistency_tpu_torch.engine.train import (
     check_device,
@@ -70,6 +82,8 @@ from vae_posterior_consistency_tpu_torch.models import (
     layers,
 )
 from vae_posterior_consistency_tpu_torch.ops.math import student_t_logpdf
+from vae_posterior_consistency_tpu_torch.parallel import mesh as meshlib
+from vae_posterior_consistency_tpu_torch.parallel import multihost
 
 
 def linear_schedule(T: int) -> np.ndarray:
@@ -285,34 +299,68 @@ class AISState:
     j: float
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"AIS over a device mesh is not ported yet; it comes with "
-            f"{SLICE_MESH}")
+#: the chain axis of each draw of the chains (None: the simulated rows'
+#: "z_true" and "x_sim" are shared by the ranks)
+CHAIN_ROWS = {"z0": 0, "v": 0, "u": 0, "v_rev": 0, "u_rev": 0,
+              "z_true": None, "x_sim": None}
+
+
+@dataclasses.dataclass
+class Chains:
+    """A batch's chains on this rank: the rows x_rep [B, D] and starts z0
+    [B, L] of its block of the B0_run * n_sample chains (all of them off a
+    mesh), the noise source of its draws, and the `parallel/mesh.Rows` of
+    the chain axis."""
+
+    x_rep: torch.Tensor
+    z0: torch.Tensor
+    noise: Callable
+    B0_run: int
+    rows: meshlib.Rows
+
+    def gather(self, logw, z):
+        """Every rank's chain outputs from this rank's (logw [..., B], z
+        [..., B, L]) along the chain axis."""
+        return (self.rows.gather(logw, logw.dim() - 1),
+                self.rows.gather(z, z.dim() - 2))
 
 
 def _prep_chains(x, n_sample: int, latent_dim: int, noise, z_init=None,
-                 mesh=None):
+                 mesh=None) -> Chains:
     """The chains of a batch: x tiled n_sample times (chain s*B0 + b on row
     b), and their starts, the source's "z0" or `z_init` [B0, L] tiled the
-    same way (BDMC's reverse chains). Returns (x_rep [B, D], z0 [B, L])."""
-    _check_mesh(mesh)
-    B = x.shape[0] * n_sample
-    x_rep = x.repeat(n_sample, 1)
+    same way (BDMC's reverse chains). With `mesh`, the rows are first
+    padded with zero rows (and zero latents) to B0_run, until the chains
+    divide over dp, and the chains are this rank's block of them."""
+    B0 = x.shape[0]
+    B0_run, dp = B0, 1 if mesh is None else mesh.shape["dp"]
+    while (B0_run * n_sample) % dp:
+        B0_run += 1
+    x = meshlib.pad_rows(x, B0_run)
+    if z_init is not None:
+        z_init = meshlib.pad_rows(z_init, B0_run)
+    B = B0_run * n_sample
+    rows = meshlib.rows_of(mesh, B)
+    if rows.dp > 1:
+        noise = meshlib.RankRows(noise, CHAIN_ROWS, rows.dp, rows.r)
+    x_rep = rows.take(x.repeat(n_sample, 1))
     if z_init is None:
-        z0 = noise("z0", 0, (B, latent_dim)).to(x.device)
+        z0 = noise("z0", 0, (rows.local, latent_dim)).to(x.device)
     else:
-        z0 = z_init.repeat(n_sample, 1)
-    return x_rep, z0
+        z0 = rows.take(z_init.repeat(n_sample, 1))
+    return Chains(x_rep, z0, noise, B0_run, rows)
 
 
-def _chain_views(logw, z, n_sample: int, B0: int, latent_dim: int):
-    """[..., B0*n_sample] chain outputs -> per-row views: (logw_mat
-    [..., B0, n_sample], latents [..., B0, n_sample, L])."""
+def _chain_views(logw, z, n_sample: int, B0_run: int, B0: int,
+                 latent_dim: int):
+    """[..., B0_run*n_sample] chain outputs -> per-row views: (logw_mat
+    [..., B0, n_sample], latents [..., B0, n_sample, L]); the padded rows
+    of a mesh drop out here."""
     lead = tuple(logw.shape[:-1])
-    logw_mat = torch.movedim(logw.reshape(lead + (n_sample, B0)), -2, -1)
-    lats = torch.movedim(z.reshape(lead + (n_sample, B0, latent_dim)), -3, -2)
+    logw_mat = torch.movedim(logw.reshape(lead + (n_sample, B0_run)), -2,
+                             -1)[..., :B0, :]
+    lats = torch.movedim(z.reshape(lead + (n_sample, B0_run, latent_dim)),
+                         -3, -2)[..., :B0, :, :]
     return logw_mat, lats
 
 
@@ -417,14 +465,16 @@ def ais_batch(decoder_fn, x, n_sample: int, latent_dim: int, schedule, noise,
     reference uses model.decoder so, AIS.py:135); for another bridge pass
     `log_lik_fn(z, x_rep) -> [B]` and decoder_fn=None. The estimate is the
     rows' mean of the log-mean-exp of their chains' weights (AIS.py:
-    219-220)."""
+    219-220). With `mesh`, every rank of it calls this and the chains are
+    dp-sharded (see the module docstring)."""
     B0 = x.shape[0]
     ll = _bridge_ll(decoder_fn, log_lik_fn)
-    x_rep, z0 = _prep_chains(x, n_sample, latent_dim, noise, mesh=mesh)
-    logw, z = _ais_chain(lambda z: ll(z, x_rep), z0,
-                         as_schedule(schedule, x.device), noise, initial_eps,
-                         leapfrog)
-    logw_mat, lats = _chain_views(logw, z, n_sample, B0, latent_dim)
+    ch = _prep_chains(x, n_sample, latent_dim, noise, mesh=mesh)
+    logw, z = ch.gather(*_ais_chain(
+        lambda z: ll(z, ch.x_rep), ch.z0, as_schedule(schedule, x.device),
+        ch.noise, initial_eps, leapfrog))
+    logw_mat, lats = _chain_views(logw, z, n_sample, ch.B0_run, B0,
+                                  latent_dim)
     lw = _log_mean_exp_rows(logw_mat, n_sample)
     return AISResult(logw=lw.mean().item(), latents=lats.cpu().numpy())
 
@@ -472,8 +522,8 @@ def bdmc(decoder_fn, n_batch: int, n_sample: int, latent_dim: int, schedule,
     Gaussian bridges pass decoder_fn; others log_lik_fn(z, x) and
     sample_fn(z, noise) -> x (eval_bdmc wires them through bridge_for).
     The draws are made on `device`, by default decoder_fn's or the
-    source's."""
-    _check_mesh(mesh)
+    source's. With `mesh`, both chains are dp-sharded as in `ais_batch`;
+    the simulated rows are drawn whole on every rank."""
     z_true = noise("z_true", 0, (n_batch, latent_dim))
     if device is not None:
         z_true = z_true.to(device)
@@ -487,14 +537,17 @@ def bdmc(decoder_fn, n_batch: int, n_sample: int, latent_dim: int, schedule,
             x = sample_fn(z_true, noise)
 
     fwd = ais_batch(decoder_fn, x, n_sample, latent_dim, schedule, noise,
-                    initial_eps, leapfrog, log_lik_fn=log_lik_fn)
+                    initial_eps, leapfrog, mesh=mesh, log_lik_fn=log_lik_fn)
 
     ll = _bridge_ll(decoder_fn, log_lik_fn)
-    x_rep, z0 = _prep_chains(x, n_sample, latent_dim, noise, z_init=z_true)
+    ch = _prep_chains(x, n_sample, latent_dim, noise, z_init=z_true,
+                      mesh=mesh)
     rev_sched = torch.flip(as_schedule(schedule, x.device), (0,))
-    logw, z = _ais_chain(lambda z: ll(z, x_rep), z0, rev_sched, noise,
-                         initial_eps, leapfrog, kinds=("v_rev", "u_rev"))
-    logw_mat, _ = _chain_views(logw, z, n_sample, n_batch, latent_dim)
+    logw, z = ch.gather(*_ais_chain(
+        lambda z: ll(z, ch.x_rep), ch.z0, rev_sched, ch.noise, initial_eps,
+        leapfrog, kinds=("v_rev", "u_rev")))
+    logw_mat, _ = _chain_views(logw, z, n_sample, ch.B0_run, n_batch,
+                               latent_dim)
     upper = (-_log_mean_exp_rows(logw_mat, n_sample)).mean().item()
     return BDMCResult(lower=fwd.logw, upper=upper, gap=upper - fwd.logw,
                       x_sim=x.cpu().numpy(), z_true=z_true.cpu().numpy())
@@ -531,9 +584,9 @@ def eval_ais(dataset, cfg: RunConfig, params=None, schedule=None,
 
     `noise(split_index) -> source` gives each split's draws (train 0, test
     1); by default `GeneratorNoise(epoch_seed(cfg.seed + 4, split_index),
-    device)`."""
-    _check_mesh(mesh)
-    device = check_device(device)
+    device)`. With `mesh`, the chains are dp-sharded (`ais_batch`) and
+    rank 0 writes."""
+    device = mesh.device if mesh is not None else check_device(device)
     bridge = bridge_for(cfg)
     params = _trained(dataset, cfg, params, experiments_root, device)
     if schedule is None:
@@ -551,9 +604,9 @@ def eval_ais(dataset, cfg: RunConfig, params=None, schedule=None,
             continue
         res = ais_batch(None, split.x.to(device=device, dtype=torch.float32),
                         n_sample, cfg.latent_dim, schedule, noise(split_idx),
-                        log_lik_fn=log_lik_fn)
+                        mesh=mesh, log_lik_fn=log_lik_fn)
         results[split.stage] = res
-        if save:
+        if save and multihost.is_coordinator():
             base = _elbos_dir(cfg, experiments_root)
             artifacts.save_tensor(res.logw,
                                   os.path.join(base, f"{split.stage}_ais.pt"))
@@ -579,9 +632,10 @@ def eval_ais_ensemble(dataset, cfg: RunConfig, params_ens, schedule=None,
     weights. Returns {stage: AISResult} with logw a float64 [S] array and
     latents [S, B0, n_sample, L]. With `save`, replica s writes `eval_ais`'s
     two artifacts with `checkpoint.seed_suffix(s)` appended (replica 0 at
-    the reference names), and replica 0's `ais_logw` is logged."""
-    _check_mesh(mesh)
-    device = check_device(device)
+    the reference names), and replica 0's `ais_logw` is logged. With
+    `mesh`, the chains are dp-sharded as in `eval_ais` (the parameters
+    replicated)."""
+    device = mesh.device if mesh is not None else check_device(device)
     bridge = bridge_for(cfg)
     params_ens = checkpoint.on_device(params_ens, device)
     if schedule is None:
@@ -596,17 +650,17 @@ def eval_ais_ensemble(dataset, cfg: RunConfig, params_ens, schedule=None,
         if split is None:
             continue
         x = split.x.to(device=device, dtype=torch.float32)
-        src = noise(split_idx)
-        x_rep, z0 = _prep_chains(x, n_sample, cfg.latent_dim, src)
-        logw, z = run(params_ens, x_rep, z0, as_schedule(schedule, device),
-                      src)
-        logw_mat, lats = _chain_views(logw, z, n_sample, x.shape[0],
-                                      cfg.latent_dim)
+        ch = _prep_chains(x, n_sample, cfg.latent_dim, noise(split_idx),
+                          mesh=mesh)
+        logw, z = ch.gather(*run(params_ens, ch.x_rep, ch.z0,
+                                 as_schedule(schedule, device), ch.noise))
+        logw_mat, lats = _chain_views(logw, z, n_sample, ch.B0_run,
+                                      x.shape[0], cfg.latent_dim)
         logws = _log_mean_exp_rows(logw_mat, n_sample).mean(dim=-1)
         res = AISResult(logw=logws.cpu().numpy().astype(np.float64),
                         latents=lats.cpu().numpy())
         results[split.stage] = res
-        if save:
+        if save and multihost.is_coordinator():
             base = _elbos_dir(cfg, experiments_root)
             for s in range(res.logw.shape[0]):
                 sfx = checkpoint.seed_suffix(s)
@@ -633,9 +687,9 @@ def eval_bdmc(dataset, cfg: RunConfig, params=None, schedule=None,
     eval_ais uses. Saves bdmc_lower.pt and bdmc_upper.pt (0-d float64)
     beside eval_ais's artifacts and the `bdmc_gap` metric (stage 'sim').
     The draws come from `noise`, by default `GeneratorNoise(cfg.seed + 5,
-    device)`."""
-    _check_mesh(mesh)
-    device = check_device(device)
+    device)`. With `mesh`, the chains are dp-sharded (`bdmc`) and rank 0
+    writes."""
+    device = mesh.device if mesh is not None else check_device(device)
     bridge = bridge_for(cfg)
     params = _trained(dataset, cfg, params, experiments_root, device)
     if schedule is None:
@@ -649,8 +703,8 @@ def eval_bdmc(dataset, cfg: RunConfig, params=None, schedule=None,
     res = bdmc(None, n_batch, n_sample, cfg.latent_dim, schedule, noise,
                log_lik_fn=lambda z, x: bridge.log_lik(params, z, x),
                sample_fn=lambda z, src: bridge.sample_x(params, z, src),
-               device=device)
-    if save:
+               device=device, mesh=mesh)
+    if save and multihost.is_coordinator():
         base = _elbos_dir(cfg, experiments_root)
         artifacts.save_tensor(res.lower, os.path.join(base, "bdmc_lower.pt"))
         artifacts.save_tensor(res.upper, os.path.join(base, "bdmc_upper.pt"))

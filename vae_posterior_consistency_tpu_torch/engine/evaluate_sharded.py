@@ -24,7 +24,6 @@ anew for each split, as the JAX package keys both splits PRNGKey(seed + 1).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
@@ -42,8 +41,9 @@ from vae_posterior_consistency_tpu_torch.engine.train import (
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.ops import masks
 from vae_posterior_consistency_tpu_torch.parallel import multihost
-from vae_posterior_consistency_tpu_torch.parallel.train_parallel import (
+from vae_posterior_consistency_tpu_torch.parallel.mesh import (
     RankRows,
+    rows_of,
 )
 
 
@@ -82,24 +82,18 @@ def eval_split_sharded(params, x, mask, cfg: RunConfig, mesh, noise=None,
         cfg = dataclasses.replace(cfg, valid_k=num_samples)
     model = get_model(cfg)
     device = mesh.device
-    dp, r = mesh.shape["dp"], mesh.rank("dp")
     x = torch.as_tensor(x).to(device=device, dtype=torch.float32)
     mask = torch.as_tensor(mask).to(device=device, dtype=torch.float32)
-    n, d = x.shape
-    pad = math.ceil(n / dp) * dp - n
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad, d))])
-        mask = torch.cat([mask, mask.new_ones((pad, d))])
-    w = (torch.arange(n + pad, device=device) < n).to(torch.float32)
-    b = (n + pad) // dp
-    rows = slice(r * b, (r + 1) * b)
+    n = x.shape[0]
+    rows = rows_of(mesh, n)
+    x, mask = rows.take(rows.pad(x)), rows.take(rows.pad(mask, 1.0))
     noise = GeneratorNoise(cfg.seed + 7, device) if noise is None else noise
     ranked = RankRows(noise, {"mask_p": 0, **model.eval_noise_rows(cfg)},
-                      dp, r)
+                      rows.dp, rows.r)
     params = checkpoint.on_device(params, device)
     with torch.no_grad():
         sums = torch.stack([
-            _rep_sums(model, cfg, params, x[rows], mask[rows], w[rows],
+            _rep_sums(model, cfg, params, x, mask, rows.weights(device),
                       ranked, m) for m in range(n_reps)])
         dist.all_reduce(sums, group=mesh.group("dp"))
         se, holes, loss, negl, negl_imp, weight = sums.unbind(1)

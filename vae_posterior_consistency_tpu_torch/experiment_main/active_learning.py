@@ -31,9 +31,11 @@ episode for all replicas:
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the kernels' plain versions on the CPU. A record
 the port cannot run yet (`compute_dtype` 'bfloat16') is named and skipped,
-and the exit code is then 1. A `-mesh` that resolves to a mesh waits for
-slice 10 part 2 and stops the run before it starts (`imputation.open_grid`;
-'' and a one-device 'auto' run); `-profile DIR` traces it.
+and the exit code is then 1. `-mesh` resolves per record
+(`config.resolve_mesh`): on a mesh every path's test rows are dp-sharded
+(`engine/active_learning`'s `mesh`), its line tagged with it, and rank 0
+alone prints and writes (run one process a device under torchrun, as
+`experiment_main/imputation`); `-profile DIR` traces the run.
 `-checkpoint_every`, `-resume` and `-early_stop` are accepted and ignored,
 as in the JAX package: nothing trains here.
 """
@@ -51,6 +53,7 @@ from vae_posterior_consistency_tpu_torch.config import (
     maybe_profile,
     parse_alphas,
     parse_missings,
+    resolve_mesh,
     restrict_grid_records,
     setup_parser,
 )
@@ -63,6 +66,7 @@ from vae_posterior_consistency_tpu_torch.engine import (
 from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
     unported,
+    wait_for_writes,
 )
 from vae_posterior_consistency_tpu_torch.parallel import multihost
 
@@ -111,15 +115,20 @@ def run_grid(records, probe, argv) -> list:
                 if _not_run(cfg, missing, alpha, not_run):
                     continue
                 ds = _load(cfg, args.device)
+                mesh = resolve_mesh(cfg, device=args.device)
+                tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
                 n_seeds = max(1, int(args.seeds))
                 if n_seeds > 1:
-                    _run_seed_ensemble(cfg, ds, n_seeds, args.device)
+                    _run_seed_ensemble(cfg, ds, n_seeds, args.device, mesh,
+                                       tag)
                     continue
-                print(f"=== active learning {cfg.vae_type} ===", flush=True)
+                print(f"=== active learning {cfg.vae_type}{tag} ===",
+                      flush=True)
                 t0 = time.perf_counter()
                 out = active_learning.active_learning_func(
                     None, ds.test.x, ds.test.mask, cfg, Repeat=1,
-                    device=args.device)
+                    mesh=mesh, device=args.device)
+                wait_for_writes(mesh)
                 curve = out["information_curve"][0, 0, :].tolist()
                 print("  info curve (target MSE per #revealed): "
                       + " ".join(f"{v:.4f}" for v in curve))
@@ -128,17 +137,21 @@ def run_grid(records, probe, argv) -> list:
     return not_run
 
 
-def _run_seed_ensemble(cfg: RunConfig, ds, n_seeds: int, device) -> None:
-    """`-seeds N`: the cell's N seed-replica checkpoints in one episode,
-    the final target MSE of each seed printed with their mean±std.
+def _run_seed_ensemble(cfg: RunConfig, ds, n_seeds: int, device, mesh=None,
+                       tag: str = "") -> None:
+    """`-seeds N`: the cell's N seed-replica checkpoints in one episode
+    (its test rows dp-sharded over `mesh` when given, the line ending in
+    `tag`), the final target MSE of each seed printed with their mean±std.
     FileNotFoundError names a seed checkpoint that was never trained."""
-    print(f"=== active learning {cfg.vae_type} (seeds={n_seeds}) ===",
+    print(f"=== active learning {cfg.vae_type} (seeds={n_seeds}){tag} ===",
           flush=True)
     params_ens = checkpoint.load_seed_ensemble(cfg, ds.obs_dim, n_seeds,
                                                device=device)
     t0 = time.perf_counter()
     out = active_learning.active_learning_ensemble(
-        ds.test.x, ds.test.mask, cfg, params_ens, Repeat=1, device=device)
+        ds.test.x, ds.test.mask, cfg, params_ens, Repeat=1, mesh=mesh,
+        device=device)
+    wait_for_writes(mesh)
     curves = out["information_curve"][:, 0, 0, :].cpu().numpy()
     finals = curves[:, -1]
     print(f"  final target-MSE={finals.mean():.5f}±{finals.std():.5f}  "
@@ -165,6 +178,8 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
     if _not_run(cfg0, missings[0], alphas[0], not_run):
         return
     ds = _load(cfg0, args.device)
+    mesh = resolve_mesh(cfg0, device=args.device)
+    tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
     n_seeds = max(1, int(args.seeds))
     reg = cfg0.info.regularized
     cfg_alphas = list(alphas) if reg else list(alphas[:1])
@@ -172,7 +187,7 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
     seed_tag = f", seeds={n_seeds}" if n_seeds > 1 else ""
     print(f"=== active learning {cfg0.vae_type} (ensemble, "
           f"missings={list(missings)}, alphas={cfg_alphas}{seed_tag})"
-          f"{note} ===", flush=True)
+          f"{tag}{note} ===", flush=True)
     for mi, m in enumerate(missings):
         parts = [checkpoint.flatten(checkpoint.load_seed_ensemble(
             cfg0.replace(alpha=a, p_missingness=m), ds.obs_dim, n_seeds,
@@ -182,7 +197,7 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
         t0 = time.perf_counter()
         out = active_learning.active_learning_ensemble(
             ds.test.x, ds.test.mask, cfg0.replace(p_missingness=m),
-            params_ens, Repeat=1, save=False, device=args.device)
+            params_ens, Repeat=1, save=False, mesh=mesh, device=args.device)
         host = {k: v.cpu() for k, v in out.items()}
         for ai, a in enumerate(cfg_alphas):
             cfg_ma = cfg0.replace(alpha=a, p_missingness=m)
@@ -195,7 +210,7 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
                     if n_seeds > 1
                     else f"final target-MSE={float(finals[0]):.5f}")
             print(f"  missing={m} alpha={a:g} {line}")
-            if reg or mi == 0:
+            if (reg or mi == 0) and multihost.is_coordinator():
                 paths = artifacts.active_learning_paths(cfg_ma, "experiments")
                 for si in range(n_seeds):
                     r = ai * n_seeds + si
@@ -208,6 +223,7 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
                     host["information_curve"][ai * n_seeds, :, 0,
                                               -1].numpy(),
                     "test", "experiments")
+        wait_for_writes(mesh)
         print(f"  [timing] missing={m} "
               f"{len(cfg_alphas) * n_seeds}-replica episode "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -216,18 +232,18 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     try:
-        records, probe = open_grid(GRID, argv, mesh_ported=False)
-        with maybe_profile(probe):
+        records, probe = open_grid(GRID, argv)
+        with multihost.coordinator_stdout(), maybe_profile(probe):
             not_run = run_grid(records, probe, argv)
+            if not_run:
+                print(f"{len(not_run)} run(s) not made, not ported yet:",
+                      flush=True)
+                for vae_type, missing, alpha, reason in not_run:
+                    print(f"  {vae_type} (missing={missing}, alpha={alpha}):"
+                          f" {reason}", flush=True)
     finally:
         multihost.shutdown()
-    if not_run:
-        print(f"{len(not_run)} run(s) not made, not ported yet:", flush=True)
-        for vae_type, missing, alpha, reason in not_run:
-            print(f"  {vae_type} (missing={missing}, alpha={alpha}): "
-                  f"{reason}", flush=True)
-        return 1
-    return 0
+    return 1 if not_run else 0
 
 
 if __name__ == "__main__":

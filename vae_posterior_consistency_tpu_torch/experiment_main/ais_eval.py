@@ -24,10 +24,13 @@ as in the JAX package. `-ensemble` is accepted and ignored.
 
 The run uses the card (`-device cuda`, the default; it raises without
 CUDA) or, with `-device cpu`, the CPU. `-profile DIR` traces the
-estimates (`config.maybe_profile`). A `-mesh` that resolves to a mesh
-waits for slice 10 part 2 ('' and a one-device 'auto' run), a record whose
-compute_dtype is 'bfloat16' for slice 11: they stop the run before it
-starts.
+estimates (`config.maybe_profile`). `-mesh` resolves as in the JAX package
+(`config.resolve_mesh`): on a mesh the chains of every estimate, the
+seeds' and BDMC's too, are dp-sharded (`engine/ais`'s `mesh`), announced
+by `mesh={...}: AIS chains dp-sharded`, and rank 0 alone prints and
+writes (one process a device under torchrun). A record whose
+compute_dtype is 'bfloat16' waits for slice 11 and stops the run before
+it starts.
 """
 
 from __future__ import annotations
@@ -39,9 +42,11 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.config import (
     RunConfig,
-    check_unported,
+    device_count,
     iter_jsonl_configs,
     maybe_profile,
+    mesh_shape,
+    resolve_mesh,
     setup_parser,
 )
 from vae_posterior_consistency_tpu_torch.engine import ais, checkpoint
@@ -65,9 +70,9 @@ def _record_for_vae_type(records, vae_type):
 
 
 def _check_flags(args) -> None:
-    """The flags whose engine the port lacks, each naming its slice: a
-    `-mesh` that resolves to a mesh (AIS over a mesh) and bfloat16."""
-    check_unported(args, mesh_ported=False)
+    """A `-mesh` no device count satisfies (`mesh_shape`'s ValueError), and
+    the flag whose engine the port lacks, naming its slice: bfloat16."""
+    mesh_shape(args.mesh, device_count())
     if getattr(args, "compute_dtype", "float32") == "bfloat16":
         raise NotImplementedError(
             f"compute_dtype 'bfloat16' ({args.vae_type}): mixed precision "
@@ -75,13 +80,14 @@ def _check_flags(args) -> None:
 
 
 def _run_seed_ensemble(dataset, cfg: RunConfig, n_seeds: int, bdmc: bool,
-                       device) -> None:
+                       device, mesh=None) -> None:
     """`-seeds N`: the N seed-replica checkpoints scored together; BDMC
     certifies one checkpoint's schedule and is skipped."""
     params_ens = checkpoint.load_seed_ensemble(cfg, dataset.obs_dim, n_seeds,
                                                device=device)
     results = ais.eval_ais_ensemble(dataset, cfg, params_ens,
-                                    n_sample=cfg.n_ais_iwae, device=device)
+                                    n_sample=cfg.n_ais_iwae, mesh=mesh,
+                                    device=device)
     for stage, res in results.items():
         # the float32 estimates, averaged in float32 as JAX's array is
         lw = res.logw.astype(np.float32)
@@ -111,21 +117,31 @@ def _main(argv) -> int:
     args = setup_parser(record, "ais_eval").parse_args(argv)
     multihost.initialize(args.device)
     _check_flags(args)
+    with multihost.coordinator_stdout():
+        return _run(args)
+
+
+def _run(args) -> int:
     cfg = RunConfig.from_args(args)
     device = check_device(args.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the CPU")
     print(f"Device: {device} ({name})", flush=True)
     dataset = load_dataset(cfg, device)
+    mesh = resolve_mesh(cfg, device=args.device)
+    if mesh is not None:
+        print(f"mesh={dict(mesh.shape)}: AIS chains dp-sharded", flush=True)
     n_seeds = max(1, int(args.seeds))
     with maybe_profile(args):
         if n_seeds > 1:
-            _run_seed_ensemble(dataset, cfg, n_seeds, args.bdmc, device)
+            _run_seed_ensemble(dataset, cfg, n_seeds, args.bdmc, device,
+                               mesh)
             return 0
         results = ais.eval_ais(dataset, cfg, n_sample=cfg.n_ais_iwae,
-                               device=device)
+                               mesh=mesh, device=device)
         bdmc_res = (ais.eval_bdmc(dataset, cfg, n_sample=cfg.n_ais_iwae,
-                                  device=device) if args.bdmc else None)
+                                  mesh=mesh, device=device)
+                    if args.bdmc else None)
     for stage, res in results.items():
         print(f"  [{stage}] AIS log p(x) = {res.logw:.4f}")
     if bdmc_res is not None:

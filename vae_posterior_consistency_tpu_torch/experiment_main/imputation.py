@@ -42,8 +42,10 @@ device with `torchrun --nproc_per_node N -m
 vae_posterior_consistency_tpu_torch.experiment_main.imputation -mesh DP,TP`
 (`open_grid` joins the group torchrun describes; a one-device mesh needs
 no torchrun). Every rank runs the grid; only rank 0 prints and writes.
-A mesh beside `-seeds N` or `-ensemble true` is refused before anything
-runs: the ensembles' mesh comes with slice 10 part 2.
+Beside `-seeds N` and `-ensemble true` the ensembles' replica rows are
+dp-sharded over the mesh (`parallel/sweep`'s `mesh`), the banner or the
+train line tagged ", mesh={...}" as in the JAX package; their evaluation
+runs on the gathered parameters.
 
 Ensembles (`parallel/sweep`; the JAX package's experiment_main/
 imputation.py:63-79, 110-476, 487-513), with its banners, checkpoint names,
@@ -75,10 +77,11 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.config import (
     RunConfig,
-    check_unported,
+    device_count,
     early_stopper,
     iter_jsonl_configs,
     maybe_profile,
+    mesh_shape,
     parse_alphas,
     parse_missings,
     resolve_mesh,
@@ -182,13 +185,20 @@ def _metrics_line(per_seed, stage, n_seeds) -> str:
     return "  ".join(line)
 
 
+def wait_for_writes(mesh) -> None:
+    """On a mesh, wait until rank 0 has written what this record writes."""
+    if mesh is not None:
+        multihost.barrier(mesh.device)
+
+
 def _train_and_eval_seeds(dataset, cfg: RunConfig, device, n_seeds: int,
                           checkpoint_every=None, resume=False,
-                          early_stopping=None) -> dict:
+                          early_stopping=None, mesh=None) -> dict:
     """`-seeds N` on the serial grid: the N seed replicas of one config
-    train as one seed ensemble and evaluate as one vmapped evaluation.
-    Seed 0 keeps the reference checkpoint and artifact paths; the others
-    save under `.seed{s}`. Returns {stage: {metric: (mean, std)}}."""
+    train as one seed ensemble (dp-sharded over `mesh` when given) and
+    evaluate as one vmapped evaluation. Seed 0 keeps the reference
+    checkpoint and artifact paths; the others save under `.seed{s}`; rank
+    0 alone writes. Returns {stage: {metric: (mean, std)}}."""
     print("[seeds mode] seed replicas run as one vmapped program; PRNG "
           "streams differ from the plain serial run — seed-0 artifacts are "
           "statistically equivalent, not reproductions (PARITY.md deviation "
@@ -198,15 +208,17 @@ def _train_and_eval_seeds(dataset, cfg: RunConfig, device, n_seeds: int,
     params_ens, _hist = sweep.train_seed_ensemble(
         dataset, cfg, seeds, checkpoint_every=checkpoint_every, resume=resume,
         resume_path=path + f".seeds{n_seeds}.resume.pt",
-        early_stopping=early_stopping, device=device)
+        early_stopping=early_stopping, device=device, mesh=mesh)
     params_host = checkpoint.on_device(params_ens, "cpu")
-    checkpoint.save_many(
-        [(sweep.ensemble_replica(params_host, si),
-          path + checkpoint.seed_suffix(si)) for si in range(n_seeds)])
+    if multihost.is_coordinator():
+        checkpoint.save_many(
+            [(sweep.ensemble_replica(params_host, si),
+              path + checkpoint.seed_suffix(si)) for si in range(n_seeds)])
     print(f"=== eval {cfg.vae_type} (seeds={n_seeds}) ===", flush=True)
     per_row = evaluate.eval_vae_ensemble(
-        [dataset] * n_seeds, [cfg] * n_seeds, params_ens, save_rows=[0],
-        device=device)
+        [dataset] * n_seeds, [cfg] * n_seeds, params_ens,
+        save_rows=[0] if multihost.is_coordinator() else [], device=device)
+    wait_for_writes(mesh)
     return {stage: {k: _mean_std([r[stage][k] for r in per_row])
                     for k in per_row[0][stage]}
             for stage in per_row[0]}
@@ -226,10 +238,11 @@ def run_suite_alpha_ensembles(records, argv, missing, alphas, n_seeds=1):
         args = setup_parser(rec, "impute_eval").parse_args(argv)
         cfg = RunConfig.from_args(args, alpha=alphas[0],
                                   p_missingness=missing)
+        mesh = resolve_mesh(cfg, device=args.device)
         if not printed:
             print("[alpha-ensemble mode] each config's alpha sweep runs as "
-                  "one vmapped program; replicas share data/mask streams by "
-                  "design (isolates alpha)", flush=True)
+                  f"one vmapped program{_mesh_tag(mesh)}; replicas share "
+                  "data/mask streams by design (isolates alpha)", flush=True)
             printed = True
         reason = unported(cfg)
         if reason is not None:
@@ -248,7 +261,7 @@ def run_suite_alpha_ensembles(records, argv, missing, alphas, n_seeds=1):
               + f".alphas{len(cfg_alphas)}x{n_seeds}.resume.pt")
         common = dict(checkpoint_every=ck, resume=rs, resume_path=rp,
                       early_stopping=early_stopper(args, cfg, ensemble=True),
-                      device=args.device)
+                      device=args.device, mesh=mesh)
         if n_seeds > 1:
             seeds = [cfg.seed + si for si in range(n_seeds)]
             params_ens, _ = sweep.train_alpha_seed_ensemble(
@@ -259,20 +272,25 @@ def run_suite_alpha_ensembles(records, argv, missing, alphas, n_seeds=1):
         t_train = time.perf_counter() - t0
         t0 = time.perf_counter()
         params_host = checkpoint.on_device(params_ens, "cpu")
-        checkpoint.save_many([
-            (sweep.ensemble_replica(params_host, i * n_seeds + si),
-             checkpoint.checkpoint_path(cfg.replace(alpha=a), "experiments")
-             + checkpoint.seed_suffix(si))
-            for i, a in enumerate(cfg_alphas) for si in range(n_seeds)])
+        writer = multihost.is_coordinator()
+        if writer:
+            checkpoint.save_many([
+                (sweep.ensemble_replica(params_host, i * n_seeds + si),
+                 checkpoint.checkpoint_path(cfg.replace(alpha=a),
+                                            "experiments")
+                 + checkpoint.seed_suffix(si))
+                for i, a in enumerate(cfg_alphas) for si in range(n_seeds)])
         for i, a in enumerate(cfg_alphas):
             cfg_a = cfg.replace(alpha=a)
             per_seed = [evaluate.eval_vae(
                 dataset, cfg_a,
                 params=sweep.ensemble_replica(params_host, i * n_seeds + si),
-                save=si == 0, device=args.device) for si in range(n_seeds)]
+                save=si == 0 and writer, device=args.device)
+                for si in range(n_seeds)]
             for stage in per_seed[0]:
                 print(f"  alpha={a:g} [{stage}] "
                       + _metrics_line(per_seed, stage, n_seeds), flush=True)
+        wait_for_writes(mesh)
         print(f"  [timing] train {t_train:.1f}s  eval+save "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     return not_run
@@ -291,11 +309,12 @@ def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
         args = setup_parser(rec, "impute_eval").parse_args(argv)
         cfg = RunConfig.from_args(args, alpha=alphas[0],
                                   p_missingness=missings[0])
+        mesh = resolve_mesh(cfg, device=args.device)
         if not printed:
             print("[sweep-ensemble mode] each config's (missing x alpha"
-                  " x seed) product runs as one vmapped program; rows share "
-                  "data/shuffle streams by design (pairs the swept knobs)",
-                  flush=True)
+                  f" x seed) product runs as one vmapped program"
+                  f"{_mesh_tag(mesh)}; rows share data/shuffle streams by "
+                  "design (pairs the swept knobs)", flush=True)
             printed = True
         reason = unported(cfg)
         if reason is not None:
@@ -322,7 +341,7 @@ def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
             + f".sweep{len(cfg_miss) * len(cfg_alphas) * n_seeds}"
             ".resume.pt",
             early_stopping=early_stopper(args, cfg, ensemble=True),
-            device=args.device)
+            device=args.device, mesh=mesh)
         t_train = time.perf_counter() - t0
         t0 = time.perf_counter()
         params_host = checkpoint.on_device(params_ens, "cpu")
@@ -337,22 +356,25 @@ def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
                 groups.append((m, a, mi, row_ids,
                                cfg.replace(alpha=a, p_missingness=m)))
         # one checkpoint a trained row (vanilla names hold no rate)
-        checkpoint.save_many(
-            (sweep.ensemble_replica(params_host, ri),
-             checkpoint.checkpoint_path(cfg_ma, "experiments")
-             + checkpoint.seed_suffix(si))
-            for m, a, mi, row_ids, cfg_ma in groups
-            if reg or mi == 0
-            for si, ri in enumerate(row_ids))
+        writer = multihost.is_coordinator()
+        if writer:
+            checkpoint.save_many(
+                (sweep.ensemble_replica(params_host, ri),
+                 checkpoint.checkpoint_path(cfg_ma, "experiments")
+                 + checkpoint.seed_suffix(si))
+                for m, a, mi, row_ids, cfg_ma in groups
+                if reg or mi == 0
+                for si, ri in enumerate(row_ids))
         for m, a, mi, row_ids, cfg_ma in groups:
             per_seed = [evaluate.eval_vae(
                 dataset, cfg_ma, params=sweep.ensemble_replica(params_host,
                                                                ri),
-                save=si == 0, device=args.device)
+                save=si == 0 and writer, device=args.device)
                 for si, ri in enumerate(row_ids)]
             for stage in per_seed[0]:
                 print(f"  missing={m} alpha={a:g} [{stage}] "
                       + _metrics_line(per_seed, stage, n_seeds), flush=True)
+        wait_for_writes(mesh)
         print(f"  [timing] train {t_train:.1f}s  eval+save "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     return not_run
@@ -371,10 +393,11 @@ def run_suite_ensembles(records, argv, missing, alpha):
         cfgs = [RunConfig.from_args(args, vae_type=rec["vae_type"]["default"],
                                     alpha=alpha, p_missingness=missing)
                 for rec in group]
+        mesh = resolve_mesh(cfgs[0], device=args.device)
         if not printed_banner:
-            print("[ensemble mode] grid runs as vmapped split-ensembles; "
-                  "PRNG streams differ from the serial path (PARITY.md "
-                  "deviation #8)", flush=True)
+            print("[ensemble mode] grid runs as vmapped split-ensembles"
+                  f"{_mesh_tag(mesh)}; PRNG streams differ from the serial "
+                  "path (PARITY.md deviation #8)", flush=True)
             printed_banner = True
         reason = unported(cfgs[0])
         if reason is not None:
@@ -396,16 +419,18 @@ def run_suite_ensembles(records, argv, missing, alpha):
             resume_path=checkpoint.checkpoint_path(cfgs[0], "experiments")
             + f".ens{len(cfgs) * n_seeds}.resume.pt",
             early_stopping=early_stopper(args, cfgs[0], ensemble=True),
-            device=args.device)
+            device=args.device, mesh=mesh)
         t_train = time.perf_counter() - t0
         t0 = time.perf_counter()
         S0 = len(cfgs)
         params_host = checkpoint.on_device(params_ens, "cpu")
-        checkpoint.save_many([
-            (sweep.ensemble_replica(params_host, row),
-             checkpoint.checkpoint_path(cfgs[row % S0], "experiments")
-             + checkpoint.seed_suffix(row // S0))
-            for row in range(S0 * n_seeds)])
+        writer = multihost.is_coordinator()
+        if writer:
+            checkpoint.save_many([
+                (sweep.ensemble_replica(params_host, row),
+                 checkpoint.checkpoint_path(cfgs[row % S0], "experiments")
+                 + checkpoint.seed_suffix(row // S0))
+                for row in range(S0 * n_seeds)])
         t_save = time.perf_counter() - t0
         # one vmapped evaluation a split-size class; the seed-0 rows keep
         # the reference artifacts (eval_vae_ensemble's save_rows)
@@ -421,7 +446,8 @@ def run_suite_ensembles(records, argv, missing, alpha):
                 [all_datasets[r] for r in rows_cls],
                 [all_cfgs[r] for r in rows_cls],
                 sweep.ensemble_replica(params_ens, rows_cls),
-                save_rows=[j for j, r in enumerate(rows_cls) if r < S0],
+                save_rows=[j for j, r in enumerate(rows_cls)
+                           if r < S0 and writer],
                 device=args.device)
             for j, r in enumerate(rows_cls):
                 all_results[r] = res[j]
@@ -430,6 +456,7 @@ def run_suite_ensembles(records, argv, missing, alpha):
             for stage in per_seed[0]:
                 print(f"  {cfg.vae_type} [{stage}] "
                       + _metrics_line(per_seed, stage, n_seeds), flush=True)
+        wait_for_writes(mesh)
         t_eval = time.perf_counter() - t0
         print(f"  [timing] train {t_train:.1f}s  eval+save {t_eval:.1f}s  "
               f"(save={t_save:.1f}s eval={t_eval - t_save:.1f}s)",
@@ -488,7 +515,8 @@ def run_grid(records, probe, argv) -> list:
                         dataset, cfg, args.device, n_seeds,
                         checkpoint_every=ck, resume=rs,
                         early_stopping=early_stopper(args, cfg,
-                                                     ensemble=True))
+                                                     ensemble=True),
+                        mesh=mesh)
                     for stage, metrics in results.items():
                         print(f"  [{stage}] " + "  ".join(
                             f"{k}={mu:.5f}±{sd:.5f}"
@@ -513,17 +541,22 @@ def start_up() -> None:
     write_default_configs("Data")
 
 
-def open_grid(grid: str, argv, mesh_ported: bool = True):
+def _mesh_tag(mesh) -> str:
+    """The ensemble banners' mesh tag, as the JAX package prints it."""
+    return f", mesh={dict(mesh.shape)}" if mesh is not None else ""
+
+
+def open_grid(grid: str, argv):
     """`start_up`, then the records of the JSONL `grid` and the parse of
     `argv` against the first; under torchrun the process group is joined
-    (`multihost.initialize`, on the `-device` parsed); a `-mesh` on a path
-    without its mesh yet is refused (`check_unported`), and the device is
+    (`multihost.initialize`, on the `-device` parsed); a `-mesh` no device
+    count satisfies is refused (`mesh_shape`'s ValueError), and the device is
     checked and printed (by rank 0) before anything runs."""
     start_up()
     records = list(iter_jsonl_configs(grid))
     probe = setup_parser(records[0], "impute_eval").parse_args(argv)
     multihost.initialize(probe.device)
-    check_unported(probe, mesh_ported=mesh_ported)
+    mesh_shape(probe.mesh, device_count())
     device = train_engine.check_device(probe.device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "the kernels' plain versions")

@@ -30,8 +30,10 @@ record trains with `parallel/train_parallel.train_sharded` (under torchrun
 for more than one device, as `experiment_main/imputation`), its train line
 tagged with the mesh, and the MNAR evaluation stays single-program on the
 gathered parameters, as in the JAX package (imputation_mnar.py:124-145);
-rank 0 alone prints and writes. A mesh beside `-seeds N` or `-ensemble
-true` is refused before anything runs (slice 10 part 2).
+rank 0 alone prints and writes. Beside `-seeds N` and `-ensemble true`
+the replica rows are dp-sharded over the mesh (`parallel/sweep`'s
+`mesh`), the train line tagged with it, and the ensemble's MNAR
+evaluation runs on the gathered parameters.
 
 Ensembles (`parallel/sweep`; the JAX package's experiment_main/
 imputation_mnar.py:79-118, 153-283): `-seeds N` trains each (record,
@@ -71,6 +73,7 @@ from vae_posterior_consistency_tpu_torch.engine import (
 from vae_posterior_consistency_tpu_torch.engine import train as train_engine
 from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
+    wait_for_writes,
 )
 from vae_posterior_consistency_tpu_torch.parallel import multihost, sweep
 from vae_posterior_consistency_tpu_torch.parallel.train_parallel import (
@@ -118,6 +121,8 @@ def run_grid(records, probe, argv) -> None:
                                           data_transform=DATA_TRANSFORM,
                                           not_miwae_type=NOT_MIWAE_TYPE)
                 dataset = _load(cfg, args.device)
+                mesh = resolve_mesh(cfg, device=args.device)
+                tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
                 n_seeds = max(1, int(getattr(args, "seeds", 1)))
                 ck, rs = restart_opts(args)
                 if n_seeds > 1:
@@ -125,10 +130,9 @@ def run_grid(records, probe, argv) -> None:
                                        missing, alpha, checkpoint_every=ck,
                                        resume=rs,
                                        early_stopping=early_stopper(
-                                           args, cfg, ensemble=True))
+                                           args, cfg, ensemble=True),
+                                       mesh=mesh, tag=tag)
                     continue
-                mesh = resolve_mesh(cfg, device=args.device)
-                tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
                 print(f"=== train {cfg.vae_type} (MNAR, missing={missing}, "
                       f"alpha={alpha}){tag} ===", flush=True)
                 t0 = time.perf_counter()
@@ -160,28 +164,33 @@ def run_grid(records, probe, argv) -> None:
 
 def _run_seed_ensemble(cfg: RunConfig, dataset, device, n_seeds: int,
                        missing, alpha, checkpoint_every=None, resume=False,
-                       early_stopping=None) -> None:
-    """`-seeds N`: this cell's N seed replicas trained as one seed ensemble,
+                       early_stopping=None, mesh=None, tag="") -> None:
+    """`-seeds N`: this cell's N seed replicas trained as one seed ensemble
+    (dp-sharded over `mesh` when given, the train line ending in `tag`),
     evaluated in one vmapped MNAR evaluation, mean±std printed. Seed 0
     keeps the reference checkpoint and artifact; seed s saves under
-    `.seed{s}`."""
+    `.seed{s}`; rank 0 alone writes."""
     print(f"=== train {cfg.vae_type} (MNAR, missing={missing}, "
-          f"alpha={alpha}, seeds={n_seeds}) ===", flush=True)
+          f"alpha={alpha}, seeds={n_seeds}){tag} ===", flush=True)
     t0 = time.perf_counter()
     path = checkpoint.checkpoint_path(cfg, "experiments")
     params_ens, _ = sweep.train_seed_ensemble(
         dataset, cfg, seeds=[cfg.seed + s for s in range(n_seeds)],
         checkpoint_every=checkpoint_every, resume=resume,
         resume_path=path + f".seeds{n_seeds}.resume.pt",
-        early_stopping=early_stopping, device=device)
+        early_stopping=early_stopping, device=device, mesh=mesh)
     t_train = time.perf_counter() - t0
     t0 = time.perf_counter()
     params_host = checkpoint.on_device(params_ens, "cpu")
-    checkpoint.save_many(
-        [(sweep.ensemble_replica(params_host, s),
-          path + checkpoint.seed_suffix(s)) for s in range(n_seeds)])
+    writer = multihost.is_coordinator()
+    if writer:
+        checkpoint.save_many(
+            [(sweep.ensemble_replica(params_host, s),
+              path + checkpoint.seed_suffix(s)) for s in range(n_seeds)])
     rmses = evaluate.eval_vae_mnar_ensemble(
-        dataset.train.x, dataset.train.mask, cfg, params_ens, device=device)
+        dataset.train.x, dataset.train.mask, cfg, params_ens, save=writer,
+        device=device)
+    wait_for_writes(mesh)
     print(f"  rmse={rmses.mean():.5f}±{rmses.std():.5f}  "
           + " ".join(f"s{s}={v:.5f}" for s, v in enumerate(rmses)))
     print(f"  [timing] train {t_train:.1f}s  "
@@ -203,6 +212,8 @@ def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
                               data_transform=DATA_TRANSFORM,
                               not_miwae_type=NOT_MIWAE_TYPE)
     dataset = _load(cfg, args.device)
+    mesh = resolve_mesh(cfg, device=args.device)
+    tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
     n_seeds = max(1, int(getattr(args, "seeds", 1)))
     seeds = [cfg.seed + s for s in range(n_seeds)] if n_seeds > 1 else None
     reg = cfg.info.regularized
@@ -211,7 +222,7 @@ def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
     note = "" if reg else " (vanilla: alpha/rate-free, one cell)"
     seed_tag = f", seeds={n_seeds}" if n_seeds > 1 else ""
     print(f"=== sweep-ensemble train {cfg.vae_type} (MNAR, "
-          f"missings={cfg_miss}, alphas={cfg_alphas}{seed_tag}){note} "
+          f"missings={cfg_miss}, alphas={cfg_alphas}{seed_tag}){tag}{note} "
           f"===", flush=True)
     ck, rs = restart_opts(args)
     t0 = time.perf_counter()
@@ -221,16 +232,18 @@ def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
         resume_path=checkpoint.checkpoint_path(cfg, "experiments")
         + f".mnarsweep{len(cfg_miss) * len(cfg_alphas) * n_seeds}.resume.pt",
         early_stopping=early_stopper(args, cfg, ensemble=True),
-        device=args.device)
+        device=args.device, mesh=mesh)
     t_train = time.perf_counter() - t0
     t0 = time.perf_counter()
     params_host = checkpoint.on_device(params_ens, "cpu")
-    checkpoint.save_many(
-        (sweep.ensemble_replica(params_host, ri),
-         checkpoint.checkpoint_path(
-             cfg.replace(alpha=a, p_missingness=m), "experiments")
-         + checkpoint.seed_suffix(0 if s is None else int(s) - cfg.seed))
-        for ri, (m, a, s) in enumerate(rows))
+    writer = multihost.is_coordinator()
+    if writer:
+        checkpoint.save_many(
+            (sweep.ensemble_replica(params_host, ri),
+             checkpoint.checkpoint_path(
+                 cfg.replace(alpha=a, p_missingness=m), "experiments")
+             + checkpoint.seed_suffix(0 if s is None else int(s) - cfg.seed))
+            for ri, (m, a, s) in enumerate(rows))
     S = n_seeds
     for m in cfg_miss:
         ids = [ri for ri, (rm, _a, _s) in enumerate(rows) if rm == m]
@@ -242,15 +255,17 @@ def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
         for ai, a in enumerate(cfg_alphas):
             cell = np.asarray(rmses[ai * S:(ai + 1) * S])
             cfg_ma = cfg.replace(alpha=a, p_missingness=m)
-            paths = artifacts.eval_mnar_paths(cfg_ma, "experiments")
-            artifacts.save_tensor(float(cell[0]), paths["rmse"])
-            artifacts.log_metric(cfg_ma, "rmse_mnar", float(cell[0]),
-                                 "test", "experiments")
+            if writer:
+                paths = artifacts.eval_mnar_paths(cfg_ma, "experiments")
+                artifacts.save_tensor(float(cell[0]), paths["rmse"])
+                artifacts.log_metric(cfg_ma, "rmse_mnar", float(cell[0]),
+                                     "test", "experiments")
             line = (f"rmse={cell.mean():.5f}±{cell.std():.5f}  "
                     + " ".join(f"s{si}={v:.5f}"
                                for si, v in enumerate(cell))
                     if n_seeds > 1 else f"rmse={float(cell[0]):.5f}")
             print(f"  missing={m} alpha={a:g} {line}")
+    wait_for_writes(mesh)
     print(f"  [timing] train {t_train:.1f}s  eval+save "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 

@@ -15,15 +15,27 @@ group's ranks with the same two axes:
 
 `make_mesh` returns a `Mesh`: the `DeviceMesh`, the rank's device, and a
 `shape` mapping, so `dict(mesh.shape)` is `{'dp': 2, 'tp': 1}` as in JAX.
+
+Rows. Every engine that runs over a mesh without a collective in its
+compute (the ensembles' replica axis, the AL test rows, the AIS chains, the
+served request rows) dp-shards one leading axis the same way: the axis is
+padded to a multiple of dp (`padded_rows`, the JAX package's `-(-n // dp)
+* dp`), dp rank r holds the r-th equal block of it (`Rows`; the tp ranks of
+one dp index hold the same rows, as JAX's P("dp", ...) replicates over tp),
+its draws are made at the padded global shape and cut to its block
+(`RankRows`), and its results are all-gathered over the dp group and cut
+back to the real rows (`Rows.gather`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vae_posterior_consistency_tpu_torch.engine import checkpoint
 
@@ -157,3 +169,142 @@ def full_params(params) -> dict:
     return checkpoint.unflatten({
         k: v.full_tensor() if isinstance(v, DTensor) else v
         for k, v in checkpoint.flatten(params).items()})
+
+
+# ---------------------------------------------------------------------------
+# dp-sharded rows
+# ---------------------------------------------------------------------------
+
+
+def padded_rows(n: int, dp: int) -> int:
+    """`n` rows rounded up to a multiple of `dp` (the JAX package's
+    even-shard rule, `-(-n // dp) * dp`)."""
+    return -(-n // dp) * dp
+
+
+def pad_rows(t: torch.Tensor, padded: int, fill: float = 0.0) -> torch.Tensor:
+    """`t` with rows of `fill` appended along axis 0 up to `padded` rows."""
+    extra = padded - t.shape[0]
+    if extra == 0:
+        return t
+    return torch.cat([t, t.new_full((extra, *t.shape[1:]), fill)])
+
+
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """This rank's block of a dp-sharded leading axis: `n` real rows padded
+    to `padded` (a multiple of dp), dp rank `r` holding rows [lo, hi).
+    `group` is the dp process group the blocks are gathered over (None on
+    one rank)."""
+
+    n: int
+    padded: int
+    dp: int
+    r: int
+    group: object = None
+
+    @property
+    def local(self) -> int:
+        return self.padded // self.dp
+
+    @property
+    def lo(self) -> int:
+        return self.r * self.local
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.local
+
+    def pad(self, t: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+        """The global `t` (its `n` real rows along axis 0) with rows of
+        `fill` up to `padded`."""
+        return pad_rows(t, self.padded, fill)
+
+    def weights(self, device=None) -> torch.Tensor:
+        """This rank's block of the row weights, float32: 1 on a real row,
+        0 on a padded one."""
+        return (torch.arange(self.lo, self.hi, device=device)
+                < self.n).to(torch.float32)
+
+    def take(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's block of the padded global `t` along `axis`."""
+        return t.narrow(axis, self.lo, self.local)
+
+    def gather(self, t: torch.Tensor, axis: int = 0,
+               cut: bool = True) -> torch.Tensor:
+        """The blocks `t` of every dp rank along `axis`, in rank order (an
+        all-gather over the dp group), cut to the `n` real rows unless
+        `cut` is False. Every rank of the group calls it."""
+        if self.dp > 1:
+            parts = [torch.empty_like(t) for _ in range(self.dp)]
+            dist.all_gather(parts, t.contiguous(), group=self.group)
+            t = torch.cat(parts, dim=axis)
+        return t.narrow(axis, 0, self.n) if cut else t
+
+    def gather_tree(self, params, cut: bool = True) -> dict:
+        """`gather` of every leaf of nested `params` along axis 0."""
+        from vae_posterior_consistency_tpu_torch.engine import checkpoint
+
+        return checkpoint.unflatten({
+            k: self.gather(v.detach(), cut=cut)
+            for k, v in checkpoint.flatten(params).items()})
+
+    def take_tree(self, params) -> dict:
+        """`take` of every leaf of nested `params` along axis 0."""
+        from vae_posterior_consistency_tpu_torch.engine import checkpoint
+
+        return checkpoint.unflatten({
+            k: self.take(v) for k, v in checkpoint.flatten(params).items()})
+
+
+def rows_of(mesh: Optional[Mesh], n: int,
+            padded: Optional[int] = None) -> Rows:
+    """This rank's `Rows` of an axis of `n` rows on `mesh` (padded to
+    `padded`, by default `padded_rows(n, dp)`); with no mesh, all of
+    them."""
+    if mesh is None:
+        return Rows(n, n if padded is None else padded, 1, 0)
+    dp = mesh.shape["dp"]
+    padded = padded_rows(n, dp) if padded is None else padded
+    if padded % dp:
+        raise ValueError(f"{padded} rows do not divide over dp={dp}")
+    return Rows(n, padded, dp, mesh.rank("dp"), mesh.group("dp"))
+
+
+class RankRows:
+    """A noise source handing this rank its rows. Asked for a draw of its
+    own shape (the last positional argument: `noise(kind, ..., shape)`),
+    it draws `dp` times as many rows along the kind's row axis
+    `rows[kind]` from `noise` and returns block r of it, contiguous; a kind
+    whose axis is None is shared and passes through whole, and a kind
+    missing from `rows` raises KeyError. An ensemble source's `epoch(epoch,
+    n, steps, shapes)` draws are cut the same way, each of its keys along
+    its axis in `rows`."""
+
+    def __init__(self, noise, rows: dict, dp: int, r: int):
+        self.noise, self.rows, self.dp, self.r = noise, rows, dp, r
+
+    def _axis(self, kind):
+        if kind not in self.rows:
+            raise KeyError(f"{kind!r} has no row axis in this rank's table "
+                           f"{sorted(self.rows)} (None marks a shared draw)")
+        return self.rows[kind]
+
+    def _block(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        b = t.shape[axis] // self.dp
+        return t.narrow(axis, self.r * b, b).contiguous()
+
+    def __call__(self, kind, *args, **kw):
+        axis = self._axis(kind)
+        if axis is None:
+            return self.noise(kind, *args, **kw)
+        *lead, shape = args
+        full = list(shape)
+        full[axis] = shape[axis] * self.dp
+        return self._block(self.noise(kind, *lead, tuple(full), **kw), axis)
+
+    def epoch(self, epoch: int, n: int, steps: int, shapes: dict) -> dict:
+        drawn = self.noise.epoch(epoch, n, steps, shapes)
+        axes = {k: self._axis(k) for k in drawn}
+        return {k: v if axes[k] is None else self._block(v, axes[k])
+                for k, v in drawn.items()}

@@ -1,7 +1,6 @@
 """Sweep parallelism: whole training runs over seeds, splits, alphas and
 missing rates trained as one ensemble (port of the JAX package's
-`parallel/sweep.py`, all of it but `shard_ensemble`, `_shard_fn` and the
-`mesh` arguments, which come with slice 10 part 2).
+`parallel/sweep.py`).
 
 The reference runs its (3 data splits) x (alpha) x (missing-rate) sweep as
 serial Python loops (reference: src/experiment_main/imputation.py:21-25).
@@ -49,6 +48,23 @@ JAX package's per-step gather layout, sweep.py:102-114; its epoch-table
 layout, a TPU layout choice that gives the same values, is not ported):
 [S, bsz] indices into the [n, D] table in seed mode, [bsz] into the [S, n, D]
 tables in split mode and into the shared table in alpha mode.
+
+Mesh (sweep.py:385-416, the trainers' `mesh`). With a (dp, tp) mesh the
+replica axis is dp-sharded with no collective inside a step: the S rows
+are padded to S_run, a multiple of dp, as the JAX package pads them (the
+last seed, alpha or sweep row repeated; the last split duplicated, with
+init seeds `epoch_seed(cfg.seed, i)` for i < S_run), each dp rank
+(`parallel/mesh.Rows`; the tp ranks of one dp index repeat its work) runs
+the chunk above on its S_run/dp replicas, and its noise is the global
+S_run source's draws cut to its rows (`parallel/mesh.RankRows`: the
+replica axis of each kind, and of the seed mode's permutations; the alpha
+mode's shared draws stay whole). `shard_ensemble` lays a stacked state out
+so. The early-stopping tracker sees all S_run rows, padding included: the
+per-replica validation losses and parameters are all-gathered at each
+check, so every rank makes the same decision. Rank 0 writes the resume
+file from the gathered S_run rows, and a resumed rank takes its rows of
+it (`_shard_fn`). The trainers return the gathered first S rows on every
+rank.
 """
 
 from __future__ import annotations
@@ -73,6 +89,8 @@ from vae_posterior_consistency_tpu_torch.engine.train import (
 )
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.ops import masks as masks_ops
+from vae_posterior_consistency_tpu_torch.parallel import mesh as meshlib
+from vae_posterior_consistency_tpu_torch.parallel import multihost
 
 #: widest seed ensemble trained as one group (sweep.py:57-70):
 #: train_seed_ensemble trains wider requests as groups of at most this many
@@ -310,7 +328,7 @@ def _val_split(dataset):
 
 def _run_chunked(run_chunk, params, epochs: int, chunk_epochs: int,
                  resume_path=None, checkpoint_every=None, resume=False,
-                 resume_tag="", val_fn=None, early_stopping=None):
+                 resume_tag="", val_fn=None, early_stopping=None, rows=None):
     """Drive an ensemble chunk runner to `epochs` with the serial engine's
     restart contract (sweep.py:293-382): with `checkpoint_every=N` the
     stacked (parameters, Adam state, epochs done) go to `resume_path`
@@ -322,15 +340,31 @@ def _run_chunked(run_chunk, params, epochs: int, chunk_epochs: int,
     replica has used up its patience; each replica's best-check parameters
     are returned (host tensors once a check ran). As in the JAX package,
     `early_stopping` is read without a None guard when `val_fn` is given
-    (ROADMAP C.6.3). Returns (params, history [S, epochs run here])."""
+    (ROADMAP C.6.3).
+
+    `rows` (`parallel/mesh.Rows`) places this rank's replicas in the
+    padded ensemble of a mesh: the resume file holds all of them (written
+    by rank 0 from the gathered state, each rank taking its rows back,
+    `_shard_fn`), the tracker sees all of them (the losses and parameters
+    all-gathered at each check), and the returned parameters and history
+    [S_run, epochs run here] are all of them, on every rank."""
     if (checkpoint_every or resume) and not resume_path:
         raise ValueError(
             "checkpoint_every/resume require resume_path on the ensemble "
             "trainers (the CLI derives it; API callers must pass one)")
+    if rows is None:
+        S = next(iter(checkpoint.flatten(params).values())).shape[0]
+        rows = meshlib.Rows(S, S, 1, 0)
+    on_mesh = rows.group is not None
+    device = next(iter(checkpoint.flatten(params).values())).device
     done, opt_state = 0, None
     if resume and os.path.exists(resume_path):
+        template = checkpoint.unflatten({
+            k: v.new_empty((rows.padded, *v.shape[1:]))
+            for k, v in checkpoint.flatten(params).items()})
         params, opt_state, done = checkpoint.load_resume(
-            params, resume_path, tag=resume_tag, max_epochs=epochs)
+            template, resume_path, tag=resume_tag, max_epochs=epochs)
+        params, opt_state = _shard_fn(rows)(params, opt_state)
     params = trainable(params)
     optimizer = make_optimizer(params)
     if opt_state is not None:
@@ -348,21 +382,96 @@ def _run_chunked(run_chunk, params, epochs: int, chunk_epochs: int,
                                  or done >= epochs):
             # the final boundary is always written, so a later run with a
             # larger budget resumes instead of retraining
-            checkpoint.save_resume(params,
-                                   checkpoint.adam_state(optimizer, params),
-                                   done, resume_path, tag=resume_tag)
+            state = checkpoint.adam_state(optimizer, params)
+            full = rows.gather_tree(params, cut=False)
+            state = checkpoint.AdamState(
+                state.count, rows.gather_tree(state.mu, cut=False),
+                rows.gather_tree(state.nu, cut=False))
+            if multihost.is_coordinator():
+                checkpoint.save_resume(full, state, done, resume_path,
+                                       tag=resume_tag)
+            if on_mesh:
+                multihost.barrier(device)
         if val_fn is not None and (done % chunk_epochs == 0
                                    or done >= epochs):
-            if early_stopping.update(val_fn(params), params):
+            losses = rows.gather(torch.as_tensor(val_fn(params),
+                                                 device=device), cut=False)
+            if early_stopping.update(losses.cpu().numpy(),
+                                     rows.gather_tree(params, cut=False)):
                 break
-    params = checkpoint.unflatten({k: v.detach() for k, v
-                                   in checkpoint.flatten(params).items()})
+    params = rows.gather_tree(params, cut=False)
     if early_stopping is not None and early_stopping.best_params is not None:
         params = early_stopping.best_params
+    if not history:
+        return params, np.zeros((rows.padded, 0), np.float32)
+    hist = torch.from_numpy(np.concatenate(history, axis=0).T.copy())
+    return params, rows.gather(hist.to(device), cut=False).cpu().numpy()
+
+
+def shard_ensemble(params_ens, opt_state, mesh):
+    """This rank's replica rows of an ensemble's stacked state over the
+    mesh's dp axis (sweep.py:385-408): every leaf of `params_ens` and of
+    the moments of `opt_state` (a `checkpoint.AdamState`, or None) cut to
+    the rank's rows. Replicas never communicate, so a step needs no
+    collective. Requires S % dp == 0."""
+    dp = mesh.shape["dp"]
+    S = next(iter(checkpoint.flatten(params_ens).values())).shape[0]
+    if S % dp != 0:
+        raise ValueError(f"ensemble size {S} not divisible by dp={dp}")
+    return _shard_fn(meshlib.rows_of(mesh, S))(params_ens, opt_state)
+
+
+def _shard_fn(rows):
+    """The resume re-shard of `_run_chunked`: (params, opt_state) of the
+    whole padded ensemble, as a resume file holds them -> this rank's
+    rows."""
+    def shard(params, opt_state):
+        if opt_state is not None:
+            opt_state = checkpoint.AdamState(
+                opt_state.count, rows.take_tree(opt_state.mu),
+                rows.take_tree(opt_state.nu))
+        return rows.take_tree(params), opt_state
+
+    return shard
+
+
+def _ensemble_rows(mesh, S: int, device):
+    """(rows, device) of an S-replica ensemble: this rank's `Rows` of the
+    replica axis, padded to a multiple of dp on a mesh, and the device the
+    replicas train on (the mesh's, else `device`)."""
+    if mesh is None:
+        return meshlib.Rows(S, S, 1, 0), check_device(device)
+    return meshlib.rows_of(mesh, S), mesh.device
+
+
+def _padded(values, rows) -> list:
+    """`values` (one a replica) padded to rows.padded by repeating the
+    last, as the JAX package pads its seeds, alphas and sweep rows."""
+    values = list(values)
+    return values + [values[-1]] * (rows.padded - len(values))
+
+
+def _rank_noise(noise, rows, mode: str, cfg: RunConfig, model):
+    """The ensemble noise source of this rank's replicas: `noise` (drawing
+    for all rows.padded replicas) cut to its rows along the replica axis
+    of each step kind and, in seed mode, of the permutations; the alpha
+    mode's draws are shared and pass whole."""
+    if rows.dp == 1 or mode == "alpha":
+        return noise
+    axes = {kind: 1 for kind in _noise_shapes(cfg, model, 1, 1)}
+    axes["perm"] = 0 if mode == "seed" else None
+    return meshlib.RankRows(noise, axes, rows.dp, rows.r)
+
+
+def _local_params(params, rows, device):
+    """A caller's stacked `params` (rows.padded replicas) -> this rank's
+    rows on `device`."""
+    params = checkpoint.on_device(params, device)
     S = next(iter(checkpoint.flatten(params).values())).shape[0]
-    hist = (np.concatenate(history, axis=0).T if history
-            else np.zeros((S, 0), np.float32))
-    return params, hist
+    if S != rows.padded:
+        raise ValueError(f"params hold {S} replicas; this ensemble runs "
+                         f"{rows.padded} (padded to a multiple of dp)")
+    return rows.take_tree(params)
 
 
 def _take_rows(params_ens, S: int):
@@ -397,7 +506,7 @@ def _shared_table_val_fn(dataset, cfg, model, device, val_noise,
 
 
 def build_seed_ensemble_runner(dataset, cfg: RunConfig, seeds, device="cuda",
-                               noise=None, params=None):
+                               noise=None, params=None, mesh=None):
     """The len(seeds)-replica chunk runner and its stacked parameters:
     (run_chunk, params_ens). run_chunk(params, optimizer, epoch0, n_epochs)
     -> losses [n_epochs, S]; `params` must be trainable leaves
@@ -405,17 +514,22 @@ def build_seed_ensemble_runner(dataset, cfg: RunConfig, seeds, device="cuda",
     (`train.make_optimizer`). Replica i starts from `model.init` seeded
     with seeds[i] (the serial `train`'s init of a run with that seed) unless
     `params` (stacked) is given; `noise` defaults to
-    EnsembleNoise('seed', seeds=seeds)."""
-    device = check_device(device)
+    EnsembleNoise('seed', seeds=seeds). With `mesh`, the seeds are padded
+    to a multiple of dp by repeating the last (sweep.py:436-441) and the
+    runner and parameters are this rank's rows of them (`params`, when
+    given, holds all the padded rows)."""
     model = get_model(cfg)
-    seeds = [int(s) for s in seeds]
-    params_ens = (_stacked_init(model, cfg, dataset.obs_dim, seeds, device)
-                  if params is None else checkpoint.on_device(params, device))
+    rows, device = _ensemble_rows(mesh, len(seeds), device)
+    seeds = _padded([int(s) for s in seeds], rows)
+    params_ens = (_stacked_init(model, cfg, dataset.obs_dim,
+                                seeds[rows.lo:rows.hi], device)
+                  if params is None else _local_params(params, rows, device))
     x, m = _table(dataset.train, device)
     run_chunk = _make_ensemble_chunk(
-        cfg, model, x, m, mode="seed", S=len(seeds),
-        noise=EnsembleNoise("seed", device, seeds=seeds) if noise is None
-        else noise)
+        cfg, model, x, m, mode="seed", S=rows.local,
+        noise=_rank_noise(EnsembleNoise("seed", device, seeds=seeds)
+                          if noise is None else noise, rows, "seed", cfg,
+                          model))
     return run_chunk, params_ens
 
 
@@ -423,11 +537,12 @@ def train_seed_ensemble(dataset, cfg: RunConfig, seeds,
                         chunk_epochs: int = 200, checkpoint_every=None,
                         resume=False, resume_path=None,
                         early_stopping=None, device="cuda", noise=None,
-                        params=None, val_noise=None):
+                        params=None, val_noise=None, mesh=None):
     """Train len(seeds) independent replicas of one config as one ensemble
     (sweep.py:455-524). Returns (stacked params [S, ...], loss history
     [S, epochs run]). Each replica has its own init and its own shuffle,
-    mask and model streams.
+    mask and model streams. With `mesh`, the replicas are dp-sharded (see
+    the module docstring); `noise` then draws for the padded seeds.
 
     Requests wider than SEED_GROUP_MAX_S train as groups of at most that
     many replicas, one after the other; with checkpoint_every/resume,
@@ -452,7 +567,7 @@ def train_seed_ensemble(dataset, cfg: RunConfig, seeds,
             noise=None if noise is None else noise.group(i, i + g),
             params=(None if params is None
                     else ensemble_replica(params, slice(i, i + g))),
-            val_noise=val_noise)
+            val_noise=val_noise, mesh=mesh)
             for i in range(0, S, g)]
         flat = [checkpoint.flatten(p) for p, _ in parts]
         params_out = checkpoint.unflatten({
@@ -465,8 +580,9 @@ def train_seed_ensemble(dataset, cfg: RunConfig, seeds,
                  for h in hists]
         return params_out, np.concatenate(hists, axis=0)
     run_chunk, params_ens = build_seed_ensemble_runner(
-        dataset, cfg, seeds, device=device, noise=noise, params=params)
-    device = check_device(device)
+        dataset, cfg, seeds, device=device, noise=noise, params=params,
+        mesh=mesh)
+    rows, device = _ensemble_rows(mesh, S, device)
     val_fn = None
     if early_stopping is not None:
         val_fn = _shared_table_val_fn(dataset, cfg, get_model(cfg), device,
@@ -477,7 +593,7 @@ def train_seed_ensemble(dataset, cfg: RunConfig, seeds,
         resume=resume,
         resume_tag=("seed:" + ",".join(str(s) for s in seeds)
                     + f":batch={cfg.batch_size}"),
-        val_fn=val_fn, early_stopping=early_stopping)
+        val_fn=val_fn, early_stopping=early_stopping, rows=rows)
     return _take_rows(params_ens, S), hist[:S]
 
 
@@ -485,7 +601,7 @@ def train_split_ensemble(datasets, cfg: RunConfig, chunk_epochs: int = 200,
                          n_seeds: int = 1, checkpoint_every=None,
                          resume=False, resume_path=None, early_stopping=None,
                          device="cuda", noise=None, params=None,
-                         val_noise=None):
+                         val_noise=None, mesh=None):
     """Train one replica per data split of one model family as one ensemble
     (the reference's `vae_type` digit axis; sweep.py:527-632). Each replica
     has its own (x, mask) tables, its own init (a generator seeded with
@@ -499,8 +615,10 @@ def train_split_ensemble(datasets, cfg: RunConfig, chunk_epochs: int = 200,
     j of a padded table is the split's row j mod n_i), so every replica
     takes the same number of steps an epoch; an equal-size group is
     unchanged. Early stopping validates each replica on its own split's
-    test table (train where absent), wrap-padded the same way."""
-    device = check_device(device)
+    test table (train where absent), wrap-padded the same way. With
+    `mesh`, the replicas are padded to a multiple of dp by duplicating the
+    last split (sweep.py:579-602) and dp-sharded; `noise` then draws for
+    the padded replicas."""
     model = get_model(cfg)
     if n_seeds > 1:
         datasets = list(datasets) * n_seeds
@@ -510,30 +628,37 @@ def train_split_ensemble(datasets, cfg: RunConfig, chunk_epochs: int = 200,
         raise ValueError(
             "train_split_ensemble needs one obs_dim across the group; got "
             f"{sorted(obs_dims)} — these are different tables, not splits")
+    rows, device = _ensemble_rows(mesh, S, device)
+    run_sets = _padded(datasets, rows)
+    local = run_sets[rows.lo:rows.hi]
 
-    def stack(tables):
-        n_max = max(t.shape[0] for t in tables)
+    def stack(tables, n_max):
         return torch.stack([
             t if t.shape[0] == n_max else
             t[torch.arange(n_max, device=t.device) % t.shape[0]]
             for t in tables])
 
-    tables = [_table(d.train, device) for d in datasets]
-    xs, ms = stack([t[0] for t in tables]), stack([t[1] for t in tables])
+    n_max = max(d.train.x.shape[0] for d in datasets)
+    tables = [_table(d.train, device) for d in local]
+    xs = stack([t[0] for t in tables], n_max)
+    ms = stack([t[1] for t in tables], n_max)
     params_ens = (_stacked_init(model, cfg, xs.shape[2],
-                                [epoch_seed(cfg.seed, i) for i in range(S)],
-                                device)
-                  if params is None else checkpoint.on_device(params, device))
+                                [epoch_seed(cfg.seed, i)
+                                 for i in range(rows.lo, rows.hi)], device)
+                  if params is None else _local_params(params, rows, device))
     run_chunk = _make_ensemble_chunk(
-        cfg, model, xs, ms, mode="split", S=S,
-        noise=EnsembleNoise("split", device, seed=cfg.seed, S=S)
-        if noise is None else noise)
+        cfg, model, xs, ms, mode="split", S=rows.local,
+        noise=_rank_noise(EnsembleNoise("split", device, seed=cfg.seed,
+                                        S=rows.padded)
+                          if noise is None else noise, rows, "split", cfg,
+                          model))
     val_fn = None
     if early_stopping is not None:
-        vtables = [_table(_val_split(d), device) for d in datasets]
+        vn_max = max(_val_split(d).x.shape[0] for d in datasets)
+        vtables = [_table(_val_split(d), device) for d in local]
         val_fn = _make_ensemble_val_fn(
-            cfg, model, stack([t[0] for t in vtables]),
-            stack([t[1] for t in vtables]),
+            cfg, model, stack([t[0] for t in vtables], vn_max),
+            stack([t[1] for t in vtables], vn_max),
             GeneratorNoise(cfg.seed, device) if val_noise is None
             else val_noise, per_replica_data=True)
     params_ens, hist = _run_chunked(
@@ -542,7 +667,7 @@ def train_split_ensemble(datasets, cfg: RunConfig, chunk_epochs: int = 200,
         resume=resume,
         resume_tag=(f"split:S={S}:n_seeds={n_seeds}:seed={cfg.seed}"
                     + f":batch={cfg.batch_size}"),
-        val_fn=val_fn, early_stopping=early_stopping)
+        val_fn=val_fn, early_stopping=early_stopping, rows=rows)
     return _take_rows(params_ens, S), hist[:S]
 
 
@@ -551,38 +676,41 @@ def train_alpha_ensemble(dataset, cfg: RunConfig, alphas,
                          checkpoint_every=None, resume=False,
                          resume_path=None, early_stopping=None,
                          device="cuda", noise=None, params=None,
-                         val_noise=None):
+                         val_noise=None, mesh=None):
     """Train the reference's alpha sweep (src/experiment_main/
     imputation.py:24) as one ensemble, a replica per alpha (sweep.py:
     635-683). Replica i starts from a generator seeded with
     `train.epoch_seed(seed, i)`; the replicas share the data, the shuffle
     and every stream, so alpha is the only difference between them.
-    Returns (params [A, ...], loss history [A, epochs])."""
-    device = check_device(device)
+    Returns (params [A, ...], loss history [A, epochs]). With `mesh`, the
+    alphas are padded by repeating the last and dp-sharded."""
     model = get_model(cfg)
     alphas = list(alphas)
     S = len(alphas)
     tag = ("alpha:" + ",".join(str(a) for a in alphas)
            + f":seed={seed}:batch={cfg.batch_size}")
+    rows, device = _ensemble_rows(mesh, S, device)
+    local_alphas = _padded(alphas, rows)[rows.lo:rows.hi]
     params_ens = (_stacked_init(model, cfg, dataset.obs_dim,
-                                [epoch_seed(seed, i) for i in range(S)],
-                                device)
-                  if params is None else checkpoint.on_device(params, device))
+                                [epoch_seed(seed, i)
+                                 for i in range(rows.lo, rows.hi)], device)
+                  if params is None else _local_params(params, rows, device))
     cfg_seeded = cfg.replace(seed=seed)
     x, m = _table(dataset.train, device)
     run_chunk = _make_ensemble_chunk(
-        cfg_seeded, model, x, m, mode="alpha", S=S, alphas=alphas,
-        noise=EnsembleNoise("alpha", device, seed=seed, S=S)
+        cfg_seeded, model, x, m, mode="alpha", S=rows.local,
+        alphas=local_alphas,
+        noise=EnsembleNoise("alpha", device, seed=seed, S=rows.padded)
         if noise is None else noise)
     val_fn = None
     if early_stopping is not None:
         val_fn = _shared_table_val_fn(dataset, cfg_seeded, model, device,
-                                       val_noise, alphas=alphas)
+                                       val_noise, alphas=local_alphas)
     params_ens, hist = _run_chunked(
         run_chunk, params_ens, cfg.epoch, chunk_epochs,
         resume_path=resume_path, checkpoint_every=checkpoint_every,
         resume=resume, resume_tag=tag, val_fn=val_fn,
-        early_stopping=early_stopping)
+        early_stopping=early_stopping, rows=rows)
     return _take_rows(params_ens, S), hist[:S]
 
 
@@ -590,38 +718,41 @@ def train_alpha_seed_ensemble(dataset, cfg: RunConfig, alphas, seeds,
                               chunk_epochs: int = 200, checkpoint_every=None,
                               resume=False, resume_path=None,
                               early_stopping=None, device="cuda", noise=None,
-                              params=None, val_noise=None):
+                              params=None, val_noise=None, mesh=None):
     """The alpha sweep with error bars (sweep.py:686-731): row a * n_seeds +
     i holds (alphas[a], seeds[i]). Rows use the seed mode's streams keyed by
     the row's seed, so the rows of one seed share init, shuffle and draws
     across alphas (a paired comparison) and different seeds are
     independent; alphas=[cfg.alpha] is train_seed_ensemble. Returns
-    (params [A*S, ...], loss history [A*S, epochs])."""
-    device = check_device(device)
+    (params [A*S, ...], loss history [A*S, epochs]). With `mesh`, the rows
+    are padded by repeating the last and dp-sharded."""
     model = get_model(cfg)
-    rows = [(float(a), int(sd)) for a in alphas for sd in seeds]
-    R = len(rows)
-    tag = ("alphaseed:" + ";".join(f"{a}x{sd}" for a, sd in rows)
+    rows_v = [(float(a), int(sd)) for a in alphas for sd in seeds]
+    R = len(rows_v)
+    tag = ("alphaseed:" + ";".join(f"{a}x{sd}" for a, sd in rows_v)
            + f":batch={cfg.batch_size}")
-    row_alphas = [a for a, _ in rows]
-    row_seeds = [sd for _, sd in rows]
-    params_ens = (_stacked_init(model, cfg, dataset.obs_dim, row_seeds,
-                                device)
-                  if params is None else checkpoint.on_device(params, device))
+    rows, device = _ensemble_rows(mesh, R, device)
+    run_rows = _padded(rows_v, rows)
+    row_seeds = [sd for _, sd in run_rows]
+    local_alphas = [a for a, _ in run_rows][rows.lo:rows.hi]
+    params_ens = (_stacked_init(model, cfg, dataset.obs_dim,
+                                row_seeds[rows.lo:rows.hi], device)
+                  if params is None else _local_params(params, rows, device))
     x, m = _table(dataset.train, device)
     run_chunk = _make_ensemble_chunk(
-        cfg, model, x, m, mode="seed", S=R, alphas=row_alphas,
-        noise=EnsembleNoise("seed", device, seeds=row_seeds)
-        if noise is None else noise)
+        cfg, model, x, m, mode="seed", S=rows.local, alphas=local_alphas,
+        noise=_rank_noise(EnsembleNoise("seed", device, seeds=row_seeds)
+                          if noise is None else noise, rows, "seed", cfg,
+                          model))
     val_fn = None
     if early_stopping is not None:
         val_fn = _shared_table_val_fn(dataset, cfg, model, device,
-                                       val_noise, alphas=row_alphas)
+                                       val_noise, alphas=local_alphas)
     params_ens, hist = _run_chunked(
         run_chunk, params_ens, cfg.epoch, chunk_epochs,
         resume_path=resume_path, checkpoint_every=checkpoint_every,
         resume=resume, resume_tag=tag, val_fn=val_fn,
-        early_stopping=early_stopping)
+        early_stopping=early_stopping, rows=rows)
     return _take_rows(params_ens, R), hist[:R]
 
 
@@ -630,7 +761,7 @@ def train_sweep_ensemble(dataset, cfg: RunConfig, missings=None, alphas=None,
                          checkpoint_every=None, resume=False,
                          resume_path=None, early_stopping=None,
                          device="cuda", noise=None, params=None,
-                         val_noise=None):
+                         val_noise=None, mesh=None):
     """The reference's whole serial sweep, missing rate x alpha x seed
     (src/experiment_main/imputation.py:23-24), as one ensemble of R =
     len(missings) * len(alphas) * len(seeds) rows (sweep.py:734-824).
@@ -643,19 +774,20 @@ def train_sweep_ensemble(dataset, cfg: RunConfig, missings=None, alphas=None,
     different thresholds), row i's init from `train.epoch_seed(cfg.seed,
     i)`; seeds given: the seed mode's streams keyed by the row's seed. A
     single missing rate delegates to train_alpha_seed_ensemble /
-    train_alpha_ensemble."""
+    train_alpha_ensemble. With `mesh`, the rows are padded by repeating the
+    last and dp-sharded."""
     missings = [int(m) for m in
                 (missings if missings is not None else [cfg.p_missingness])]
     alphas = [float(a) for a in
               (alphas if alphas is not None else [cfg.alpha])]
-    rows = [(m, a, None if seeds is None else int(s))
-            for m in missings for a in alphas
-            for s in (seeds if seeds is not None else [None])]
+    labels = [(m, a, None if seeds is None else int(s))
+              for m in missings for a in alphas
+              for s in (seeds if seeds is not None else [None])]
     common = dict(chunk_epochs=chunk_epochs,
                   checkpoint_every=checkpoint_every, resume=resume,
                   resume_path=resume_path, early_stopping=early_stopping,
                   device=device, noise=noise, params=params,
-                  val_noise=val_noise)
+                  val_noise=val_noise, mesh=mesh)
     if len(missings) == 1:
         cfg1 = cfg.replace(p_missingness=missings[0])
         if seeds is not None:
@@ -664,27 +796,33 @@ def train_sweep_ensemble(dataset, cfg: RunConfig, missings=None, alphas=None,
         else:
             params, hist = train_alpha_ensemble(dataset, cfg1, alphas,
                                                 seed=cfg.seed, **common)
-        return params, hist, rows
-    device = check_device(device)
+        return params, hist, labels
     model = get_model(cfg)
-    R = len(rows)
-    row_miss = [m for m, _, _ in rows]
-    row_alphas = [a for _, a, _ in rows]
+    R = len(labels)
+    rows, device = _ensemble_rows(mesh, R, device)
+    run_rows = _padded(labels, rows)
+    local = run_rows[rows.lo:rows.hi]
+    row_miss = [m for m, _, _ in local]
+    row_alphas = [a for _, a, _ in local]
     if seeds is not None:
-        row_seeds = [s for _, _, s in rows]
-        init_seeds, mode = row_seeds, "seed"
+        row_seeds = [s for _, _, s in run_rows]
+        init_seeds, mode = row_seeds[rows.lo:rows.hi], "seed"
         default_noise = EnsembleNoise("seed", device, seeds=row_seeds)
     else:
-        init_seeds = [epoch_seed(cfg.seed, i) for i in range(R)]
+        init_seeds = [epoch_seed(cfg.seed, i)
+                      for i in range(rows.lo, rows.hi)]
         mode = "alpha"
-        default_noise = EnsembleNoise("alpha", device, seed=cfg.seed, S=R)
+        default_noise = EnsembleNoise("alpha", device, seed=cfg.seed,
+                                      S=rows.padded)
     params_ens = (_stacked_init(model, cfg, dataset.obs_dim, init_seeds,
                                 device)
-                  if params is None else checkpoint.on_device(params, device))
+                  if params is None else _local_params(params, rows, device))
     x, m = _table(dataset.train, device)
     run_chunk = _make_ensemble_chunk(
-        cfg, model, x, m, mode=mode, S=R, alphas=row_alphas,
-        missings=row_miss, noise=default_noise if noise is None else noise)
+        cfg, model, x, m, mode=mode, S=rows.local, alphas=row_alphas,
+        missings=row_miss,
+        noise=_rank_noise(default_noise if noise is None else noise, rows,
+                          mode, cfg, model))
     val_fn = None
     if early_stopping is not None:
         val_fn = _shared_table_val_fn(dataset, cfg, model, device,
@@ -694,7 +832,7 @@ def train_sweep_ensemble(dataset, cfg: RunConfig, missings=None, alphas=None,
         run_chunk, params_ens, cfg.epoch, chunk_epochs,
         resume_path=resume_path, checkpoint_every=checkpoint_every,
         resume=resume,
-        resume_tag=("sweep:" + ";".join(f"{m},{a},{s}" for m, a, s in rows)
+        resume_tag=("sweep:" + ";".join(f"{m},{a},{s}" for m, a, s in labels)
                     + f":batch={cfg.batch_size}"),
-        val_fn=val_fn, early_stopping=early_stopping)
-    return _take_rows(params_ens, R), hist[:R], rows
+        val_fn=val_fn, early_stopping=early_stopping, rows=rows)
+    return _take_rows(params_ens, R), hist[:R], labels

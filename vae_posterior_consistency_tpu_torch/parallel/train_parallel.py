@@ -9,7 +9,8 @@ loop on the same replicated table:
   permutation: every rank's noise source draws the same numbers); dp rank
   r takes rows [r * bsz / dp, (r + 1) * bsz / dp). The step's noise is
   drawn at the global batch's shape and each rank takes its rows along each
-  kind's row axis (`ModelDef.train_noise_rows`, `ENGINE_NOISE_ROWS`), so the
+  kind's row axis (`ModelDef.train_noise_rows`, `ENGINE_NOISE_ROWS`,
+  `parallel/mesh.RankRows`), so the
   ranks together draw what one device would. `train_loss` divides by its
   own row count and the shards are equal, so the mean of the ranks'
   gradients over the dp group (one all-reduce a step, the loss with them)
@@ -63,24 +64,6 @@ from vae_posterior_consistency_tpu_torch.parallel import multihost
 #: the batch-row axis of the engine's own draws (`engine/train.draw_step`):
 #: the mask_p uniforms [B, D] and the EDDI drop uniforms [2, B, D]
 ENGINE_NOISE_ROWS = {"mask_p": 0, "drop": 1}
-
-
-class RankRows:
-    """A noise source handing this rank its rows: asked for `shape` (this
-    rank's rows), it draws the global shape from `noise`, `dp` times as
-    many rows along the kind's row axis `rows[kind]`, and returns rows
-    [r * b, (r + 1) * b) of it, contiguous."""
-
-    def __init__(self, noise, rows: dict, dp: int, r: int):
-        self.noise, self.rows, self.dp, self.r = noise, rows, dp, r
-
-    def __call__(self, kind, epoch, step, shape):
-        axis = self.rows[kind]
-        b = shape[axis]
-        full = list(shape)
-        full[axis] = b * self.dp
-        drawn = self.noise(kind, epoch, step, tuple(full))
-        return drawn.narrow(axis, self.r * b, b).contiguous()
 
 
 def _dp_mean(params, loss: torch.Tensor, mesh) -> torch.Tensor:
@@ -160,7 +143,8 @@ def make_parallel_train_step(cfg: RunConfig, mesh, model=None):
         b = x.shape[0] // dp
         x_r, m_r = x[r * b:(r + 1) * b], mask[r * b:(r + 1) * b]
         eff_mask, mask_p, eps, extra = draw_step(
-            cfg, RankRows(noise, rows, dp, r), m_r, epoch, step, model)
+            cfg, meshlib.RankRows(noise, rows, dp, r), m_r, epoch, step,
+            model)
         optimizer.zero_grad(set_to_none=True)
         loss, _aux = model.train_loss(meshlib.full_params(params), x_r,
                                       eff_mask, mask_p, eps,
