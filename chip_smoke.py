@@ -219,6 +219,26 @@ Run from the root of a checkout. It drives only the port
    '': both splits' estimates and latents, no kernel; (iv)
    ImputationServer(mesh=...) answering 4 requests of the wine reg_vae1
    against the plain server.
+23. mixed precision and the data plane (slice 11, parts a and b): (a)
+   the first compute_dtype 'bfloat16' step of MNIST reg_EDDI1 at full
+   width and of wine reg_vae1, card against CPU from the same parameters,
+   batch and recorded noise (loss within BF16_LOSS_RTOL, each gradient
+   leaf within BF16_GRAD_ULPS bf16 ulps of its largest magnitude, the EDDI
+   tables so against a CPU step holding the embed in float32 as the
+   card's kernels do), each kernel of the path launched once,
+   no plain version on a CUDA tensor, and under torch.profiler every dense
+   product a bf16 GEMM kernel; (b) record 37 (reg_EDDI1) through
+   experiment_main/imputation.py for 20 epochs in float32 and in bfloat16:
+   each kernel once a step, every loss finite and falling, the bf16 curve
+   within 5% of the float32 one, the checkpoint and artifacts at their
+   names, each run's step p50 and, from engine/profile_train over MNIST
+   reg_EDDI1, the step's device busy time in both dtypes; (c) eval_vae of
+   (b)'s bf16 model card against CPU fed the card's noise, and one
+   active-learning step under bf16 whose rewards equal the float32 rewards
+   of its (narrowed) completions bit for bit; (d) data/native_io built
+   from csrc/vpc_io.cpp and used: every index CSV of Data/ read equal to
+   np.loadtxt, the loaders' reads through it, mcar_mask's bits those of
+   the numpy fallback, the mask codec round trip.
 
 It prints a JSON line of the kernels (launches on the MNIST training run,
 launches per call, error against the plain version, times, bound; for B2f
@@ -231,7 +251,8 @@ by R; and for every kernel its launches on the AL ensemble entry point's
 run, `al_ensemble_launches`, and on the 128-replica reg_EDDI1 episode,
 `al_ensemble_128_launches`; and its launches on the mesh phase's
 `train_sharded` runs (a), `mesh_launches`, and on the slice 10 part 2
-mesh runs, `mesh_ensemble_launches` (i) and `mesh_al_launches` (ii)),
+mesh runs, `mesh_ensemble_launches` (i) and `mesh_al_launches` (ii); and
+on the bf16 training run of phase 23 (b), `bf16_launches`),
 then, as its last line,
 {"ok": true, "device": {...}}. Without CUDA, outside a checkout, or when any
 phase fails, it exits nonzero and prints no result. A watchdog ends the run
@@ -415,6 +436,37 @@ MESH_ENTRY_EPOCHS = 2
 MESH_D_RECORDS = (34, 37)
 MESH_D_SEEDS = 2
 MESH_D_EPOCHS = 3
+#: mixed precision (compute_dtype 'bfloat16'): a first step on the card
+#: against the CPU from the same parameters, batch and recorded noise. Both
+#: round the same operands to bf16 and sum them in float32 in other orders;
+#: the card rounds each gradient's cotangent to bf16 before its products
+#: (ROADMAP C.4.33), the CPU keeps it float32, so a layer input or a
+#: gradient may land on the neighbouring bf16 value, 2^-7 of its magnitude
+#: at most. Measured in a CPU emulation of the card's products (MNIST
+#: reg_EDDI1 and wine reg_vae1): losses 8.7e-7 apart, dense leaves within
+#: 2.7 * 2^-7 of their largest magnitude, held at BF16_GRAD_ULPS. The EDDI
+#: per-feature tables (BF16_TABLES) get their gradients through the embed,
+#: which the CPU holds in bf16 and the card's kernels in float32 (C.4.32):
+#: they are held at BF16_GRAD_ULPS against a CPU step that keeps the embed
+#: in float32 as the card does (the kernels' plain versions), and their
+#: distance from the CPU's bf16 embed is printed
+BF16_ULP = 2.0 ** -7
+BF16_LOSS_RTOL = 2e-5
+BF16_GRAD_ULPS = 4
+BF16_TABLES = ("encoder/type_pars", "encoder/type_bias")
+#: the record trained through the entry point in both dtypes, its epochs
+#: and M, and the bound between its two loss curves (the JAX package's
+#: tests/test_models.py:316-347)
+BF16_RECORD = 37
+BF16_EPOCHS = 20
+BF16_M = 5
+BF16_CURVE_RTOL = 0.05
+#: eval_vae under bf16, card against CPU fed the card's noise: the same
+#: rounding as the first step's through the trained model, on imputations
+#: in [0, 1] and row sums of 13 cells
+BF16_EVAL_RTOL = 1e-3
+BF16_EVAL_RMSE_ATOL = 1e-3
+BF16_PROFILE_STEPS = 10
 
 
 @contextlib.contextmanager
@@ -2695,6 +2747,7 @@ def main() -> int:
     al_ens_launches = al_ais_ensembles(env)
     mesh_launches = mesh_phase(env)
     mesh_d_launches = mesh_part2_phase(env)
+    bf16_launches = mixed_precision_phase(env)
     print(f"total {time.perf_counter() - t_start:.3f} s", flush=True)
     csrc = "vae_posterior_consistency_tpu_torch/csrc/"
     jax_ops = "vae_posterior_consistency_tpu/ops/"
@@ -2753,6 +2806,8 @@ def main() -> int:
         # episode ((ii))
         k["mesh_ensemble_launches"] = mesh_d_launches["ensemble"][k["name"]]
         k["mesh_al_launches"] = mesh_d_launches["al"][k["name"]]
+        # launches on the mixed-precision phase's entry-point run (b)
+        k["bf16_launches"] = bf16_launches[k["name"]]
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -4111,6 +4166,348 @@ def mesh_part2_phase(env) -> dict:
               f"max |diff| against the plain server {worst:.3e} [{card}]",
               flush=True)
     return out
+
+
+def mixed_precision_phase(env) -> dict:
+    """Mixed precision (compute_dtype 'bfloat16', slice 11 part a) and the
+    host data plane (part b) on the names main() set up (`env`): (a) the
+    first bf16 training step of MNIST reg_EDDI1 at full width and of wine
+    reg_vae1, card against CPU, under torch.profiler; (b) record 37 through
+    the imputation entry point in float32 and in bfloat16; (c) eval_vae
+    and one active-learning step under bf16; (d) `data/native_io`. Returns
+    the kernels' launches on (b)'s bf16 training run."""
+    import torch
+
+    from vae_posterior_consistency_tpu_torch.config import RunConfig
+    from vae_posterior_consistency_tpu_torch.data import loaders, native_io
+    from vae_posterior_consistency_tpu_torch.engine import (
+        active_learning,
+        artifacts,
+        checkpoint,
+        evaluate,
+        profile_train,
+    )
+    from vae_posterior_consistency_tpu_torch.engine import train as trainer
+    from vae_posterior_consistency_tpu_torch.experiment_main import (
+        imputation as imputation_main,
+    )
+    from vae_posterior_consistency_tpu_torch.models import get_model, layers
+    from vae_posterior_consistency_tpu_torch.nn import core
+    from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool
+
+    counts, reset_counts = env["counts"], env["reset_counts"]
+    no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
+    records, card, mnist = env["records"], env["card"], env["mnist"]
+    step_timer = env["step_timer"]
+    BF16 = "bfloat16"
+
+    def gemm_names(fn):
+        """The device kernels' names of one call of `fn` under
+        torch.profiler; a trace that holds no device event is taken again,
+        up to three times."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in profile_train.device_events(prof)]
+            if names:
+                return [n for n in names if "gemm" in n.lower()]
+        raise AssertionError("three torch.profiler traces held no device "
+                             "event")
+
+    @contextlib.contextmanager
+    def float32_embed():
+        """The card's precision policy on CPU tensors: the EDDI embed
+        pooled by the kernels' plain version in float32 (C.4.32)."""
+        saved = layers._pointnet_pool_multi
+
+        def pool(params, x, masks):
+            return fused_embed_pool.embed_pool(
+                x, masks, *layers._pointnet_affine(params))
+
+        layers._pointnet_pool_multi = pool
+        try:
+            yield
+        finally:
+            layers._pointnet_pool_multi = saved
+
+    def ulps(card_grads, cpu_grads):
+        """Each leaf's max |card - CPU| in bf16 ulps of its largest CPU
+        magnitude; a leaf without a gradient must lack it on both."""
+        out = {}
+        for key, g in cpu_grads.items():
+            if g is None or card_grads[key] is None:
+                if (g is None) != (card_grads[key] is None):
+                    raise AssertionError(f"gradient {key}: on one device "
+                                         "only")
+                continue
+            out[key] = max_abs(card_grads[key].cpu(), g) / (
+                BF16_ULP * g.abs().max().item())
+        return out
+
+    def first_step(cfg, xb, mb, obs_dim, want):
+        """The first bf16 step on the card against the CPU: the loss within
+        BF16_LOSS_RTOL, every leaf but the EDDI tables within
+        BF16_GRAD_ULPS bf16 ulps of its largest magnitude, the tables too
+        against a CPU step with the card's float32 embed; its launches
+        `want`, no plain version on a CUDA tensor; then the step's dense
+        products under torch.profiler, each a bf16 GEMM."""
+        model = get_model(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(SEED), cfg,
+                                obs_dim, device="cpu")
+        src, kept = trainer.GeneratorNoise(SEED + 1, "cuda"), []
+
+        def recording(kind, epoch, step, shape):
+            kept.append(src(kind, epoch, step, shape))
+            return kept[-1]
+
+        def step(params, x, m, noise):
+            leaves = {k: v.clone().requires_grad_()
+                      for k, v in checkpoint.flatten(params).items()}
+            eff, mask_p, eps, extra = trainer.draw_step(cfg, noise, m, 0, 0)
+            loss, _ = model.train_loss(checkpoint.unflatten(leaves), x, eff,
+                                       mask_p, eps, 1.0, cfg, **extra)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+            return loss.detach(), dict(zip(leaves, grads))
+
+        card_params = checkpoint.unflatten({
+            k: v.cuda() for k, v in checkpoint.flatten(cpu_params).items()})
+        reset_counts()
+        products = core.bf16_product.launches
+        with no_plain_on_card():
+            card_loss, card_grads = step(card_params, xb.cuda(), mb.cuda(),
+                                         recording)
+        torch.cuda.synchronize()
+        launched, n_products = counts(), core.bf16_product.launches - products
+        if launched != want:
+            raise AssertionError(f"a bf16 step launched {launched}, want "
+                                 f"{want}")
+        def cpu_step():
+            replay = iter([t.cpu() for t in kept])
+            return step(cpu_params, xb.cpu(), mb.cpu(),
+                        lambda kind, epoch, step, shape: next(replay))
+
+        cpu_loss, cpu_grads = cpu_step()
+        torch.testing.assert_close(card_loss.cpu(), cpu_loss,
+                                   rtol=BF16_LOSS_RTOL, atol=0)
+        worst = ulps(card_grads, cpu_grads)
+        tables = {k: worst.pop(k) for k in BF16_TABLES if k in worst}
+        if tables:
+            with float32_embed():
+                f32_loss, f32_grads = cpu_step()
+            torch.testing.assert_close(card_loss.cpu(), f32_loss,
+                                       rtol=BF16_LOSS_RTOL, atol=0)
+            f32_ulps = ulps(card_grads, f32_grads)
+            worst.update({f"{k} (float32 embed)": f32_ulps[k]
+                          for k in tables})
+        for key, n in worst.items():
+            if n > BF16_GRAD_ULPS:
+                raise AssertionError(f"gradient {key}: card vs CPU {n:.3f} "
+                                     f"bf16 ulps of max|leaf| > "
+                                     f"{BF16_GRAD_ULPS}")
+        gemms = gemm_names(lambda: step(card_params, xb.cuda(), mb.cuda(),
+                                        trainer.GeneratorNoise(SEED + 1,
+                                                               "cuda")))
+        bf16_gemms = [n for n in gemms if "bf16" in n.lower()]
+        if len(bf16_gemms) < n_products:
+            raise AssertionError(
+                f"{n_products} bf16 products, {len(bf16_gemms)} bf16 GEMM "
+                f"kernels in the trace: {sorted(set(gemms))}")
+        top = max(worst, key=worst.get)
+        print(f"{cfg.vae_type} bf16 first step: loss card "
+              f"{card_loss.item():.6f} CPU {cpu_loss.item():.6f} (rel "
+              f"{abs(card_loss.item() / cpu_loss.item() - 1):.3e}); "
+              f"{len(worst)} leaves, worst {worst[top]:.3f} bf16 ulps of "
+              f"max|leaf| ({top}); "
+              + "".join(f"{k} {v:.3f} ulps from the CPU's bf16 embed, "
+                        f"{worst[k + ' (float32 embed)']:.3f} from its "
+                        "float32 one; " for k, v in tables.items())
+              + f"every leaf {({k: round(v, 3) for k, v in worst.items()})}; "
+              f"launches {launched}; {n_products} bf16 "
+              f"products, GEMM kernels in the trace {len(gemms)} "
+              f"({len(bf16_gemms)} bf16): {sorted(set(gemms))} [{card}]",
+              flush=True)
+
+    once = {k: 1 for k in counts()}
+    with phase("mixed precision (a): first bf16 steps, card vs CPU, and "
+               "their GEMMs under torch.profiler"):
+        mcfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
+                         missing_rate=30, seed=SEED, batch_size=64,
+                         compute_dtype=BF16)
+        first_step(mcfg, mnist.train.x[:64], mnist.train.mask[:64], 784,
+                   once)
+        wine_cfg = RunConfig(vae_type="reg_vae1", missing_rate=30,
+                             seed=SEED, batch_size=64, compute_dtype=BF16)
+        wine = loaders.data_loader(str(REPO / "Data"), "reg_vae1", 30, 64,
+                                   "wine", device="cuda")
+        first_step(wine_cfg, wine.train.x[:64], wine.train.mask[:64],
+                   WINE_D, dict(once, embed_pool_fwd=0, embed_pool_bwd=0))
+
+    rec = records[BF16_RECORD - 1]
+    runs = {}
+    with phase(f"mixed precision (b): record {BF16_RECORD} through "
+               f"experiment_main/imputation.py in float32 and bfloat16, "
+               f"{BF16_EPOCHS} epochs"):
+        real_train = trainer.train
+        for dtype in ("float32", BF16):
+            r = json.loads(json.dumps(rec))
+            r["compute_dtype"] = {"type": "str", "help": "", "default": dtype}
+            run = runs[dtype] = {}
+
+            def timed_train(dataset, cfg, _run=run, **kw):
+                on_step, medians = step_timer()
+                reset_counts()
+                params, hist = real_train(dataset, cfg, on_step=on_step, **kw)
+                _run.update(cfg=cfg, params=params, hist=np.asarray(hist),
+                            launches=counts(), p50=medians(),
+                            steps=-(-dataset.train.n // cfg.batch_size))
+                return params, hist
+
+            with grid_dir([r]):
+                trainer.train = timed_train
+                try:
+                    with no_plain_on_card(), contextlib.redirect_stdout(
+                            io.StringIO()) as buf:
+                        rc = imputation_main.main([
+                            "-device", "cuda", "-epoch", str(BF16_EPOCHS),
+                            "-M", str(BF16_M)])
+                finally:
+                    trainer.train = real_train
+                if rc != 0:
+                    raise AssertionError(f"{dtype}: rc {rc}\n"
+                                         f"{buf.getvalue()}")
+                cfg = run["cfg"]
+                if cfg.compute_dtype != dtype:
+                    raise AssertionError(f"ran {cfg.compute_dtype}, not "
+                                         f"{dtype}")
+                written = [checkpoint.checkpoint_path(cfg, "experiments")]
+                for stage in ("train", "test"):
+                    written += artifacts.eval_vae_paths(
+                        cfg, stage, "experiments").values()
+                for path in written:
+                    if not os.path.isfile(path):
+                        raise AssertionError(f"{dtype}: no {path}")
+            steps = run["steps"] * BF16_EPOCHS
+            if run["launches"] != {k: steps for k in counts()}:
+                raise AssertionError(f"{dtype}: {run['launches']} launches "
+                                     f"in {steps} steps")
+            hist = run["hist"]
+            if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+                raise AssertionError(f"{dtype}: losses {hist}")
+        f32, bf16 = runs["float32"]["hist"], runs[BF16]["hist"]
+        np.testing.assert_allclose(bf16, f32, rtol=BF16_CURVE_RTOL)
+        busy = {dtype: profile_train._run(
+            RunConfig(vae_type="reg_EDDI1", data_type="mnist",
+                      missing_rate=30, seed=SEED, batch_size=64,
+                      compute_dtype=dtype), mnist, BF16_PROFILE_STEPS, None)
+            for dtype in ("float32", BF16)}
+        for dtype in ("float32", BF16):
+            dev, host = runs[dtype]["p50"]
+            b = busy[dtype]
+            print(f"record {BF16_RECORD} {dtype}: losses {runs[dtype]['hist'][0]:.4f} -> "
+                  f"{runs[dtype]['hist'][-1]:.4f}, max |bf16/f32 - 1| "
+                  f"{np.abs(bf16 / f32 - 1).max():.3e}; step p50 {dev:.3f} "
+                  f"ms (CUDA events) {host:.3f} ms (host); launches "
+                  f"{runs[dtype]['launches']}; MNIST reg_EDDI1 "
+                  f"(profile_train, {BF16_PROFILE_STEPS} steps): step "
+                  f"{b['step_ms']:.3f} ms, device busy "
+                  f"{b['device_busy_ms_per_step']:.3f} ms, idle share "
+                  f"{b['device_idle_share']:.3f}, top "
+                  f"{b['top_device_ms_per_step'][:4]} [{card}]", flush=True)
+
+    with phase("mixed precision (c): eval_vae and an active-learning step "
+               "under bf16, card vs CPU"):
+        cfg, params = runs[BF16]["cfg"], runs[BF16]["params"]
+        ds = loaders.data_loader(str(REPO / "Data"), cfg.vae_type,
+                                 cfg.missing_rate, cfg.batch_size,
+                                 cfg.data_type, device="cuda")
+        src, kept = trainer.GeneratorNoise(cfg.seed + 1, "cuda"), []
+
+        def rec_noise(kind, rep, step, shape):
+            kept.append(src(kind, rep, step, shape))
+            return kept[-1]
+
+        with no_plain_on_card():
+            got = evaluate.eval_vae(ds, cfg, params=params, noise=rec_noise,
+                                    save=False, device="cuda")
+        replay = iter([t.cpu() for t in kept])
+        cpu_ds = loaders.data_loader(str(REPO / "Data"), cfg.vae_type,
+                                     cfg.missing_rate, cfg.batch_size,
+                                     cfg.data_type, device="cpu")
+        cpu_params = checkpoint.on_device(params, "cpu")
+        want = evaluate.eval_vae(
+            cpu_ds, cfg, params=cpu_params, save=False, device="cpu",
+            noise=lambda kind, rep, step, shape: next(replay))
+        for stage in want:
+            for name, value in want[stage].items():
+                tol = (BF16_EVAL_RMSE_ATOL if name == "rmse"
+                       else BF16_EVAL_RTOL * abs(value))
+                if not abs(got[stage][name] - value) <= tol:
+                    raise AssertionError(
+                        f"bf16 eval [{stage}] {name}: card "
+                        f"{got[stage][name]!r}, CPU {value!r}")
+        print(f"bf16 eval_vae of record {BF16_RECORD}, card (CPU): " + "; ".join(
+            f"[{st}] " + ", ".join(f"{k} {got[st][k]:.6f} ({v:.6f})"
+                                   for k, v in want[st].items())
+            for st in want), flush=True)
+
+        x = ds.test.x
+        mask = torch.zeros_like(x)
+        mask[:, :3] = 1.0
+        f32_cfg = cfg.replace(compute_dtype="float32")
+        al_noise = active_learning.default_noise(cfg, "cuda")
+        with torch.no_grad(), no_plain_on_card():
+            out = active_learning.al_step(get_model(cfg), params, cfg, x,
+                                          mask, al_noise, 0, 0)
+            again = active_learning.rewards(get_model(f32_cfg), params,
+                                            f32_cfg, x, mask, out["im"])
+            f32_im = active_learning.al_step(
+                get_model(f32_cfg), params, f32_cfg, x, mask,
+                active_learning.default_noise(f32_cfg, "cuda"), 0, 0)["im"]
+        if not torch.equal(again, out["R"]):
+            raise AssertionError("bf16 AL step: its rewards are not the "
+                                 "float32 rewards of its completions")
+        if torch.equal(f32_im, out["im"]):
+            raise AssertionError("bf16 AL step: the completions did not "
+                                 "narrow")
+        print(f"bf16 AL step of record {BF16_RECORD} on {x.shape[0]} rows: "
+              f"rewards equal the float32 rewards of its completions bit "
+              f"for bit; completions max |bf16 - f32| "
+              f"{max_abs(out['im'], f32_im):.3e}", flush=True)
+
+    with phase("mixed precision (d): the data plane, data/native_io"):
+        lib = native_io.library()
+        if not native_io.available():
+            raise AssertionError("native_io: the library is not in use")
+        csvs = sorted((REPO / "Data").glob("*/*_index*.csv"))
+        before = native_io.read_csv.native_calls
+        for path in csvs:
+            np.testing.assert_array_equal(
+                native_io.read_csv(str(path)),
+                np.loadtxt(path, delimiter=",", dtype=np.float32, ndmin=2))
+        loaders.data_loader(str(REPO / "Data"), "reg_vae2", 30, 64, "wine",
+                            device="cuda")
+        if native_io.read_csv.native_calls != before + len(csvs) + 2:
+            raise AssertionError("native_io.read_csv: not every read went "
+                                 "through the library")
+        shape, seed = (200, 784), 1234
+        bits = native_io.mcar_mask(shape, 30.0, seed)
+        plain = (native_io._xorshift128p_uniforms(int(np.prod(shape)), seed)
+                 < 0.7).astype(np.float32).reshape(shape)
+        np.testing.assert_array_equal(bits, plain)
+        packed = native_io.pack_mask(bits)
+        np.testing.assert_array_equal(
+            packed, np.packbits(bits.astype(bool).ravel(), bitorder="little"))
+        np.testing.assert_array_equal(native_io.unpack_mask(packed, shape),
+                                      bits)
+        print(f"native_io: {lib._name} (ABI {lib.vpc_io_abi_version()}); "
+              f"{len(csvs)} index CSVs equal np.loadtxt, the loaders read "
+              f"theirs through it; mcar_mask {shape} equal to the numpy "
+              f"fallback's bits; pack/unpack round trip", flush=True)
+    return runs[BF16]["launches"]
 
 
 def iter_records(path):

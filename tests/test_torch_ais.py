@@ -567,23 +567,22 @@ def test_entry_point_prints_jax_lines_and_writes_jax_artifacts(
     # 'auto' on one device resolves to no mesh and runs, as in JAX; a mesh
     # ('1,1') runs the chains on it since slice 10 part 2
     (["-mesh", "auto"], None), (["-mesh", "1,1"], None),
-    (["-profile", "traces"], None), ([], "slice 11")])
+    (["-profile", "traces"], None),
+    # (no flag) a record asking for compute_dtype 'bfloat16', refused until
+    # the mixed-precision slice, runs: AIS's bridge does not narrow
+    ([], None)])
 def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
                                             flags, slice_name):
-    """(No flag) a record asking for compute_dtype 'bfloat16': refused
-    before anything runs, naming the slice. -seeds above 1, -profile and
-    -mesh run: `-seeds 2` writes the `.seed1` estimate, `-profile traces`
-    prints JAX's line and leaves a trace, `-mesh auto` prints no mesh line
-    and `-mesh 1,1` JAX's."""
+    """Every case runs. (No flag) a record asking for compute_dtype
+    'bfloat16' writes JAX's artifacts, its estimates bit for bit the
+    float32 record's (the chains anneal in float32, as in JAX). -seeds
+    above 1, -profile and -mesh: `-seeds 2` writes the `.seed1` estimate,
+    `-profile traces` prints JAX's line and leaves a trace, `-mesh auto`
+    prints no mesh line and `-mesh 1,1` JAX's."""
+    assert slice_name is None
     extra = {} if flags else {"compute_dtype": "bfloat16"}
     record = _record(34, n_ais_dist=3, n_ais_iwae=2, **extra)
     cfg = tcfg.RunConfig.from_jsonl_record(record)
-    if slice_name is not None:
-        monkeypatch.chdir(_workdir(tmp_path, [record], []))
-        with pytest.raises(NotImplementedError, match=slice_name):
-            ais_eval.main(["-device", "cpu", *flags])
-        assert not os.path.exists(tmp_path / "experiments")
-        return
     monkeypatch.chdir(_workdir(tmp_path, [record], [cfg]))
     path = tckpt.checkpoint_path(cfg, "experiments")
     shutil.copy(path, path + ".seed1")
@@ -592,6 +591,18 @@ def test_entry_point_refuses_unported_flags(tmp_path, monkeypatch, capsys,
     base = os.path.join("experiments", "reg_vae1", "wine", "elbos",
                         "30_missing", "3000_epochs")
     assert os.path.isfile(os.path.join(base, "test_ais.pt"))
+    if not flags:
+        assert cfg.compute_dtype == "bfloat16"
+        names = [os.path.join(base, f"{stage}_ais.pt")
+                 for stage in ("train", "test")]
+        saved = [torch.load(p, weights_only=False) for p in names]
+        with open(os.path.join("Data", "imputation_args.json"), "w") as fh:
+            fh.write(json.dumps(_record(34, n_ais_dist=3, n_ais_iwae=2))
+                     + "\n")
+        assert ais_eval.main(["-device", "cpu"]) == 0
+        for path, value in zip(names, saved):
+            assert torch.equal(torch.load(path, weights_only=False), value)
+        return
     seeds = flags[0] == "-seeds"
     assert os.path.isfile(os.path.join(base, "test_ais.pt.seed1")) == seeds
     if flags == ["-mesh", "auto"]:

@@ -146,3 +146,28 @@ def test_restart_and_early_stop_flags_are_accepted_and_ignored(
     assert curves[0] == curves[1]
     assert not any(f.endswith(".resume.pt") for _, _, files in
                    os.walk("experiments") for f in files)
+
+
+def test_a_bfloat16_record_runs_its_episode_and_writes_jax_s_files(
+        tmp_path, monkeypatch, capsys):
+    """Record 37 (reg_EDDI1) asking for compute_dtype 'bfloat16', refused
+    by both entry points until the mixed-precision slice: it trains
+    through `imputation`, then its episode runs and writes JAX's four
+    artifacts at their names and shapes."""
+    record = _record(REG_EDDI, epoch=2, M=2, compute_dtype="bfloat16")
+    monkeypatch.chdir(_workdir(tmp_path, [record]))
+    assert imputation.main(["-device", "cpu"]) == 0
+    capsys.readouterr()
+    assert active_learning.main(["-device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "=== active learning reg_EDDI1 ===" in out and "not run" not in out
+    jc = jcfg.RunConfig.from_jsonl_record(record, alpha=1.0,
+                                          p_missingness=30)
+    assert jc.compute_dtype == "bfloat16"
+    shapes = {"information_curve": (1, N, D), "action": (1, N, D - 1),
+              "R_hist": (1, D - 1, N, D - 1), "im": (1, D - 1, 2, N, D)}
+    for name, path in jart.active_learning_paths(jc, "experiments").items():
+        saved = torch.load(path, weights_only=True)
+        assert saved.dtype == torch.float32, name
+        assert saved.shape == shapes[name], name
+        assert torch.isfinite(saved).all(), name

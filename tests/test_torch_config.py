@@ -246,20 +246,25 @@ def test_get_model_routes_flow(vae_type, regularized):
     ("vanilla_notMIWAE1", "importance-weighted")])
 def test_get_model_names_the_slice_of_unported_families(vae_type, slice_name):
     """The importance-weighted families, once refused here naming their
-    slice (`slice_name`), now have a model; what get_model still refuses
-    for them, compute_dtype 'bfloat16', names its own slice."""
+    slice (`slice_name`), now have a model; so has each under
+    compute_dtype 'bfloat16', once refused naming the mixed-precision
+    slice: the same family with its train_loss and eval_step wrapped."""
     assert "importance-weighted" in slice_name
     model = get_model(tcfg.RunConfig(vae_type=vae_type))
     assert model.name == ("notmiwae" if "notMIWAE" in vae_type else "miwae")
     assert model.eval_kind == "miwae"
     assert model.uses_p_branch is vae_type.startswith("reg_")
-    with pytest.raises(NotImplementedError, match="mixed-precision slice"):
-        get_model(tcfg.RunConfig(vae_type=vae_type,
-                                 compute_dtype="bfloat16"))
+    bf16 = get_model(tcfg.RunConfig(vae_type=vae_type,
+                                    compute_dtype="bfloat16"))
+    assert (bf16.name, bf16.eval_kind, bf16.uses_p_branch) == (
+        model.name, model.eval_kind, model.uses_p_branch)
+    assert bf16.eval_step.__wrapped__ is model.eval_step
 
 
 def test_compute_dtype():
-    with pytest.raises(NotImplementedError, match="mixed-precision slice"):
-        get_model(tcfg.RunConfig(compute_dtype="bfloat16"))
-    with pytest.raises(ValueError):
+    """'bfloat16' gives a model, equal on every call (JAX's memoised
+    wrappers); any other spelling raises ValueError, as in JAX."""
+    cfg = tcfg.RunConfig(compute_dtype="bfloat16")
+    assert get_model(cfg) == get_model(cfg) != get_model(tcfg.RunConfig())
+    with pytest.raises(ValueError, match="compute_dtype"):
         get_model(tcfg.RunConfig(compute_dtype="bf16"))

@@ -4,9 +4,8 @@ a one-record grid (record 34, the flagship reg_vae1, cut to 2 epochs; also
 record 10, reg_flow1, record 25, vanilla_EDDI1_with_drop, and the MIWAE
 records 1, 4 and 6) trains, saves a checkpoint the JAX package reads, and
 writes the artifacts under the names the JAX package's entry point gives
-them; the full grid names no record; a record the port cannot run yet (one
-asking for compute_dtype 'bfloat16') fails by name with its slice, and the
-run exits nonzero."""
+them; the full grid names no record; a record asking for compute_dtype
+'bfloat16' runs as well, with the same names."""
 
 import json
 import os
@@ -82,20 +81,22 @@ def test_flow_and_drop_records_write_what_jax_reads(
 
 
 def test_the_full_grid_names_exactly_records_1_to_6():
-    """Records 1-6 (the MIWAE family) were the ones named as not ported;
-    now the full grid names none and runs all 39, and exactly records 1-6
-    evaluate through the MIWAE evaluator."""
-    not_run, miwae = [], []
+    """Records 1-6 (the MIWAE family) were the ones named as not ported,
+    then compute_dtype 'bfloat16' was; now every one of the 39 records has
+    a model in float32 and in bfloat16, and exactly records 1-6 evaluate
+    through the MIWAE evaluator."""
+    miwae = []
     for number, record in enumerate(RECORDS, start=1):
         args = imputation.setup_parser(record, "impute_eval").parse_args([])
         cfg = imputation.RunConfig.from_args(args, alpha=1.0,
                                              p_missingness=30)
-        if imputation.unported(cfg) is not None:
-            not_run.append(number)
-        if get_model(cfg).eval_kind == "miwae":
+        model = get_model(cfg)
+        bf16 = get_model(cfg.replace(compute_dtype="bfloat16"))
+        assert bf16.name == model.name and bf16.eval_kind == model.eval_kind
+        assert bf16.train_loss.__wrapped__ is model.train_loss
+        if model.eval_kind == "miwae":
             miwae.append(number)
-    assert not_run == []
-    assert len(RECORDS) - len(not_run) == 39
+    assert len(RECORDS) == 39
     assert miwae == MIWAE_RECORDS
 
 
@@ -173,45 +174,39 @@ def _check_one_record_run(record, out, want_cfg):
     (6, ("vanilla_MIWAE3", "bfloat16"))])
 def test_an_unported_record_fails_by_name_and_the_exit_is_nonzero(
         tmp_path, monkeypatch, capsys, number, names):
-    """Every family runs; what the port still lacks is compute_dtype
-    'bfloat16' (slice 11): records 1, 4 and 6 asking for it are named, not
-    run, and the exit code is 1."""
-    record = _record(number, epoch=1, compute_dtype="bfloat16")
+    """Records 1, 4 and 6 asking for compute_dtype 'bfloat16', once named
+    and not run, now run (1 epoch, valid_k 50 as above) and exit 0: the
+    checkpoint JAX's load_trained reads and the rmse artifacts at JAX's
+    names, nothing named as not run."""
+    record = _record(number, epoch=1, valid_k=50, compute_dtype=names[1])
     monkeypatch.chdir(_workdir(tmp_path, [record]))
-    assert imputation.main(["-device", "cpu"]) == 1
+    assert imputation.main(["-device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "Traceback" not in out
-    not_run = [ln for ln in out.splitlines() if ln.startswith("=== not run")]
-    assert len(not_run) == 1 and all(n in not_run[0] for n in names)
-    assert "1 run(s) not made" in out
-    assert not os.path.exists("experiments")
+    assert "not run" not in out
+    _check_one_record_run(record, out, (names[0], 1, 1, 50))
 
 
 def test_the_module_runs_from_the_command_line(tmp_path):
     """Record 10 asking for compute_dtype 'bfloat16' beside the flagship,
-    each at 1 epoch: the flagship runs, record 10 is named, the exit code is
-    1. `-mesh auto`, which resolves to no mesh on one device, runs the same
-    single-device engine and prints no mesh tag."""
-    work = _workdir(tmp_path, [_record(REG_FLOW, epoch=1,
+    each at 1 epoch and M=1: both run and the exit code is 0. `-mesh auto`,
+    which resolves to no mesh on one device, runs the same single-device
+    engine and prints no mesh tag."""
+    work = _workdir(tmp_path, [_record(REG_FLOW, epoch=1, M=1,
                                        compute_dtype="bfloat16"),
                                _record(FLAGSHIP, epoch=1, M=1)])
     env = dict(os.environ, PYTHONPATH=REPO)
     cmd = [sys.executable, "-m",
            "vae_posterior_consistency_tpu_torch.experiment_main.imputation",
            "-device", "cpu"]
-    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 1, proc.stderr
-    assert "=== not run: reg_flow1" in proc.stdout
-    assert "  [test] loss=" in proc.stdout
-    assert ("reg_flow1 (missing=30, alpha=1.0): compute_dtype='bfloat16'"
-            in proc.stdout)
-    proc = subprocess.run(cmd + ["-mesh", "auto"], cwd=work, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 1, proc.stderr
-    assert "=== not run: reg_flow1" in proc.stdout
-    assert "  [test] loss=" in proc.stdout
-    assert "mesh=" not in proc.stdout and "Traceback" not in proc.stderr
+    for run in (cmd, cmd + ["-mesh", "auto"]):
+        proc = subprocess.run(run, cwd=work, env=env, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        assert "=== train reg_flow1 (missing=30, alpha=1.0) ===" in proc.stdout
+        assert "=== train reg_vae1 (missing=30, alpha=1.0) ===" in proc.stdout
+        assert proc.stdout.count("  [test] loss=") == 2
+        assert "not run" not in proc.stdout
+        assert "mesh=" not in proc.stdout and "Traceback" not in proc.stderr
 
 
 def test_a_missing_grid_raises(tmp_path, monkeypatch):

@@ -72,3 +72,18 @@ def test_no_import_statement_reaches_the_jax_side(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
     assert not [n for n in names if _blocked(n)], names
+
+
+def test_the_data_plane_builds_from_the_port_s_own_source():
+    """`data/native_io` compiles the port's copy of the C++ library,
+    `csrc/vpc_io.cpp`, into the port's build directory, and names no file
+    of the JAX package's `native/`."""
+    from vae_posterior_consistency_tpu_torch.data import native_io
+
+    assert native_io.SOURCE == PORT / "csrc" / "vpc_io.cpp"
+    assert native_io.SOURCE.is_file()
+    assert native_io.BUILD_DIR == REPO / "build" / "vpc_torch_io"
+    text = (PORT / "data" / "native_io.py").read_text()
+    assert "native/" not in text and "libvpc_io.so" not in text
+    lib = native_io.library()
+    assert pathlib.Path(lib._name).parent == native_io.BUILD_DIR

@@ -402,3 +402,67 @@ def test_embed_pool_replica_kernels_match_plain(cuda, R, D):
         assert torch.equal(one, got[0])
         for a, b in zip(one_g, grads):
             assert torch.equal(a, b[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,fan_in,fan_out", [(64, 784, 500),
+                                                 (128, 10, 500), (7, 13, 3)])
+def test_bf16_product_on_the_card_matches_its_plain_version(
+        cuda, rows, fan_in, fan_out):
+    """`nn/core.bf16_product` (cuBLAS on bf16 operands, float32 output):
+    the forward against the plain product of the widened operands (float32
+    sums in another order); each gradient, the bf16 product of the
+    cotangent rounded to bf16, equal to the plain formula of that form or
+    one bf16 ulp from it, give or take the float32 rounding of a sum of
+    up to 784 O(1) terms in another order (about 1e-6 of the largest
+    output, held at 1e-5); one counted product a call."""
+    from vae_posterior_consistency_tpu_torch.nn import core
+
+    rng = np.random.default_rng(rows + fan_in)
+    x, w, g = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=cuda)
+               for shape in ((rows, fan_in), (fan_in, fan_out),
+                             (rows, fan_out)))
+    a = x.to(torch.bfloat16).requires_grad_()
+    b = w.to(torch.bfloat16).requires_grad_()
+    before = core.bf16_product.launches
+    out = core.bf16_product(a, b)
+    assert out.dtype == torch.float32
+    assert core.bf16_product.launches == before + 1
+    torch.testing.assert_close(out, a.detach().float() @ b.detach().float(),
+                               rtol=1e-5, atol=1e-4)
+    out.backward(g)
+    assert core.bf16_product.launches == before + 3
+    gb = g.to(torch.bfloat16).float()
+    for name, got, want in (("da", a.grad, gb @ b.detach().float().T),
+                            ("db", b.grad, a.detach().float().T @ gb)):
+        want = want.to(torch.bfloat16).float()
+        got = got.float()
+        bound = (2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+                 + 1e-5 * want.abs().max())
+        excess = ((got - want).abs() - bound).max().item()
+        assert excess <= 0, (name, excess, (got - want).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_bf16_product_vmap_rule_is_one_product(cuda):
+    """Under torch.func.vmap with batched weights (an ensemble's replicas)
+    and with a batched input, one product for all replicas, equal to the
+    unbatched calls to float32 rounding of the sums."""
+    from vae_posterior_consistency_tpu_torch.nn import core
+
+    rng = np.random.default_rng(5)
+    xs = torch.tensor(rng.standard_normal((3, 2, 16, 40)),
+                      dtype=torch.bfloat16, device=cuda)
+    ws = torch.tensor(rng.standard_normal((3, 40, 24)), dtype=torch.bfloat16,
+                      device=cuda)
+    for in_dims, args in (((0, 0), (xs, ws)), ((None, 0), (xs[0], ws)),
+                          ((0, None), (xs, ws[0]))):
+        before = core.bf16_product.launches
+        got = torch.func.vmap(core.bf16_product, in_dims)(*args)
+        assert core.bf16_product.launches == before + 1
+        want = torch.stack([
+            core.bf16_product(*[t[i] if d == 0 else t
+                                for t, d in zip(args, in_dims)])
+            for i in range(3)])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

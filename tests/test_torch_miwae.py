@@ -371,8 +371,9 @@ def test_every_family_of_the_grid_has_a_model_and_bfloat16_still_raises():
     for record in records:
         cfg = tcfg.RunConfig.from_jsonl_record(record)
         names.add(get_model(cfg).name)
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            get_model(cfg.replace(compute_dtype="bfloat16"))
+        # bfloat16, once refused, gives the same family
+        bf16 = get_model(cfg.replace(compute_dtype="bfloat16"))
+        assert bf16.name == get_model(cfg).name
     assert names == {"gauss", "flow", "miwae"}
     for vae_type, name in (("vanilla_MIWAE2", "miwae"),
                            ("reg_MIWAE3", "miwae"),

@@ -381,3 +381,34 @@ def test_entry_point_without_its_grid_raises(tmp_path, monkeypatch):
         assert [json.loads(line) for line in fh] == [
             json.loads(line) for line in open(os.path.join(
                 REPO, "Data", "imputation_args_mnar.json"))]
+
+
+def test_a_bfloat16_grid_runs_and_writes_jax_names(tmp_path, monkeypatch,
+                                                   capsys):
+    """Both MNAR records asking for compute_dtype 'bfloat16' (1 epoch,
+    valid_k 20): each trains, saves its checkpoint and its rmse artifact
+    where the JAX entry point puts them, the rmse printed the one saved."""
+    work = _workdir(tmp_path)
+    grid = work / "Data" / "imputation_args_mnar.json"
+    records = [json.loads(line) for line in open(grid)]
+    with open(grid, "w") as fh:
+        for record in records:
+            record["compute_dtype"] = {"type": "str", "help": "",
+                                       "default": "bfloat16"}
+            fh.write(json.dumps(record) + "\n")
+    monkeypatch.chdir(work)
+    assert imputation_mnar.main(["-device", "cpu", "-valid_k", "20",
+                                 "-epoch", "1"]) == 0
+    out = capsys.readouterr().out
+    rmses = [float(line.split("=")[1]) for line in out.splitlines()
+             if line.startswith("  rmse=")]
+    assert len(rmses) == 2 and all(np.isfinite(rmses))
+    for record, rmse in zip(records, rmses):
+        jc = jcfg.RunConfig.from_jsonl_record(
+            record, valid_k=20, epoch=1, alpha=1.0, p_missingness=50,
+            data_transform="minmax", not_miwae_type="changed")
+        assert jc.compute_dtype == "bfloat16"
+        assert os.path.isfile(jckpt.checkpoint_path(jc, "experiments"))
+        saved = torch.load(jart.eval_mnar_paths(jc, "experiments")["rmse"],
+                           weights_only=False)
+        assert f"{saved.item():.5f}" == f"{rmse:.5f}"

@@ -225,8 +225,10 @@ class RunConfig:
     flow_actnorm: bool = False
     fixed_iwae_bound: bool = False
     reg_notmiwae_variant: str = "v2"  # 'v2' | 'both_s' | 'sampled_mask'
-    #: 'float32' only in the port so far; 'bfloat16' comes with the
-    #: mixed-precision slice (models/registry.get_model raises)
+    #: 'float32' (the default every parity test pins) | 'bfloat16' (bf16
+    #: operands of the dense products with float32 accumulation, the EDDI
+    #: embed held in bf16 on the CPU; parameters and optimizer state stay
+    #: float32: models/registry.get_model, nn/core.compute_dtype)
     compute_dtype: str = "float32"
     #: '' | 'auto' | 'DP' | 'DP,TP' (`resolve_mesh`)
     mesh: str = ""

@@ -7,8 +7,10 @@ indices for UCI tables (reference: src/utils/loaders.py:319-354), the
 `rand_perm{i}.pt` row order and `mnar_mask_missing{i}.pt` of the MNAR
 pipeline (reference: src/utils/loaders.py:357-384), and the prebuilt
 `experiment_{train,test}_{data,mask}.pt` for MNIST (reference:
-src/utils/loaders.py:249-316). Normalisation runs in numpy on the host, as
-in the JAX package, so both packages see the same float32 values.
+src/utils/loaders.py:249-316). The index CSVs are read by the native data
+plane (`data/native_io.read_csv`), as the JAX package reads them.
+Normalisation runs in numpy on the host, as in the JAX package, so both
+packages see the same float32 values.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from vae_posterior_consistency_tpu_torch.config import parse_vae_type
+from vae_posterior_consistency_tpu_torch.data import native_io
 
 
 @dataclasses.dataclass
@@ -47,13 +50,14 @@ def _load(path, device):
     return t.to(device=device, dtype=torch.float32)
 
 
-def _load_np(path) -> np.ndarray:
+def _torch_load(path) -> np.ndarray:
+    """A tensor artifact as a numpy array (tensors only: no pickled
+    objects are loaded)."""
     return np.asarray(torch.load(path, map_location="cpu", weights_only=True))
 
 
 def _load_indices(path) -> np.ndarray:
-    return np.loadtxt(path, delimiter=",", ndmin=1).astype(np.int64).reshape(
-        -1)
+    return native_io.read_csv(path).astype(np.int64).reshape(-1)
 
 
 def _transform(data: np.ndarray, how: str) -> np.ndarray:
@@ -76,8 +80,8 @@ def data_loader(data_path, vae_type, missing_rate, batch_size, data_type,
     `batch_size` is unused, as in the JAX package."""
     index = parse_vae_type(vae_type).split_index or "1"
     base = os.path.join(data_path, data_type)
-    data = _load_np(os.path.join(base, "data.pt")).astype(np.float32)
-    mask = _load_np(os.path.join(
+    data = _torch_load(os.path.join(base, "data.pt")).astype(np.float32)
+    mask = _torch_load(os.path.join(
         base, f"mask_{missing_rate}_missing{index}.pt")).astype(np.float32)
     data = _transform(data, data_transform)
     tr = _load_indices(os.path.join(base, f"train_index{index}.csv"))
@@ -105,11 +109,11 @@ def data_loader_mnar(data_path, vae_type, missing_rate, batch_size, data_type,
     package."""
     index = parse_vae_type(vae_type).split_index or "1"
     base = os.path.join(data_path, data_type)
-    data = _load_np(os.path.join(base, "data.pt")).astype(np.float32)
-    perm = _load_np(os.path.join(base, f"rand_perm{index}.pt")).astype(
+    data = _torch_load(os.path.join(base, "data.pt")).astype(np.float32)
+    perm = _torch_load(os.path.join(base, f"rand_perm{index}.pt")).astype(
         np.int64)
     data = data[perm, :][:, :-1]
-    mask = _load_np(os.path.join(
+    mask = _torch_load(os.path.join(
         base, f"mnar_mask_missing{index}.pt")).astype(np.float32)[:, :-1]
     data = _transform(data, data_transform)
     train = Split(torch.from_numpy(np.ascontiguousarray(data)).to(device),

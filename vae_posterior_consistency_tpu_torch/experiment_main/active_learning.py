@@ -30,8 +30,9 @@ episode for all replicas:
 
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the kernels' plain versions on the CPU. A record
-the port cannot run yet (`compute_dtype` 'bfloat16') is named and skipped,
-and the exit code is then 1. `-mesh` resolves per record
+whose `compute_dtype` is 'bfloat16' narrows the episode's `completion`
+(its `eval_step`) and keeps the rewards' encoder calls in float32, as the
+JAX package does. `-mesh` resolves per record
 (`config.resolve_mesh`): on a mesh every path's test rows are dp-sharded
 (`engine/active_learning`'s `mesh`), its line tagged with it, and rank 0
 alone prints and writes (run one process a device under torchrun, as
@@ -65,7 +66,6 @@ from vae_posterior_consistency_tpu_torch.engine import (
 )
 from vae_posterior_consistency_tpu_torch.experiment_main.imputation import (
     open_grid,
-    unported,
     wait_for_writes,
 )
 from vae_posterior_consistency_tpu_torch.parallel import multihost
@@ -77,43 +77,29 @@ MISSING_SWEEP = [30]
 ALPHA_SWEEP = [1.0]
 
 
-def _not_run(cfg: RunConfig, missing, alpha, not_run: list) -> bool:
-    """Name and record `cfg` when the port cannot run it yet."""
-    reason = unported(cfg)
-    if reason is None:
-        return False
-    print(f"=== not run: {cfg.vae_type}: {reason} ===", flush=True)
-    not_run.append((cfg.vae_type, missing, alpha, reason))
-    return True
-
-
 def _load(cfg: RunConfig, device):
     return loaders.data_loader(cfg.data_path, cfg.vae_type, cfg.missing_rate,
                                cfg.batch_size, cfg.data_type, device=device)
 
 
-def run_grid(records, probe, argv) -> list:
+def run_grid(records, probe, argv) -> None:
     """The grid: one episode a record x missing x alpha (each cell's
     `-seeds N` replicas as one ensemble episode), or with `-ensemble true`
-    one ensemble episode a record and missing rate; returns the runs not
-    made, as (vae_type, missing, alpha, reason)."""
+    one ensemble episode a record and missing rate."""
     alphas = parse_alphas(probe, ALPHA_SWEEP)
     missings = parse_missings(probe, MISSING_SWEEP)
     ensemble = bool(probe.ensemble)
     if ensemble:
         records = restrict_grid_records(records, probe)
-    not_run = []
     for record in records:
         if ensemble:
-            _run_sweep_ensemble(record, argv, missings, alphas, not_run)
+            _run_sweep_ensemble(record, argv, missings, alphas)
             continue
         for missing in missings:
             for alpha in alphas:
                 args = setup_parser(record, "impute_eval").parse_args(argv)
                 cfg = RunConfig.from_args(args, alpha=alpha,
                                           p_missingness=missing)
-                if _not_run(cfg, missing, alpha, not_run):
-                    continue
                 ds = _load(cfg, args.device)
                 mesh = resolve_mesh(cfg, device=args.device)
                 tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
@@ -134,7 +120,6 @@ def run_grid(records, probe, argv) -> list:
                       + " ".join(f"{v:.4f}" for v in curve))
                 print(f"  [timing] episode {time.perf_counter() - t0:.1f}s",
                       flush=True)
-    return not_run
 
 
 def _run_seed_ensemble(cfg: RunConfig, ds, n_seeds: int, device, mesh=None,
@@ -161,7 +146,7 @@ def _run_seed_ensemble(cfg: RunConfig, ds, n_seeds: int, device, mesh=None,
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
+def _run_sweep_ensemble(record, argv, missings, alphas) -> None:
     """`-ensemble true`: the record's (alpha x seed) replicas, alpha-major
     and seed-minor (row ai * n_seeds + si), in one episode a missing rate,
     unsaved, then each cell saved as the JAX package saves it. Neither knob
@@ -175,8 +160,6 @@ def _run_sweep_ensemble(record, argv, missings, alphas, not_run) -> None:
     args = setup_parser(record, "impute_eval").parse_args(argv)
     cfg0 = RunConfig.from_args(args, alpha=alphas[0],
                                p_missingness=missings[0])
-    if _not_run(cfg0, missings[0], alphas[0], not_run):
-        return
     ds = _load(cfg0, args.device)
     mesh = resolve_mesh(cfg0, device=args.device)
     tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
@@ -234,16 +217,10 @@ def main(argv=None) -> int:
     try:
         records, probe = open_grid(GRID, argv)
         with multihost.coordinator_stdout(), maybe_profile(probe):
-            not_run = run_grid(records, probe, argv)
-            if not_run:
-                print(f"{len(not_run)} run(s) not made, not ported yet:",
-                      flush=True)
-                for vae_type, missing, alpha, reason in not_run:
-                    print(f"  {vae_type} (missing={missing}, alpha={alpha}):"
-                          f" {reason}", flush=True)
+            run_grid(records, probe, argv)
     finally:
         multihost.shutdown()
-    return 1 if not_run else 0
+    return 0
 
 
 if __name__ == "__main__":

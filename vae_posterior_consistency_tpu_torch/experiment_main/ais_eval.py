@@ -29,8 +29,9 @@ estimates (`config.maybe_profile`). `-mesh` resolves as in the JAX package
 seeds' and BDMC's too, are dp-sharded (`engine/ais`'s `mesh`), announced
 by `mesh={...}: AIS chains dp-sharded`, and rank 0 alone prints and
 writes (one process a device under torchrun). A record whose
-compute_dtype is 'bfloat16' waits for slice 11 and stops the run before
-it starts.
+compute_dtype is 'bfloat16' runs its chains in float32, as in the JAX
+package: the AIS bridge's `log_lik` is not a model's `train_loss` or
+`eval_step`, so nothing on it narrows.
 """
 
 from __future__ import annotations
@@ -67,16 +68,6 @@ def _record_for_vae_type(records, vae_type):
         if rec["vae_type"]["default"] == vae_type:
             return rec
     return records[0]
-
-
-def _check_flags(args) -> None:
-    """A `-mesh` no device count satisfies (`mesh_shape`'s ValueError), and
-    the flag whose engine the port lacks, naming its slice: bfloat16."""
-    mesh_shape(args.mesh, device_count())
-    if getattr(args, "compute_dtype", "float32") == "bfloat16":
-        raise NotImplementedError(
-            f"compute_dtype 'bfloat16' ({args.vae_type}): mixed precision "
-            "is not ported yet; it comes with slice 11")
 
 
 def _run_seed_ensemble(dataset, cfg: RunConfig, n_seeds: int, bdmc: bool,
@@ -116,7 +107,8 @@ def _main(argv) -> int:
     record = _record_for_vae_type(records, probe.vae_type)
     args = setup_parser(record, "ais_eval").parse_args(argv)
     multihost.initialize(args.device)
-    _check_flags(args)
+    # a -mesh no device count satisfies raises mesh_shape's ValueError
+    mesh_shape(args.mesh, device_count())
     with multihost.coordinator_stdout():
         return _run(args)
 

@@ -20,13 +20,11 @@ which writes the artifacts, and prints each split's metrics.
 
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the kernels' plain versions on the CPU. Every
-record of the grid runs: the gauss, flow, MIWAE and notMIWAE families. A
-record the port cannot run yet (one whose `compute_dtype` is 'bfloat16')
-is not run: one line names it and the slice that brings it, and the run
-goes on; the exit code is then 1 and the end of the output lists those
-records. `-checkpoint_every N`, `-resume true` and `-early_stop true`
-(patience `-patience` checks, one each 200 epochs) reach `train` as in the
-JAX package. `-profile DIR` traces the whole run with torch.profiler
+record of the grid runs: the gauss, flow, MIWAE and notMIWAE families, in
+float32 or, for a record whose `compute_dtype` is 'bfloat16', with bf16
+dense products (`models/registry.get_model`). `-checkpoint_every N`,
+`-resume true` and `-early_stop true` (patience `-patience` checks, one
+each 200 epochs) reach `train` as in the JAX package. `-profile DIR` traces the whole run with torch.profiler
 (`config.maybe_profile`); VPC_DEBUG_NANS=1 turns on the NaN tripwire
 (`utils/debugging.enable_nan_debugging`) and VPC_PLATFORM=cpu|cuda sets
 the default of `-device` (`start_up`, which every entry point calls
@@ -71,8 +69,6 @@ import json
 import os
 import sys
 import time
-from typing import Optional
-
 import torch
 
 from vae_posterior_consistency_tpu_torch.config import (
@@ -98,7 +94,6 @@ from vae_posterior_consistency_tpu_torch.engine import train as train_engine
 from vae_posterior_consistency_tpu_torch.engine.evaluate_sharded import (
     eval_vae_sharded,
 )
-from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.parallel import multihost, sweep
 from vae_posterior_consistency_tpu_torch.parallel.train_parallel import (
     train_sharded,
@@ -115,15 +110,6 @@ GRID = os.path.join("Data", "imputation_args.json")
 #: (src/experiment_main/imputation.py:23-24)
 MISSING_SWEEP = [30]
 ALPHA_SWEEP = [1.0]
-
-
-def unported(cfg: RunConfig) -> Optional[str]:
-    """Why the port cannot run `cfg` yet (naming the slice), or None."""
-    try:
-        get_model(cfg)
-    except NotImplementedError as exc:
-        return str(exc)
-    return None
 
 
 def load_dataset(cfg: RunConfig, device):
@@ -233,7 +219,6 @@ def run_suite_alpha_ensembles(records, argv, missing, alphas, n_seeds=1):
     regularized names) and evaluated serially, alpha entering the
     evaluation's arithmetic."""
     printed = False
-    not_run = []
     for rec in records:
         args = setup_parser(rec, "impute_eval").parse_args(argv)
         cfg = RunConfig.from_args(args, alpha=alphas[0],
@@ -244,11 +229,6 @@ def run_suite_alpha_ensembles(records, argv, missing, alphas, n_seeds=1):
                   f"one vmapped program{_mesh_tag(mesh)}; replicas share "
                   "data/mask streams by design (isolates alpha)", flush=True)
             printed = True
-        reason = unported(cfg)
-        if reason is not None:
-            print(f"=== not run: {cfg.vae_type}: {reason} ===", flush=True)
-            not_run.append((cfg.vae_type, missing, alphas[0], reason))
-            continue
         dataset = load_dataset(cfg, args.device)
         cfg_alphas = list(alphas) if cfg.info.regularized else alphas[:1]
         note = "" if cfg.info.regularized else " (vanilla: alpha-free, once)"
@@ -293,7 +273,6 @@ def run_suite_alpha_ensembles(records, argv, missing, alphas, n_seeds=1):
         wait_for_writes(mesh)
         print(f"  [timing] train {t_train:.1f}s  eval+save "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return not_run
 
 
 def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
@@ -304,7 +283,6 @@ def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
     rate (the evaluation's mask_p draw depends on it and the artifacts are
     named per (alpha, missing))."""
     printed = False
-    not_run = []
     for rec in records:
         args = setup_parser(rec, "impute_eval").parse_args(argv)
         cfg = RunConfig.from_args(args, alpha=alphas[0],
@@ -316,11 +294,6 @@ def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
                   f"{_mesh_tag(mesh)}; rows share data/shuffle streams by "
                   "design (pairs the swept knobs)", flush=True)
             printed = True
-        reason = unported(cfg)
-        if reason is not None:
-            print(f"=== not run: {cfg.vae_type}: {reason} ===", flush=True)
-            not_run.append((cfg.vae_type, missings[0], alphas[0], reason))
-            continue
         dataset = load_dataset(cfg, args.device)
         reg = cfg.info.regularized
         cfg_alphas = list(alphas) if reg else alphas[:1]
@@ -377,7 +350,6 @@ def run_suite_sweep_ensembles(records, argv, missings, alphas, n_seeds=1):
         wait_for_writes(mesh)
         print(f"  [timing] train {t_train:.1f}s  eval+save "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return not_run
 
 
 def run_suite_ensembles(records, argv, missing, alpha):
@@ -387,7 +359,6 @@ def run_suite_ensembles(records, argv, missing, alpha):
     `.seed{s}` for s > 0), and evaluates as one vmapped evaluation a
     split-size class, the seed-0 rows writing the artifacts."""
     printed_banner = False
-    not_run = []
     for group in _group_records(records):
         args = setup_parser(group[0], "impute_eval").parse_args(argv)
         cfgs = [RunConfig.from_args(args, vae_type=rec["vae_type"]["default"],
@@ -399,12 +370,6 @@ def run_suite_ensembles(records, argv, missing, alpha):
                   f"{_mesh_tag(mesh)}; PRNG streams differ from the serial "
                   "path (PARITY.md deviation #8)", flush=True)
             printed_banner = True
-        reason = unported(cfgs[0])
-        if reason is not None:
-            for c in cfgs:
-                print(f"=== not run: {c.vae_type}: {reason} ===", flush=True)
-                not_run.append((c.vae_type, missing, alpha, reason))
-            continue
         datasets = [load_dataset(c, args.device) for c in cfgs]
         names = [c.vae_type for c in cfgs]
         n_seeds = max(1, int(getattr(args, "seeds", 1)))
@@ -461,48 +426,41 @@ def run_suite_ensembles(records, argv, missing, alpha):
         print(f"  [timing] train {t_train:.1f}s  eval+save {t_eval:.1f}s  "
               f"(save={t_save:.1f}s eval={t_eval - t_save:.1f}s)",
               flush=True)
-    return not_run
 
 
-def run_ensembles(records, probe, argv) -> list:
+def run_ensembles(records, probe, argv) -> None:
     """The `-ensemble true` dispatch (the JAX package's `_run_grid`):
     `-missings` with more than one rate, else `-alphas` with more than one
-    value, else the split ensembles; returns the runs not made."""
+    value, else the split ensembles."""
     records = restrict_grid_records(records, probe)
     alphas = parse_alphas(probe, ALPHA_SWEEP)
     missings = parse_missings(probe, MISSING_SWEEP)
     n_seeds = max(1, int(getattr(probe, "seeds", 1)))
     if len(missings) > 1:
-        return run_suite_sweep_ensembles(records, argv, missings, alphas,
-                                         n_seeds=n_seeds)
-    if len(alphas) > 1:
-        return [r for missing in missings
-                for r in run_suite_alpha_ensembles(records, argv, missing,
-                                                   alphas, n_seeds=n_seeds)]
-    return [r for missing in missings for alpha in alphas
-            for r in run_suite_ensembles(records, argv, missing, alpha)]
+        run_suite_sweep_ensembles(records, argv, missings, alphas,
+                                  n_seeds=n_seeds)
+    elif len(alphas) > 1:
+        for missing in missings:
+            run_suite_alpha_ensembles(records, argv, missing, alphas,
+                                      n_seeds=n_seeds)
+    else:
+        for missing in missings:
+            for alpha in alphas:
+                run_suite_ensembles(records, argv, missing, alpha)
 
 
-def run_grid(records, probe, argv) -> list:
+def run_grid(records, probe, argv) -> None:
     """The serial grid (each record's `-seeds N` replicas as one seed
-    ensemble); returns the runs not made, as (vae_type, missing, alpha,
-    reason)."""
+    ensemble)."""
     alphas = parse_alphas(probe, ALPHA_SWEEP)
     missings = parse_missings(probe, MISSING_SWEEP)
     n_seeds = max(1, int(getattr(probe, "seeds", 1)))
-    not_run = []
     for record in records:
         for missing in missings:
             for alpha in alphas:
                 args = setup_parser(record, "impute_eval").parse_args(argv)
                 cfg = RunConfig.from_args(args, alpha=alpha,
                                           p_missingness=missing)
-                tag = f"{cfg.vae_type} (missing={missing}, alpha={alpha})"
-                reason = unported(cfg)
-                if reason is not None:
-                    print(f"=== not run: {tag}: {reason} ===", flush=True)
-                    not_run.append((cfg.vae_type, missing, alpha, reason))
-                    continue
                 dataset = load_dataset(cfg, args.device)
                 mesh = resolve_mesh(cfg, device=args.device)
                 tag = f" mesh={dict(mesh.shape)}" if mesh is not None else ""
@@ -529,7 +487,6 @@ def run_grid(records, probe, argv) -> list:
                     print(f"  [{stage}] " + "  ".join(
                         f"{k}={v:.5f}" for k, v in metrics.items()),
                         flush=True)
-    return not_run
 
 
 def start_up() -> None:
@@ -570,17 +527,13 @@ def main(argv=None) -> int:
     try:
         records, probe = open_grid(GRID, argv)
         with multihost.coordinator_stdout(), maybe_profile(probe):
-            not_run = (run_ensembles(records, probe, argv) if probe.ensemble
-                       else run_grid(records, probe, argv))
-            if not_run:
-                print(f"{len(not_run)} run(s) not made, not ported yet:",
-                      flush=True)
-                for vae_type, missing, alpha, reason in not_run:
-                    print(f"  {vae_type} (missing={missing}, "
-                          f"alpha={alpha}): {reason}", flush=True)
+            if probe.ensemble:
+                run_ensembles(records, probe, argv)
+            else:
+                run_grid(records, probe, argv)
     finally:
         multihost.shutdown()
-    return 1 if not_run else 0
+    return 0
 
 
 if __name__ == "__main__":

@@ -85,9 +85,29 @@ def _pointnet_affine(params):
 def _pointnet_pool_multi(params, x, masks):
     """Pool the mask-independent embedding under a stack of masks
     [S, B, D] -> [S, B, K], through the fused embed+pool kernel on CUDA
-    tensors (its plain version on CPU tensors)."""
+    tensors (its plain version on CPU tensors).
+
+    Under compute_dtype('bfloat16') a CPU tensor's [B, D, K] embed is held
+    in bf16, each op rounded as the JAX package's plain path rounds it
+    (`layers.py:93-108`; bit for bit on the CPU), and pooled in float32.
+    On the card the kernels stay float32, as the JAX package's Pallas path
+    does under bf16 (`layers.py:127-132`): B2f never stores the embed, so
+    there is nothing to narrow (ROADMAP C.4.32)."""
+    if core.active_dtype() == "bfloat16" and x.device.type == "cpu":
+        return torch.einsum("...sbd,...bdk->...sbk", masks,
+                            _pointnet_embed_bf16(params, x).float())
     A, C = _pointnet_affine(params)
     return fused_embed_pool.embed_pool(x, masks, A, C)
+
+
+def _pointnet_embed_bf16(params, x):
+    """The collapsed embed relu(x_d * A_d + C_d) [..., B, D, K] held in
+    bf16, each op rounded (the JAX package's `_pointnet_embed` under
+    compute_dtype('bfloat16'))."""
+    A, C = _pointnet_affine(params)
+    bf16 = torch.bfloat16
+    return torch.relu(x[..., None].to(bf16) * A.to(bf16).unsqueeze(-3)
+                      + C.to(bf16).unsqueeze(-3))
 
 
 def _pointnet_pool(params, x, mask):

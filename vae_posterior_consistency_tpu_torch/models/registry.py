@@ -1,12 +1,15 @@
 """vae_type -> model implementation dispatch (port of the JAX package's
 `models/registry.py`): the gauss, flow, MIWAE and notMIWAE families.
-`compute_dtype='bfloat16'` raises NotImplementedError naming the slice
-that brings it.
+`compute_dtype='bfloat16'` runs a model's `train_loss` and `eval_step`
+under `nn/core.compute_dtype`; its other functions (`encode_stats`,
+`encode_sample_logprob`, the AIS bridge) stay float32, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -18,6 +21,7 @@ from vae_posterior_consistency_tpu_torch.models import (
     miwae,
     notmiwae,
 )
+from vae_posterior_consistency_tpu_torch.nn import core
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,14 +106,32 @@ _FAMILY_TO_DEF = {
 }
 
 
+@functools.cache
+def _dtype_wrapped(fn: Callable, dtype: str) -> Callable:
+    """`fn` (a model's train_loss or eval_step) run under
+    core.compute_dtype(dtype). Memoised, so that two get_model(cfg) calls
+    return equal ModelDefs."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with core.compute_dtype(dtype):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
 def get_model(cfg: RunConfig) -> ModelDef:
     info = parse_vae_type(cfg.vae_type)
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet; it comes with the "
-            "mixed-precision slice")
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        # nn/core.dense tests for the exact string 'bfloat16'; any other
+        # spelling would run float32 while claiming mixed precision
         raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
                          f"got {cfg.compute_dtype!r}")
-    return dataclasses.replace(_FAMILY_TO_DEF[info.family],
-                               uses_p_branch=info.regularized)
+    model = dataclasses.replace(_FAMILY_TO_DEF[info.family],
+                                uses_p_branch=info.regularized)
+    if cfg.compute_dtype != "float32":
+        model = dataclasses.replace(
+            model,
+            train_loss=_dtype_wrapped(model.train_loss, cfg.compute_dtype),
+            eval_step=_dtype_wrapped(model.eval_step, cfg.compute_dtype))
+    return model
