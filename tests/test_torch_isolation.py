@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, its CLI scripts, tools or native code. Checked twice: every module
+package, its CLI scripts, tools, examples or native code. Checked twice: every module
 is imported in a fresh interpreter whose import system refuses those names,
 and every import statement of the port and of chip_smoke.py (including the
 ones inside functions) is read from the source."""
@@ -15,7 +15,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "vae_posterior_consistency_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "vae_posterior_consistency_tpu", "experiment_main",
-           "tools", "native")
+           "tools", "examples", "native")
 
 
 def _blocked(name: str) -> bool:
@@ -41,7 +41,9 @@ def test_every_port_module_imports_with_the_jax_side_refused():
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                        pkg.__name__ + ".")]
         for mod in ("parallel.mesh", "parallel.multihost",
-                    "parallel.train_parallel", "engine.evaluate_sharded"):
+                    "parallel.train_parallel", "engine.evaluate_sharded",
+                    "tools.convert_reference_checkpoint",
+                    "tools.convert_mnist_idx", "examples.impute_csv"):
             assert pkg.__name__ + "." + mod in names, mod
         for name in names:
             importlib.import_module(name)

@@ -5,12 +5,14 @@ of the C++ library, `csrc/vpc_io.cpp` (port of the JAX package's
 A float32 CSV reader (the loaders' split-index CSVs), a bit-packed
 observation-mask codec and offline MCAR mask sampling with xorshift128+.
 The library is host code, not a device kernel: it builds at first use with
-g++ into `build/vpc_torch_io/libvpc_io_<hash>.so` at the repo root (the hash
-covers the source and the flags, so an edited source builds anew; the
-library is written under a name of its own and `os.replace`d into place)
-and is loaded only if its ABI version is `ABI_VERSION`. Every function has
-the JAX package's numpy fallback, taken where the library cannot be built
-or loaded, so that artifacts are the same bits with or without g++;
+g++ into `build/vpc_torch_io/libvpc_io_<hash>.so` at the repo root, or
+under `~/.cache/vpc_torch_io` where the checkout is not writable
+(`ops/_build.build_dir`; the hash covers the source and the flags, so an
+edited source builds anew; the library is written under a name of its own
+and `os.replace`d into place) and is loaded only if its ABI version is
+`ABI_VERSION`. Every function has the JAX package's numpy fallback, taken
+where the library cannot be built or loaded, so that artifacts are the
+same bits with or without g++;
 `library()` raises instead. Each read and each MCAR mask that went
 through the library counts in `read_csv.native_calls` or
 `mcar_mask.native_calls`.
@@ -27,8 +29,10 @@ from pathlib import Path
 
 import numpy as np
 
+from vae_posterior_consistency_tpu_torch.ops._build import build_dir
+
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "vpc_io.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpc_torch_io"
+BUILD_DIR = build_dir("vpc_torch_io")
 #: portable code (no -march=native): the library may be copied between hosts
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 GXX_TIMEOUT_S = 120

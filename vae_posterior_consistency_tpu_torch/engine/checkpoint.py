@@ -3,14 +3,16 @@ format (save and load; `save_many` for an ensemble's replicas, the
 `.seed{s}` names of seed replicas and `load_seed_ensemble`), its
 mid-training `.resume.pt` files (parameters, Adam state, epochs done, the
 run's identity tag; an ensemble's hold its stacked [S, ...] leaves), and
-trained reference state_dicts (gauss family).
+the reference's own state_dicts of every family, read
+(`convert_state_dict`) and written (`export_state_dict`).
 
 The JAX package saves a flat dict {"encoder/pnp1/layer0/w": ndarray, ...}
 with torch.save (its `engine/checkpoint.py`); weights are [fan_in, fan_out],
 the layout the port keeps, so its parameters map leaf for leaf. The
 reference's own state_dicts (`src/experiment_main/train.py:120-131`) name
-torch modules and store Linear weights [out, in]; `convert_state_dict` maps
-them as `tools/convert_reference_checkpoint.py` does for the JAX package.
+torch modules and store Linear weights [out, in]; `convert_state_dict` and
+`export_state_dict` map them as the JAX package's
+`tools/convert_reference_checkpoint.py` does, tensor for tensor.
 
 A list in the parameters (the flow's `actnorm`, one dict a spline layer) is
 keyed by its indices, as JAX's tree paths key it: "actnorm/0/log_scale",
@@ -112,7 +114,10 @@ def params_from_jax(flat: dict, device) -> dict:
 
 
 def _np(t) -> np.ndarray:
-    return np.asarray(t.detach().cpu().numpy(), dtype=np.float32)
+    """A tensor or array as a float32 numpy array."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
 
 
 def save(params: dict, path: str) -> None:
@@ -314,8 +319,35 @@ def load_resume(template_params: dict, path: str, tag: str = "",
 
 
 # ---------------------------------------------------------------------------
-# reference state_dicts (gauss family)
+# reference state_dicts (every family, both ways)
 # ---------------------------------------------------------------------------
+#
+# torch module names of the reference -> the port's nested parameters:
+#   gauss dense      seq_encoder.{0,2,4}    -> encoder.layer{0,1,2}
+#                    seq_decoder.{0,2,4}    -> decoder.layer{0,1,2}
+#   gauss EDDI       pnp_encoder1.0         -> encoder.pnp1.layer0
+#                    pnp_encoder2.{0,2,..}  -> encoder.pnp2.layer{i}
+#                    type_pars1/type_bias1  -> encoder.type_pars/type_bias
+#   MIWAE            seq_encoder, seq_decoder as gauss dense
+#   notMIWAE         seq_encoder.{0,2}      -> encoder.trunk.layer{0,1}
+#                    q_mu.0 / q_logstd.0    -> encoder.q_mu/q_logstd.layer0
+#                    seq_decoder.{0,2}      -> decoder.trunk.layer{0,1}
+#                    x_mean.0               -> decoder.x_mean.layer0
+#                    x_logvar.0 | x_std.0   -> decoder.x_logvar.layer0
+#                    W / b                  -> W / b
+#                    logits.0               -> logits_lin
+#   flow             seq_encoder.{0,2,4}    -> encoder.layer{0,1,2}
+#                    seq_decoder.{0,2,4,6}  -> decoder.trunk.layer{0..3}
+#                    decoder_mean.0         -> decoder.mean.layer0
+#                    decoder_logvar.0       -> decoder.logvar.layer0
+# (reference: src/models/VAE.py:366-379, 687-708, 2342-2368, 2706-2741,
+# 2865-2931, 3026-3041, 1882-1916). torch's Linear weight is [out, in], the
+# port's [in, out]: every weight transposes.
+
+#: reference tensors registered but read on no live path: the flow's dead
+#: encoder heads and spline pdfs (VAE.py:1792-1793, 1892-1893) and the
+#: registered prior constants
+_FLOW_DEAD = ("encoder_mean", "encoder_logvar", "flows.", "flow.", "prior_")
 
 
 def _linear(sd, prefix):
@@ -325,7 +357,8 @@ def _linear(sd, prefix):
 
 def _seq_mlp(sd, prefix):
     """A torch nn.Sequential of Linears (+activations) -> mlp_init layout:
-    the Linears' Sequential indices (0, 2, 4, ...) become layer0, layer1, ..."""
+    the Linears' Sequential indices (0, 2, 4, ...) become layer0, layer1,
+    ..."""
     idxs = sorted(
         int(k[len(prefix) + 1:].split(".")[0])
         for k in sd
@@ -350,6 +383,63 @@ def _convert_gauss(sd, cfg):
     return {"encoder": encoder, "decoder": _seq_mlp(sd, "seq_decoder")}
 
 
+def _convert_miwae(sd, cfg):
+    del cfg
+    return {"encoder": _seq_mlp(sd, "seq_encoder"),
+            "decoder": _seq_mlp(sd, "seq_decoder")}
+
+
+def _convert_notmiwae(sd, cfg):
+    del cfg
+    # the author variant names its observation head x_std (a softplus std);
+    # the port computes logvar = log(std^2) from the same Linear, so its
+    # weights fill the x_logvar slot either way (VAE.py:2889, 2924-2928)
+    head = "x_std" if "x_std.0.weight" in sd else "x_logvar"
+    params = {
+        "encoder": {
+            "trunk": _seq_mlp(sd, "seq_encoder"),
+            "q_mu": _seq_mlp(sd, "q_mu"),
+            "q_logstd": _seq_mlp(sd, "q_logstd"),
+        },
+        "decoder": {
+            "trunk": _seq_mlp(sd, "seq_decoder"),
+            "x_mean": _seq_mlp(sd, "x_mean"),
+            "x_logvar": _seq_mlp(sd, head),
+        },
+        "W": _np(sd["W"]),
+        "b": _np(sd["b"]),
+    }
+    # the 'linear' missing process: self.logits = nn.Sequential(nn.Linear(D,
+    # D)) (VAE.py:2176, 2371, 2552)
+    if "logits.0.weight" in sd:
+        params["logits_lin"] = _linear(sd, "logits.0")
+    return params
+
+
+def _convert_flow(sd, cfg):
+    del cfg
+    skipped = [k for k in sd if k.startswith(_FLOW_DEAD)]
+    if skipped:
+        print(f"note: skipping {len(skipped)} dead reference params "
+              f"(unused on any live path): {sorted(skipped)[:4]}...")
+    return {
+        "encoder": _seq_mlp(sd, "seq_encoder"),
+        "decoder": {
+            "trunk": _seq_mlp(sd, "seq_decoder"),
+            "mean": _seq_mlp(sd, "decoder_mean"),
+            "logvar": _seq_mlp(sd, "decoder_logvar"),
+        },
+    }
+
+
+_CONVERTERS = {
+    "gauss": _convert_gauss,
+    "miwae": _convert_miwae,
+    "notmiwae": _convert_notmiwae,
+    "flow": _convert_flow,
+}
+
+
 class _TrackedDict(dict):
     """Records which keys were read, so a key-mapping gap fails loudly
     instead of silently dropping trained weights."""
@@ -364,20 +454,20 @@ class _TrackedDict(dict):
 
 
 def convert_state_dict(sd, cfg: RunConfig, obs_dim: int) -> dict:
-    """Reference torch state_dict of a gauss-family model -> nested dict of
-    numpy arrays in the JAX/port layout. Raises on unread tensors (other
-    than the registered `prior_*` constants) and on shapes that differ from
-    the model's."""
-    model = get_model(cfg)  # raises for families the port does not have
-    if model.name != "gauss":
-        raise NotImplementedError(
-            f"vae_type {cfg.vae_type!r}: reference state_dicts are mapped "
-            "for the gauss family only so far; the converter for every "
-            "family comes with slice 11")
+    """Reference torch state_dict of any family -> nested dict of numpy
+    arrays in the JAX/port layout, as the JAX package's
+    `tools/convert_reference_checkpoint.py` maps it. Raises ValueError on a
+    tensor the mapping does not read (other than the registered dead
+    ones), on a shape that differs from the model's and on a leaf the model
+    does not have. A leaf the state_dict lacks (a never-trained one, as
+    notMIWAE's `logits_lin` under 'selfmasking', or the flow's ActNorm) is
+    taken from a fresh init seeded with 0, with a notice."""
+    model = get_model(cfg)
     sd = _TrackedDict(sd)
-    params = _convert_gauss(sd, cfg)
+    params = _CONVERTERS[model.name](sd, cfg)
+    dead = _FLOW_DEAD if model.name == "flow" else ("prior_",)
     unconsumed = [k for k in sd
-                  if k not in sd.consumed and not k.startswith("prior_")]
+                  if k not in sd.consumed and not k.startswith(dead)]
     if unconsumed:
         raise ValueError(
             "reference state_dict tensors not consumed by the converter "
@@ -386,14 +476,99 @@ def convert_state_dict(sd, cfg: RunConfig, obs_dim: int) -> dict:
     template = flatten(model.init(torch.Generator().manual_seed(0), cfg,
                                   obs_dim, device="cpu"))
     got = flatten(params)
-    if set(got) != set(template):
-        raise ValueError(f"converted leaves {sorted(set(got) ^ set(template))} "
-                         "do not match the model's")
     for key, leaf in template.items():
-        if got[key].shape != tuple(leaf.shape):
+        if key in got and got[key].shape != tuple(leaf.shape):
             raise ValueError(f"shape mismatch at {key}: converted "
                              f"{got[key].shape} vs model {tuple(leaf.shape)}")
+    missing = [k for k in template if k not in got]
+    if missing:
+        print(f"note: {len(missing)} leaves not in the reference checkpoint, "
+              f"kept at fresh init: {missing}")
+    extra = [k for k in got if k not in template]
+    if extra:
+        raise ValueError(f"converted leaves unknown to the model: {extra}")
+    if missing:
+        params = unflatten({k: got[k] if k in got else _np(leaf)
+                            for k, leaf in template.items()})
     return params
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A leaf as a float32 CPU tensor of its own memory."""
+    return torch.from_numpy(_np(leaf).copy())
+
+
+def _rev_linear(sd, prefix, leaf):
+    sd[f"{prefix}.weight"] = _tensor(_np(leaf["w"]).T)
+    sd[f"{prefix}.bias"] = _tensor(leaf["b"])
+
+
+def _rev_seq_mlp(sd, prefix, tree):
+    # a reference Sequential puts one activation after each Linear, so
+    # Linear j sits at index 2j in every class (VAE.py:366-376, 687-698,
+    # 2342-2368, 3026-3041, 1882-1916)
+    for j in range(len(tree)):
+        _rev_linear(sd, f"{prefix}.{2 * j}", tree[f"layer{j}"])
+
+
+def export_state_dict(params, cfg: RunConfig, obs_dim: int) -> dict:
+    """The port's parameters (tensors or numpy arrays) -> a reference-named
+    torch state_dict, the inverse of `convert_state_dict`, tensor for
+    tensor what the JAX package's tool exports: CPU float32 tensors, every
+    weight [out, in], and the registered tensors the reference reads on no
+    live path (the flow's dead heads, spline pdfs and prior) at their
+    defaults, so the reference's classes load it with strict=True. A
+    regularised notMIWAE's `logits.0.*` are float64, as the reference
+    registers them (`.double()`)."""
+    del obs_dim
+    model = get_model(cfg)
+    sd = {}
+    if model.name == "gauss":
+        enc = params["encoder"]
+        if "pnp1" in enc:
+            _rev_seq_mlp(sd, "pnp_encoder1", enc["pnp1"])
+            _rev_seq_mlp(sd, "pnp_encoder2", enc["pnp2"])
+            sd["type_pars1"] = _tensor(enc["type_pars"])
+            sd["type_bias1"] = _tensor(enc["type_bias"])
+        else:
+            _rev_seq_mlp(sd, "seq_encoder", enc)
+        _rev_seq_mlp(sd, "seq_decoder", params["decoder"])
+    elif model.name == "miwae":
+        _rev_seq_mlp(sd, "seq_encoder", params["encoder"])
+        _rev_seq_mlp(sd, "seq_decoder", params["decoder"])
+    elif model.name == "notmiwae":
+        _rev_seq_mlp(sd, "seq_encoder", params["encoder"]["trunk"])
+        _rev_seq_mlp(sd, "q_mu", params["encoder"]["q_mu"])
+        _rev_seq_mlp(sd, "q_logstd", params["encoder"]["q_logstd"])
+        _rev_seq_mlp(sd, "seq_decoder", params["decoder"]["trunk"])
+        _rev_seq_mlp(sd, "x_mean", params["decoder"]["x_mean"])
+        # the author variant names its observation head x_std (VAE.py:2889)
+        head = "x_std" if cfg.not_miwae_type == "author" else "x_logvar"
+        _rev_seq_mlp(sd, head, params["decoder"]["x_logvar"])
+        sd["W"] = _tensor(params["W"])
+        sd["b"] = _tensor(params["b"])
+        if cfg.info.regularized:
+            # the regularised classes register logits whatever the missing
+            # process, as float64 (VAE.py:2176, 2371, 2552)
+            _rev_linear(sd, "logits.0", params["logits_lin"])
+            sd["logits.0.weight"] = sd["logits.0.weight"].double()
+            sd["logits.0.bias"] = sd["logits.0.bias"].double()
+    else:  # flow
+        _rev_seq_mlp(sd, "seq_encoder", params["encoder"])
+        _rev_seq_mlp(sd, "seq_decoder", params["decoder"]["trunk"])
+        _rev_seq_mlp(sd, "decoder_mean", params["decoder"]["mean"])
+        _rev_seq_mlp(sd, "decoder_logvar", params["decoder"]["logvar"])
+        # registered but dead (VAE.py:1892-1893, 1822-1825, 1919-1920)
+        L, H = cfg.latent_dim, cfg.hid_dim
+        sd["encoder_mean.weight"] = torch.zeros(L, H)
+        sd["encoder_mean.bias"] = torch.zeros(L)
+        sd["encoder_logvar.weight"] = torch.zeros(L, H)
+        sd["encoder_logvar.bias"] = torch.zeros(L)
+        for i in range(3):
+            sd[f"flows.{i}.unnormalized_pdf"] = torch.zeros(L, 10)
+        sd["prior_mean"] = torch.zeros(L)
+        sd["prior_std"] = torch.ones(L)
+    return sd
 
 
 def load_reference(path: str, cfg: RunConfig, obs_dim: int,

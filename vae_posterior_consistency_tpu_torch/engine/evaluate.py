@@ -196,6 +196,12 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
     return results
 
 
+#: the reference's alias: its imputation.py routes the 'MIWAE' vae_types
+#: here (src/experiment_main/imputation.py:40-49); `eval_vae` dispatches on
+#: the family's eval_kind, so it is the same function.
+eval_miwae = eval_vae
+
+
 def _mnar_rmse(model, cfg: RunConfig, params, x, mask, mask_p, eps):
     """One `eval_step` over the whole matrix and its RMSE over all the
     holes (a 0-d tensor on the device): the one definition of a rep that

@@ -180,6 +180,15 @@ def hardtanh(x, min_val: float, max_val: float):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
+def param_count(params) -> int:
+    """The number of scalars in nested parameters (dicts, lists)."""
+    if isinstance(params, dict):
+        params = params.values()
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    return sum(param_count(p) for p in params)
+
+
 ACTIVATIONS: dict[str, Callable] = {
     "relu": torch.relu,
     "elu": torch.nn.functional.elu,

@@ -3,8 +3,10 @@
 Every `csrc/*.cu` compiles at first use into its own shared library with a
 plain C interface: no PyTorch headers, so a build takes seconds, not minutes.
 The libraries go to `build/vpc_torch_kernels/lib<source>_<hash>.so` at the
-repo root; the hash covers every source and header and the flags, so an edited
-source builds anew. All sources compile at once, one nvcc process each. Each
+repo root, or under `~/.cache/vpc_torch_kernels` where the checkout is not
+writable (an installed package; `build_dir`); the hash covers every source
+and header and the flags, so an edited source builds anew. All sources
+compile at once, one nvcc process each. Each
 writes to a name of its own and is `os.replace`d into place, so two processes
 that build at once cannot see half a library, and there is no lock file to be
 left behind.
@@ -21,7 +23,22 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vpc_torch_kernels"
+#: the directory that holds the package: the repo root in a checkout
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def build_dir(name: str, root: Path = ROOT) -> Path:
+    """Where a build of the port goes: `root/build/<name>` when that
+    directory, or `root` before it exists, is writable (a checkout), else
+    `~/.cache/<name>` (an installed package in a read-only place), as the
+    JAX package's data plane builds beside its source or under the cache."""
+    base = root / "build"
+    if os.access(base if base.is_dir() else root, os.W_OK):
+        return base / name
+    return Path.home() / ".cache" / name
+
+
+BUILD_DIR = build_dir("vpc_torch_kernels")
 #: `-Xptxas=-v` only reports registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

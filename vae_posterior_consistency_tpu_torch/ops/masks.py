@@ -65,6 +65,19 @@ def sub_mask(mask, p_missingness, *, uniforms=None, generator=None):
                             generator=generator, device=mask.device)
 
 
+def toy_mask(batch_size: int, missing_rate, *, uniforms=None,
+             generator=None, device="cuda") -> torch.Tensor:
+    """The 2-column toy mask [B, 2]: column 0 observed everywhere, column 1
+    on the ceil(B * (1 - rate/100)) rows of smallest uniform, a random
+    subset (reference: src/utils/utils.py:24-33). `uniforms` is [B]."""
+    n_given = int(-(-batch_size * (1.0 - float(missing_rate) / 100.0) // 1))
+    u = _uniforms((batch_size,), device, uniforms, generator)
+    perm = torch.argsort(u)
+    col1 = torch.zeros(batch_size, dtype=torch.float32, device=u.device)
+    col1[perm[:n_given]] = 1.0
+    return torch.stack([torch.ones_like(col1), col1], dim=1)
+
+
 def train_masks(info, cfg, mask, *, uniforms=None, generator=None):
     """The reference's per-batch training-mask dispatch
     (src/experiment_main/train.py:31-58), returning (eff_mask, mask_p):

@@ -111,6 +111,10 @@ def log_mean_exp(x, dim=-1):
     return torch.logsumexp(x, dim=dim) - math.log(x.shape[dim])
 
 
+def logsumexp(x, dim=0):
+    return torch.logsumexp(x, dim=dim)
+
+
 def softmax_neg(x, dim=1):
     """softmax(-x): self-normalized importance weights from negative
     log-weights (reference: VAE.py:2127-2129, applied to -l_w)."""
@@ -126,3 +130,40 @@ def reparameterize(mean, logvar, *, eps=None, generator=None):
         eps = torch.randn(mean.shape, generator=generator, device=mean.device,
                           dtype=mean.dtype)
     return mean + eps * torch.exp(0.5 * logvar)
+
+
+# ---------------------------------------------------------------------------
+# masked metrics and column transforms
+# ---------------------------------------------------------------------------
+
+
+def masked_rmse(x_hat, x, hole_mask):
+    """RMSE over the cells where `hole_mask` is 1 (the reference computes
+    it over `~mask`, the missing cells: src/experiment_main/evaluate.py:
+    232-234)."""
+    se = torch.sum(torch.square(x_hat * hole_mask - x * hole_mask))
+    return torch.sqrt(se / torch.clamp(torch.sum(hole_mask), min=1.0))
+
+
+def check(x, a, b):
+    """Whether `x` lies in the closed interval [a, b], elementwise, as a
+    bool tensor (reference: src/utils/utils.py:8-15); a scalar gives a 0-d
+    tensor."""
+    x = torch.as_tensor(x)
+    return torch.logical_and(a <= x, x <= b)
+
+
+def minmax_normalize(data, dim=0):
+    """Min-max scale to [0, 1] along `dim` (reference:
+    src/utils/loaders.py:327-332)."""
+    lo = torch.amin(data, dim=dim, keepdim=True)
+    hi = torch.amax(data, dim=dim, keepdim=True)
+    return (data - lo) / (hi - lo)
+
+
+def standardize(data, dim=0):
+    """Zero mean and unit variance along `dim`, with Bessel's correction as
+    torch's `.std(0)` has it (reference: src/utils/loaders.py:334-336)."""
+    mu = torch.mean(data, dim=dim, keepdim=True)
+    sd = torch.std(data, dim=dim, keepdim=True, correction=1)
+    return (data - mu) / sd
