@@ -65,7 +65,9 @@ _EXTRA_FLAGS = {
                    "one per 200 epochs; stops on plateau and keeps the "
                    "best-check parameters)"),
     "profile": (str, "", "write a torch.profiler trace of the run to this "
-                "directory (Chrome trace format; meant for short runs)"),
+                "directory, the program's own spans and counters (category "
+                "'vpc') on its timeline (Chrome trace format; meant for "
+                "short runs)"),
     "device": (str, "cuda", "torch device the run uses: 'cuda' (the "
                "kernels) or 'cpu' (their plain versions)"),
 }
@@ -330,7 +332,8 @@ def resolve_mesh(cfg: "RunConfig", device=None):
 def maybe_profile(args):
     """A context manager: under `-profile DIR` a `utils/logging.
     profile_trace` into DIR (the card's activity too when `-device` is a
-    CUDA device), announced by the JAX package's line; else a no-op."""
+    CUDA device, and the program's spans and counters, `utils/tracing`),
+    announced by the JAX package's line; else a no-op."""
     spec = getattr(args, "profile", "") or ""
     if not spec:
         return contextlib.nullcontext()

@@ -83,6 +83,7 @@ from vae_posterior_consistency_tpu_torch.engine.train import (
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.parallel import mesh as meshlib
 from vae_posterior_consistency_tpu_torch.parallel import multihost
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 #: reward placeholder for already-revealed features
 #: (reference: evaluate.py:391)
@@ -223,18 +224,24 @@ def al_step(model, params, cfg: RunConfig, x, mask, noise, repeat: int,
     n, D = x.shape
     M = cfg.M
     shape = (M, *eps_shape(cfg, n, D))
-    im = _impute_samples(cfg, params, x, mask,
-                         noise("im", repeat, t, shape).to(x.device))
-    flow_eps = None
-    if model.encode_stats is None:
-        flow_eps = noise("flow", repeat, t,
-                         (4, D - 1, M, n, cfg.latent_dim)).to(x.device)
-    R = rewards(model, params, cfg, x, mask, im, flow_eps)
-    i_opt = torch.argmax(R, dim=1)  # the first maximum, as jnp.argmax
-    new_mask = mask + torch.nn.functional.one_hot(i_opt, D).to(mask.dtype)
-    mse = predictive_mse(cfg, params, x, new_mask,
-                         noise("mse", repeat, t, shape).to(x.device),
-                         row_weights)
+    with tracing.span("al.step"):
+        with tracing.span("al.impute"):
+            im = _impute_samples(cfg, params, x, mask,
+                                 noise("im", repeat, t, shape).to(x.device))
+        with tracing.span("al.rewards"):
+            flow_eps = None
+            if model.encode_stats is None:
+                flow_eps = noise("flow", repeat, t,
+                                 (4, D - 1, M, n, cfg.latent_dim)).to(
+                                     x.device)
+            R = rewards(model, params, cfg, x, mask, im, flow_eps)
+        with tracing.span("al.select"):
+            i_opt = torch.argmax(R, dim=1)  # the first maximum, as jnp.argmax
+            new_mask = mask + torch.nn.functional.one_hot(i_opt, D).to(
+                mask.dtype)
+            mse = predictive_mse(cfg, params, x, new_mask,
+                                 noise("mse", repeat, t, shape).to(x.device),
+                                 row_weights)
     return {"R": R, "action": i_opt.to(torch.float32), "mse": mse, "im": im,
             "mask": new_mask}
 
@@ -247,24 +254,25 @@ def run_episode(model, params, cfg: RunConfig, x, noise, repeat: int = 0,
     the weighted sums of `predictive_mse`), "action" [n, D-1], "R_hist"
     [D-1, n, D-1], "im" [D-1, M, n, D]}."""
     n, D = x.shape
-    mask = torch.zeros_like(x)
-    shape = (cfg.M, *eps_shape(cfg, n, D))
-    curve = [predictive_mse(cfg, params, x, mask,
-                            noise("init", repeat, 0, shape).to(x.device),
-                            row_weights)]
-    steps = []
-    for t in range(D - 1):
-        out = al_step(model, params, cfg, x, mask, noise, repeat, t,
-                      row_weights)
-        mask = out["mask"]
-        curve.append(out["mse"])
-        steps.append(out)
-    return {
-        "information_curve": torch.stack(curve)[None, :].expand(n, D),
-        "action": torch.stack([s["action"] for s in steps]).T,
-        "R_hist": torch.stack([s["R"] for s in steps]),
-        "im": torch.stack([s["im"] for s in steps]),
-    }
+    with tracing.span("al.episode"):
+        mask = torch.zeros_like(x)
+        shape = (cfg.M, *eps_shape(cfg, n, D))
+        curve = [predictive_mse(cfg, params, x, mask,
+                                noise("init", repeat, 0, shape).to(x.device),
+                                row_weights)]
+        steps = []
+        for t in range(D - 1):
+            out = al_step(model, params, cfg, x, mask, noise, repeat, t,
+                          row_weights)
+            mask = out["mask"]
+            curve.append(out["mse"])
+            steps.append(out)
+        return {
+            "information_curve": torch.stack(curve)[None, :].expand(n, D),
+            "action": torch.stack([s["action"] for s in steps]).T,
+            "R_hist": torch.stack([s["R"] for s in steps]),
+            "im": torch.stack([s["im"] for s in steps]),
+        }
 
 
 def default_noise(cfg: RunConfig, device):
@@ -370,6 +378,7 @@ def active_learning_func(dataset_train, test_data, test_mask, cfg: RunConfig,
                              for name in ARTIFACTS}, rows, cfg.M, 1)
     if save and multihost.is_coordinator():
         paths = artifacts.active_learning_paths(cfg, experiments_root)
+        tracing.count("host_reads", len(ARTIFACTS) + 1)
         for name in ARTIFACTS:
             artifacts.save_tensor(stacked[name].cpu().contiguous(),
                                   paths[name])
@@ -419,6 +428,7 @@ def active_learning_ensemble(test_data, test_mask, cfg: RunConfig, params_ens,
                              for name in ARTIFACTS}, rows, cfg.M, 2)
     if save and multihost.is_coordinator():
         paths = artifacts.active_learning_paths(cfg, experiments_root)
+        tracing.count("host_reads", len(stacked))
         host = {name: t.cpu() for name, t in stacked.items()}
         for s in range(host["im"].shape[0]):
             for name in ARTIFACTS:

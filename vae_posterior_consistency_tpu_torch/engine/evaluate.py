@@ -14,7 +14,10 @@ over the batches of a rep, then the mean over the reps, in that order.
 
 The JAX package fuses this into one program; here the batches run one by
 one, eagerly, with every statistic kept on the device and read once a
-split. The sharded evaluator comes with the multi-device slice.
+split. The sharded evaluator comes with the multi-device slice. Under a
+torch profiler a call records the spans `eval_vae` (its root),
+`eval.split`, `eval.batch`, `eval.draw`, `model.eval_step`, `eval.stats`
+and `eval.readback`, and one `host_reads` a split (`utils/tracing`).
 
 It serves every family. Those whose `eval_kind` is 'miwae' (MIWAE and
 notMIWAE) evaluate with cfg.valid_k importance samples a row and save only
@@ -82,6 +85,7 @@ from vae_posterior_consistency_tpu_torch.engine.train import (
 )
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.ops import masks
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 #: the metrics of one split, in the order the per-batch statistics stack
 METRICS = ("rmse", "loss", "negl", "negl_imp")
@@ -99,27 +103,30 @@ def _pad_batches(n: int, bsz: int):
 
 def _draw(model, cfg: RunConfig, noise, rep: int, step: int, x, mask):
     """A batch's draws, `ModelDef.eval_noise`: (mask_p or None, eps)."""
-    drawn = {kind: noise(kind, rep, step, shape).to(x.device) for kind, shape
-             in model.eval_noise(cfg, *x.shape).items()}
-    mask_p = (masks.sub_mask(mask, cfg.p_missingness,
-                             uniforms=drawn["mask_p"])
-              if "mask_p" in drawn else None)
+    with tracing.span("eval.draw"):
+        drawn = {kind: noise(kind, rep, step, shape).to(x.device)
+                 for kind, shape in model.eval_noise(cfg, *x.shape).items()}
+        mask_p = (masks.sub_mask(mask, cfg.p_missingness,
+                                 uniforms=drawn["mask_p"])
+                  if "mask_p" in drawn else None)
     return mask_p, drawn["eps"]
 
 
 def _batch_stats(model, cfg: RunConfig, params, x_b, m_b, mask_p, eps, w_b):
     """One batch's [rmse, loss, negl, negl_imp] (a [4] tensor), padded rows
     weighing 0 (`w_b`)."""
-    out = model.eval_step(params, x_b, m_b, mask_p, eps, cfg)
-    hole = (1.0 - m_b) * w_b[:, None]
-    se = torch.sum(torch.square((out["x_imputed"] - x_b) * hole))
-    cnt = torch.sum(w_b)
-    return torch.stack([
-        torch.sqrt(se / torch.clamp(torch.sum(hole), min=1.0)),
-        torch.sum(out["row_loss"] * w_b) / cnt,
-        torch.sum(out["row_negl"] * w_b) / cnt,
-        torch.sum(out["row_negl_imp"] * w_b) / cnt,
-    ])
+    with tracing.span("model.eval_step"):
+        out = model.eval_step(params, x_b, m_b, mask_p, eps, cfg)
+    with tracing.span("eval.stats"):
+        hole = (1.0 - m_b) * w_b[:, None]
+        se = torch.sum(torch.square((out["x_imputed"] - x_b) * hole))
+        cnt = torch.sum(w_b)
+        return torch.stack([
+            torch.sqrt(se / torch.clamp(torch.sum(hole), min=1.0)),
+            torch.sum(out["row_loss"] * w_b) / cnt,
+            torch.sum(out["row_negl"] * w_b) / cnt,
+            torch.sum(out["row_negl_imp"] * w_b) / cnt,
+        ])
 
 
 def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
@@ -136,13 +143,16 @@ def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
             perm = torch.cat([perm, perm[:pad]])
         x_rep, m_rep = x[perm], mask[perm]
         for s in range(steps):
-            rows = slice(s * bsz, (s + 1) * bsz)
-            x_b, m_b, w_b = x_rep[rows], m_rep[rows], valid[rows]
-            mask_p, eps = _draw(model, cfg, noise, m, s, x_b, m_b)
-            per_batch.append(_batch_stats(model, cfg, params, x_b, m_b,
-                                          mask_p, eps, w_b))
-    stats = torch.stack(per_batch).reshape(cfg.M, steps, len(METRICS))
-    agg = stats.mean(dim=1).mean(dim=0).tolist()  # the one host sync
+            with tracing.span("eval.batch", rows=bsz):
+                rows = slice(s * bsz, (s + 1) * bsz)
+                x_b, m_b, w_b = x_rep[rows], m_rep[rows], valid[rows]
+                mask_p, eps = _draw(model, cfg, noise, m, s, x_b, m_b)
+                per_batch.append(_batch_stats(model, cfg, params, x_b, m_b,
+                                              mask_p, eps, w_b))
+    with tracing.span("eval.readback"):
+        stats = torch.stack(per_batch).reshape(cfg.M, steps, len(METRICS))
+        agg = stats.mean(dim=1).mean(dim=0).tolist()  # the one host sync
+        tracing.count("host_reads")
     # in sorted key order, as JAX's tree_map returns the dict: the order of
     # the metrics.jsonl records and of the printed metrics
     return dict(sorted(zip(METRICS, agg)))
@@ -179,20 +189,21 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
     params = checkpoint.on_device(params, device)
 
     results = {}
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("eval_vae"):
         for split in (dataset.train, dataset.test):
             if split is None:
                 continue
-            src = (GeneratorNoise(cfg.seed + 1, device) if noise is None
-                   else noise)
-            agg = _split_metrics(
-                model, cfg, params,
-                split.x.to(device=device, dtype=torch.float32),
-                split.mask.to(device=device, dtype=torch.float32), src)
-            results[split.stage] = agg
-            if save:
-                _save_eval_artifacts(cfg, model, split.stage, agg,
-                                     experiments_root)
+            with tracing.span("eval.split"):
+                src = (GeneratorNoise(cfg.seed + 1, device) if noise is None
+                       else noise)
+                agg = _split_metrics(
+                    model, cfg, params,
+                    split.x.to(device=device, dtype=torch.float32),
+                    split.mask.to(device=device, dtype=torch.float32), src)
+                results[split.stage] = agg
+                if save:
+                    _save_eval_artifacts(cfg, model, split.stage, agg,
+                                         experiments_root)
     return results
 
 
@@ -206,7 +217,8 @@ def _mnar_rmse(model, cfg: RunConfig, params, x, mask, mask_p, eps):
     """One `eval_step` over the whole matrix and its RMSE over all the
     holes (a 0-d tensor on the device): the one definition of a rep that
     serves `eval_vae_mnar` and `eval_vae_mnar_ensemble`."""
-    out = model.eval_step(params, x, mask, mask_p, eps, cfg)
+    with tracing.span("model.eval_step"):
+        out = model.eval_step(params, x, mask, mask_p, eps, cfg)
     hole = 1.0 - mask
     se = torch.sum(torch.square(out["x_imputed"] * hole - x * hole))
     return torch.sqrt(se / torch.sum(hole))

@@ -30,6 +30,7 @@ from vae_posterior_consistency_tpu_torch.ops.math import (
     normal_logpdf,
     reparameterize,
 )
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 
 def completion(params, x, mask, mask_p, M: int, cfg: RunConfig, eps=None,
@@ -59,7 +60,7 @@ def completion(params, x, mask, mask_p, M: int, cfg: RunConfig, eps=None,
         raise ValueError(f"completion: eps of shapes {got}, want {shapes}")
     eps = eps["eps"].to(x.device)
 
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("model.eval_step"):
         if model.eval_kind == "miwae":
             return torch.stack([
                 model.eval_step(params, x, mask, mask_p, eps[m],

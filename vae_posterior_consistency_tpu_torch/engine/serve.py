@@ -46,6 +46,7 @@ from vae_posterior_consistency_tpu_torch.config import RunConfig
 from vae_posterior_consistency_tpu_torch.engine import checkpoint
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.parallel import mesh as meshlib
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 
@@ -111,40 +112,50 @@ class ImputationServer:
         On a mesh every rank calls it with the same request and gets the
         whole result.
         """
-        x, mask = self.check(x, mask)
-        n = x.shape[0]
-        bucket = next((b for b in self.buckets if b >= n), None)
-        if bucket is None:
-            bucket = ((n + self.buckets[-1] - 1) // self.buckets[-1]
-                      ) * self.buckets[-1]
-        ctr = next(self._ctr)
-        rows = meshlib.rows_of(self.mesh, n, padded=bucket)
-        noise = self._noise
-        if rows.dp > 1:
-            noise = meshlib.RankRows(noise, self.model.eval_noise_rows(
-                self.cfg), rows.dp, rows.r)
-        drawn = {}
-        for kind, shape in self.model.eval_noise(self.cfg, rows.local,
-                                                 self.obs_dim).items():
-            if kind == "mask_p":
-                continue
-            t = noise(kind, ctr, shape)
-            if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
-                raise ValueError(f"noise source gave {kind} {t.dtype} "
-                                 f"{tuple(t.shape)}, want float32 {shape}")
-            drawn[kind] = t.to(self.device)
-        with torch.inference_mode():
-            x_t = rows.take(rows.pad(torch.from_numpy(x).to(self.device)))
-            m_t = rows.take(rows.pad(torch.from_numpy(mask).to(self.device),
-                                     1.0))
-            out = self.model.eval_step(self.params, x_t, m_t,
-                                       torch.ones_like(m_t), drawn["eps"],
-                                       self.cfg)
-            # fill only the missing cells; keep observed values verbatim
-            filled = x_t * m_t + out["x_imputed"] * (1.0 - m_t)
-            # quality score: the per-row negative evidence bound
-            both = torch.cat([filled, out["row_loss"][:, None]], dim=1)
-            both = rows.gather(both).cpu().numpy()  # one host copy
+        with tracing.span("serve.impute") as sp:
+            x, mask = self.check(x, mask)
+            n = x.shape[0]
+            bucket = next((b for b in self.buckets if b >= n), None)
+            if bucket is None:
+                bucket = ((n + self.buckets[-1] - 1) // self.buckets[-1]
+                          ) * self.buckets[-1]
+            sp.set(rows=n, bucket=bucket)
+            ctr = next(self._ctr)
+            rows = meshlib.rows_of(self.mesh, n, padded=bucket)
+            noise = self._noise
+            if rows.dp > 1:
+                noise = meshlib.RankRows(noise, self.model.eval_noise_rows(
+                    self.cfg), rows.dp, rows.r)
+            drawn = {}
+            with tracing.span("serve.draw"):
+                for kind, shape in self.model.eval_noise(
+                        self.cfg, rows.local, self.obs_dim).items():
+                    if kind == "mask_p":
+                        continue
+                    t = noise(kind, ctr, shape)
+                    if (tuple(t.shape) != tuple(shape)
+                            or t.dtype != torch.float32):
+                        raise ValueError(
+                            f"noise source gave {kind} {t.dtype} "
+                            f"{tuple(t.shape)}, want float32 {shape}")
+                    drawn[kind] = t.to(self.device)
+            with torch.inference_mode():
+                with tracing.span("serve.copy_in"):
+                    x_t = rows.take(rows.pad(
+                        torch.from_numpy(x).to(self.device)))
+                    m_t = rows.take(rows.pad(
+                        torch.from_numpy(mask).to(self.device), 1.0))
+                with tracing.span("model.eval_step"):
+                    out = self.model.eval_step(self.params, x_t, m_t,
+                                               torch.ones_like(m_t),
+                                               drawn["eps"], self.cfg)
+                # fill only the missing cells; keep observed values verbatim
+                filled = x_t * m_t + out["x_imputed"] * (1.0 - m_t)
+                # quality score: the per-row negative evidence bound
+                both = torch.cat([filled, out["row_loss"][:, None]], dim=1)
+                with tracing.span("serve.copy_out"):
+                    both = rows.gather(both).cpu().numpy()  # one host copy
+                    tracing.count("host_reads")
         return both[:, :-1], both[:, -1]
 
     @property

@@ -59,6 +59,7 @@ from vae_posterior_consistency_tpu_torch.data.loaders import Dataset
 from vae_posterior_consistency_tpu_torch.engine import checkpoint
 from vae_posterior_consistency_tpu_torch.models import get_model
 from vae_posterior_consistency_tpu_torch.ops import masks
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 #: reference optimizer settings (src/experiment_main/train.py:21)
 LEARNING_RATE = 1e-3
@@ -159,14 +160,20 @@ def make_train_step(cfg: RunConfig, model=None) -> Callable:
     model = model or get_model(cfg)
 
     def train_step(params, optimizer, x, mask, noise, epoch, step):
-        eff_mask, mask_p, eps, extra = draw_step(cfg, noise, mask, epoch,
-                                                 step, model)
-        optimizer.zero_grad(set_to_none=True)
-        loss, _aux = model.train_loss(params, x, eff_mask, mask_p, eps,
-                                      float(epoch + 1), cfg, **extra)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with tracing.span("train.step"):
+            with tracing.span("train.draw"):
+                eff_mask, mask_p, eps, extra = draw_step(
+                    cfg, noise, mask, epoch, step, model)
+            optimizer.zero_grad(set_to_none=True)
+            with tracing.span("model.train_loss"):
+                loss, _aux = model.train_loss(params, x, eff_mask, mask_p,
+                                              eps, float(epoch + 1), cfg,
+                                              **extra)
+            with tracing.span("train.backward"):
+                loss.backward()
+            with tracing.span("train.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return train_step
 
@@ -192,8 +199,11 @@ def _build_val_fn(cfg: RunConfig, model, x, mask, noise) -> Callable:
 
     def val_loss(params) -> float:
         with torch.no_grad():
-            return model.train_loss(params, x, eff_mask, mask_p, eps,
-                                    fixed_epoch, cfg, **extra)[0].item()
+            with tracing.span("model.train_loss"):
+                loss = model.train_loss(params, x, eff_mask, mask_p, eps,
+                                        fixed_epoch, cfg, **extra)[0]
+            tracing.count("host_reads")
+            return loss.item()
 
     return val_loss
 
@@ -280,19 +290,21 @@ def train(
             noise if val_noise is None else val_noise)
 
     def run_epoch(epoch: int) -> float:
-        perm = noise("perm", epoch, 0, (n,)).to(device)
-        if pad:
-            perm = torch.cat([perm, perm[:pad]])
-        x_epoch, m_epoch = x[perm], mask[perm]
-        total = torch.zeros((), device=device)
-        for s in range(steps):
-            rows = slice(s * bsz, (s + 1) * bsz)
-            loss = train_step(params, optimizer, x_epoch[rows], m_epoch[rows],
-                              noise, epoch, s)
-            total += loss
-            if on_step is not None:
-                on_step(epoch, s, loss)
-        return total.item()  # the one host sync of an epoch
+        with tracing.span("train.epoch"):
+            perm = noise("perm", epoch, 0, (n,)).to(device)
+            if pad:
+                perm = torch.cat([perm, perm[:pad]])
+            x_epoch, m_epoch = x[perm], mask[perm]
+            total = torch.zeros((), device=device)
+            for s in range(steps):
+                rows = slice(s * bsz, (s + 1) * bsz)
+                loss = train_step(params, optimizer, x_epoch[rows],
+                                  m_epoch[rows], noise, epoch, s)
+                total += loss
+                if on_step is not None:
+                    on_step(epoch, s, loss)
+            tracing.count("host_reads")
+            return total.item()  # the one host sync of an epoch
 
     history = []
     while done < cfg.epoch:

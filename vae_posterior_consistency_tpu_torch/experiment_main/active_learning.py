@@ -36,7 +36,8 @@ JAX package does. `-mesh` resolves per record
 (`config.resolve_mesh`): on a mesh every path's test rows are dp-sharded
 (`engine/active_learning`'s `mesh`), its line tagged with it, and rank 0
 alone prints and writes (run one process a device under torchrun, as
-`experiment_main/imputation`); `-profile DIR` traces the run.
+`experiment_main/imputation`); `-profile DIR` traces the run, with the
+program's own spans (`utils/tracing`).
 `-checkpoint_every`, `-resume` and `-early_stop` are accepted and ignored,
 as in the JAX package: nothing trains here.
 """

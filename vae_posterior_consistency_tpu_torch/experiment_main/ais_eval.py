@@ -24,7 +24,7 @@ as in the JAX package. `-ensemble` is accepted and ignored.
 
 The run uses the card (`-device cuda`, the default; it raises without
 CUDA) or, with `-device cpu`, the CPU. `-profile DIR` traces the
-estimates (`config.maybe_profile`). `-mesh` resolves as in the JAX package
+estimates, with the program's own spans (`config.maybe_profile`). `-mesh` resolves as in the JAX package
 (`config.resolve_mesh`): on a mesh the chains of every estimate, the
 seeds' and BDMC's too, are dp-sharded (`engine/ais`'s `mesh`), announced
 by `mesh={...}: AIS chains dp-sharded`, and rank 0 alone prints and

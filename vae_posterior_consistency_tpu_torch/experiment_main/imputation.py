@@ -24,8 +24,8 @@ record of the grid runs: the gauss, flow, MIWAE and notMIWAE families, in
 float32 or, for a record whose `compute_dtype` is 'bfloat16', with bf16
 dense products (`models/registry.get_model`). `-checkpoint_every N`,
 `-resume true` and `-early_stop true` (patience `-patience` checks, one
-each 200 epochs) reach `train` as in the JAX package. `-profile DIR` traces the whole run with torch.profiler
-(`config.maybe_profile`); VPC_DEBUG_NANS=1 turns on the NaN tripwire
+each 200 epochs) reach `train` as in the JAX package. `-profile DIR` traces the whole run with torch.profiler,
+the program's own spans on its timeline (`config.maybe_profile`); VPC_DEBUG_NANS=1 turns on the NaN tripwire
 (`utils/debugging.enable_nan_debugging`) and VPC_PLATFORM=cpu|cuda sets
 the default of `-device` (`start_up`, which every entry point calls
 first).

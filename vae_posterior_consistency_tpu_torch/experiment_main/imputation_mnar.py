@@ -24,7 +24,8 @@ and prints the RMSE and the wall-clock of both.
 The run uses the card (`-device cuda`, the default; it raises without CUDA)
 or, with `-device cpu`, the CPU (`imputation.open_grid`, as the MCAR entry
 point). `-checkpoint_every`, `-resume` and `-early_stop` reach `train` as
-in the JAX package, `-profile DIR` traces the run (`config.maybe_profile`).
+in the JAX package, `-profile DIR` traces the run, with the
+program's own spans (`config.maybe_profile`).
 `-mesh` resolves per record (`config.resolve_mesh`): with a mesh the
 record trains with `parallel/train_parallel.train_sharded` (under torchrun
 for more than one device, as `experiment_main/imputation`), its train line

@@ -39,6 +39,7 @@ from vae_posterior_consistency_tpu_torch.ops.fused_posterior import (
     logical_dim,
     unfold_replicas,
 )
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 #: values of k one forward block takes (csrc/embed_pool.cu `kChunkK`)
 CHUNK_K = 16
@@ -314,8 +315,10 @@ def embed_pool(x, masks, A, C):
 
     CPU tensors: the plain versions. CUDA tensors: the kernels, each launch
     counted (`embed_pool.launches` forward, `embed_pool_bwd.launches`
-    backward)."""
-    return EmbedPool.apply(x, masks, A, C)
+    backward). The host's side of the forward (checks, layout, allocation,
+    launch) is the span `ops.embed_pool` (`utils/tracing`)."""
+    with tracing.span("ops.embed_pool"):
+        return EmbedPool.apply(x, masks, A, C)
 
 
 embed_pool.launches = 0

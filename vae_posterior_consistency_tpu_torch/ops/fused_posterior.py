@@ -37,6 +37,7 @@ import functools
 import torch
 
 from vae_posterior_consistency_tpu_torch.ops import _build
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 
 def fused_posterior_reference(mean_q, logvar_q, mean_p, logvar_p, eps_q,
@@ -269,9 +270,11 @@ def fused_posterior(mean_q, logvar_q, mean_p, logvar_p, eps_q, eps_p):
 
     CPU tensors: the plain versions. CUDA tensors: the kernels, counted in
     `fused_posterior.launches` (forward) and `fused_posterior.bwd_launches`
-    (backward)."""
-    z_q, z_p, kl = FusedPosterior.apply(mean_q, logvar_q, mean_p, logvar_p,
-                                        eps_q, eps_p)
+    (backward). The host's side of the forward is the span
+    `ops.fused_posterior` (`utils/tracing`)."""
+    with tracing.span("ops.fused_posterior"):
+        z_q, z_p, kl = FusedPosterior.apply(mean_q, logvar_q, mean_p,
+                                            logvar_p, eps_q, eps_p)
     kl_q, kl_p, kl_reg = kl.unbind(-1)
     return z_q, z_p, kl_q, kl_p, kl_reg
 
