@@ -13,11 +13,26 @@ negl_imp over its valid rows; padded rows weigh 0. The metrics are the mean
 over the batches of a rep, then the mean over the reps, in that order.
 
 The JAX package fuses this into one program; here the batches run one by
-one, eagerly, with every statistic kept on the device and read once a
-split. The sharded evaluator comes with the multi-device slice. Under a
-torch profiler a call records the spans `eval_vae` (its root),
-`eval.split`, `eval.batch`, `eval.draw`, `model.eval_step`, `eval.stats`
-and `eval.readback`, and one `host_reads` a split (`utils/tracing`).
+one, with every statistic kept on the device and read once a split. On the
+CPU each batch runs eagerly. On a CUDA device a split of at least
+`_GRAPH_MIN_STEPS` batches (reps x batches a rep) replays one captured CUDA
+graph of `_batch_stats` (the model's `eval_step` and the four statistics)
+for each batch: the call's first such batch runs eagerly on the capture
+stream (the warm-up, its result kept), is then captured from static input
+buffers, and every later batch of the same shapes copies its rows and draws
+into those buffers and replays the graph; the draws are made as before,
+once a batch and in the same order. Both splits share a graph where their
+batches have the same shapes. The graphs and their memory pools are
+released when `eval_vae` returns. Every batch computes what it computes
+eagerly, with the same kernels in the same order.
+
+The sharded evaluator comes with the multi-device slice. Under a torch
+profiler a call records the spans `eval_vae` (its root), `eval.split`,
+`eval.batch`, `eval.draw`, `model.eval_step` (a replay's copies in and
+the replay, with `graph=1`), `eval.stats` (a replay's copy out),
+`eval.capture` and `eval.readback`, one `host_reads` a split, and the
+counters `eval_eager_batches`, `eval_graph_captures` and
+`eval_graph_replays` (`utils/tracing`).
 
 It serves every family. Those whose `eval_kind` is 'miwae' (MIWAE and
 notMIWAE) evaluate with cfg.valid_k importance samples a row and save only
@@ -95,6 +110,17 @@ METRICS = ("rmse", "loss", "negl", "negl_imp")
 #: 6 GiB at the MIWAE families' peak on the card)
 ENS_EVAL_ROW_BUDGET = 1 << 21
 
+#: batches a split runs (reps x batches a rep) from which a CUDA device
+#: replays a captured graph of each batch rather than dispatching it: the
+#: break-even on an H100 at the MNIST width, where the warm-up and the
+#: capture cost about 4.1 ms against 1.3 ms an eager batch and 0.2 ms a
+#: replayed one (PERF.md §6)
+_GRAPH_MIN_STEPS = 5
+
+#: {device index: the stream graphs are captured on}, kept so that cuBLAS
+#: makes one workspace for it
+_CAPTURE_STREAMS: dict = {}
+
 
 def _pad_batches(n: int, bsz: int):
     steps = math.ceil(n / bsz)
@@ -129,14 +155,80 @@ def _batch_stats(model, cfg: RunConfig, params, x_b, m_b, mask_p, eps, w_b):
         ])
 
 
-def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
-    """One split over cfg.M reps -> {metric: float}; one host sync."""
+def _use_graph(device: torch.device, batches: int) -> bool:
+    """Whether a split of `batches` batches replays a captured graph: on a
+    CUDA device, from `_GRAPH_MIN_STEPS` batches, and while no dispatch
+    mode is pushed (a mode such as the NaN tripwire of `utils/debugging`
+    sees each operator as it runs, which a replay does not dispatch, and
+    reads its output back, which a capture forbids)."""
+    return (device.type == "cuda" and batches >= _GRAPH_MIN_STEPS
+            and torch._C._len_torch_dispatch_stack() == 0)
+
+
+def _capture_stream(device: torch.device):
+    index = torch.cuda._get_device_index(device, optional=True)
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+class _BatchGraph:
+    """`_batch_stats` captured once from static copies of one batch's
+    inputs (x_b, m_b, mask_p or None, eps, w_b), replayed for each batch
+    of their shapes."""
+
+    def __init__(self, model, cfg: RunConfig, params, inputs, into):
+        """Runs the batch `inputs` eagerly into `into` on the capture
+        stream (the warm-up), then captures it."""
+        current = torch.cuda.current_stream(inputs[0].device)
+        side = _capture_stream(inputs[0].device)
+        self.inputs = [None if t is None else torch.empty_like(t)
+                       for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            # looked up at each call: a `_batch_stats` patched on the module
+            # is the one run and captured
+            into.copy_(_batch_stats(model, cfg, params, *inputs))
+            tracing.count("eval_eager_batches")
+            with tracing.span("eval.capture"):
+                self.graph.capture_begin()
+                try:
+                    self.out = _batch_stats(model, cfg, params, *self.inputs)
+                finally:
+                    self.graph.capture_end()
+                tracing.count("eval_graph_captures")
+        current.wait_stream(side)
+
+    def replay(self, inputs, into):
+        """`_batch_stats` of `inputs` into `into`."""
+        with tracing.span("model.eval_step", graph=1):
+            for static, t in zip(self.inputs, inputs):
+                if static is not None:
+                    static.copy_(t)
+            self.graph.replay()
+            tracing.count("eval_graph_replays")
+        with tracing.span("eval.stats"):
+            into.copy_(self.out)
+
+
+def _shapes(inputs) -> tuple:
+    return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                 for t in inputs)
+
+
+def _split_metrics(model, cfg: RunConfig, params, x, mask, noise,
+                   graphs: dict) -> dict:
+    """One split over cfg.M reps -> {metric: float}; one host sync.
+    `graphs` ({input shapes: `_BatchGraph`}) holds the call's captured
+    batches, which the other split shares."""
     device = x.device
     n = x.shape[0]
     bsz = min(cfg.batch_size, n)
     steps, pad = _pad_batches(n, bsz)
     valid = (torch.arange(steps * bsz, device=device) < n).to(torch.float32)
-    per_batch = []
+    stats = torch.empty((cfg.M * steps, len(METRICS)), device=device)
+    graphed = _use_graph(device, cfg.M * steps)
     for m in range(cfg.M):
         perm = noise("perm", m, 0, (n,)).to(device)
         if pad:
@@ -147,10 +239,18 @@ def _split_metrics(model, cfg: RunConfig, params, x, mask, noise) -> dict:
                 rows = slice(s * bsz, (s + 1) * bsz)
                 x_b, m_b, w_b = x_rep[rows], m_rep[rows], valid[rows]
                 mask_p, eps = _draw(model, cfg, noise, m, s, x_b, m_b)
-                per_batch.append(_batch_stats(model, cfg, params, x_b, m_b,
-                                              mask_p, eps, w_b))
+                inputs = (x_b, m_b, mask_p, eps, w_b)
+                into = stats[m * steps + s]
+                if not graphed:
+                    into.copy_(_batch_stats(model, cfg, params, *inputs))
+                    tracing.count("eval_eager_batches")
+                elif (key := _shapes(inputs)) in graphs:
+                    graphs[key].replay(inputs, into)
+                else:
+                    graphs[key] = _BatchGraph(model, cfg, params, inputs,
+                                              into)
     with tracing.span("eval.readback"):
-        stats = torch.stack(per_batch).reshape(cfg.M, steps, len(METRICS))
+        stats = stats.reshape(cfg.M, steps, len(METRICS))
         agg = stats.mean(dim=1).mean(dim=0).tolist()  # the one host sync
         tracing.count("host_reads")
     # in sorted key order, as JAX's tree_map returns the dict: the order of
@@ -189,21 +289,29 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
     params = checkpoint.on_device(params, device)
 
     results = {}
-    with torch.no_grad(), tracing.span("eval_vae"):
-        for split in (dataset.train, dataset.test):
-            if split is None:
-                continue
-            with tracing.span("eval.split"):
-                src = (GeneratorNoise(cfg.seed + 1, device) if noise is None
-                       else noise)
-                agg = _split_metrics(
-                    model, cfg, params,
-                    split.x.to(device=device, dtype=torch.float32),
-                    split.mask.to(device=device, dtype=torch.float32), src)
-                results[split.stage] = agg
-                if save:
-                    _save_eval_artifacts(cfg, model, split.stage, agg,
-                                         experiments_root)
+    graphs = {}  # the splits' captured batches, shared where shapes agree
+    try:
+        with torch.no_grad(), tracing.span("eval_vae"):
+            for split in (dataset.train, dataset.test):
+                if split is None:
+                    continue
+                with tracing.span("eval.split"):
+                    src = (GeneratorNoise(cfg.seed + 1, device)
+                           if noise is None else noise)
+                    agg = _split_metrics(
+                        model, cfg, params,
+                        split.x.to(device=device, dtype=torch.float32),
+                        split.mask.to(device=device, dtype=torch.float32),
+                        src, graphs)
+                    results[split.stage] = agg
+                    if save:
+                        _save_eval_artifacts(cfg, model, split.stage, agg,
+                                             experiments_root)
+    finally:
+        if graphs:
+            # replays may still be queued where a split raised
+            torch.cuda.current_stream(device).synchronize()
+            graphs.clear()  # the graphs, their pools and static buffers
     return results
 
 
