@@ -1,0 +1,12 @@
+"""The decoder's share of the card's busy time, in percent: the device
+operations launched while `miwae.decode` was the innermost program span
+(the reparameterised z and the Student-t decoder's dense layers over B x K
+samples, `models/miwae.forward`), over the card's busy time in the traced
+window (`harness/launch_spans`). Nothing where the program records no such
+span."""
+
+from harness import launch_spans
+
+
+def read(name, ctx):
+    return launch_spans.busy_share_pct(ctx, "miwae.decode")

@@ -3,9 +3,11 @@ torch profiler records; nesting, parents and one root a request under one;
 thread-local stacks; counter events; the cap; one clock with the
 profiler's events; the spans merged into `profile_trace`'s Chrome trace
 (and an entry point's `-profile DIR`); and the spans and counters of the
-evaluator, the server, the trainer and the AL engine on the CPU."""
+evaluator, the server, the trainer, the AL engine and the MIWAE model on
+the CPU."""
 
 import collections
+import contextlib
 import json
 import os
 import shutil
@@ -25,7 +27,7 @@ from vae_posterior_consistency_tpu_torch.engine import (
     train,
 )
 from vae_posterior_consistency_tpu_torch.experiment_main import imputation
-from vae_posterior_consistency_tpu_torch.models import get_model
+from vae_posterior_consistency_tpu_torch.models import get_model, miwae
 from vae_posterior_consistency_tpu_torch.utils import logging, tracing
 from cli_harness import REPO
 
@@ -328,3 +330,57 @@ def test_ensemble_evaluation_inherits_the_spans(wine):
                 for s in (ds.train, ds.test))
     for name in ("model.eval_step", "eval.stats", "ops.embed_pool"):
         assert len(spans[name]) == cfg.M * steps, name
+
+
+# -- the importance-weighted model's own spans --------------------------------
+
+MIWAE_SPANS = ("miwae.encode", "miwae.decode", "miwae.likelihood",
+               "miwae.weights")
+
+
+class _NoTracing:
+    """`utils/tracing` with every site removed: what a program without the
+    model's spans computes."""
+
+    @staticmethod
+    def span(name, **attrs):
+        return contextlib.nullcontext()
+
+    @staticmethod
+    def count(name, n=1):
+        pass
+
+
+@pytest.mark.parametrize("vae_type,branches", [("vanilla_MIWAE1", 1),
+                                               ("reg_MIWAE1", 2)])
+def test_miwae_spans_nest_in_the_model_step(vae_type, branches, monkeypatch):
+    """A profiled `eval_vae` of a MIWAE type records the model's four spans
+    inside each `model.eval_step` and `iw_samples` = rows x K decoded (both
+    branches of a regularized type); unprofiled it records nothing, and the
+    results are bit-equal to those of the model without its spans."""
+    cfg = RunConfig(vae_type=vae_type, valid_k=16, M=1)
+    ds = loaders.data_loader(os.path.join(REPO, "Data"), cfg.vae_type, 50,
+                             64, "wine", device="cpu")
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 ds.obs_dim, device="cpu")
+    off = evaluate.eval_vae(ds, cfg, params=params, save=False, device="cpu")
+    assert tracing.spans() == []
+    with profiler():
+        on = evaluate.eval_vae(ds, cfg, params=params, save=False,
+                               device="cpu")
+    recs = tracing.take()
+    spans = by_name(recs)
+    steps = [min(cfg.batch_size, s.n) for s in (ds.train, ds.test)
+             for _ in range(-(-s.n // min(cfg.batch_size, s.n)))]
+    model = {s.id for s in spans["model.eval_step"]}
+    assert len(model) == len(steps)
+    for name in MIWAE_SPANS:
+        assert len(spans[name]) == len(steps), name
+        assert {s.parent for s in spans[name]} == model, name
+    samples = by_name(recs, tracing.Count)["iw_samples"]
+    assert {c.parent for c in samples} == model
+    assert sum(c.n for c in samples) == branches * sum(steps) * cfg.valid_k
+    monkeypatch.setattr(miwae, "tracing", _NoTracing)
+    plain = evaluate.eval_vae(ds, cfg, params=params, save=False,
+                              device="cpu")
+    assert off == on == plain  # the same floats, bit for bit

@@ -21,6 +21,13 @@ row 1 the p branch) for a regularized type's, which runs both branches as
 one stacked [2B] stream through the encoder and the decoder. K is the
 noise's sample axis: cfg.train_k in training and cfg.valid_k in
 evaluation, as `train_noise` and `eval_noise` give the engine.
+
+Under a torch profiler the importance-weighted path records the spans
+`miwae.encode` (the encoder), `miwae.decode` (the reparameterised z and the
+Student-t decoder over B*K samples), `miwae.likelihood` (the Student-t
+log-density, its masked sums, log p(z) and log q), `miwae.weights` (the
+logsumexp over K, the softmax and the imputation) and the counter
+`iw_samples` (rows x K decoded, once a `forward`) (`utils/tracing`).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from vae_posterior_consistency_tpu_torch.ops.math import (
     std_normal_logpdf,
     student_t_logpdf,
 )
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 #: the reference's hard-coded divisor of a vanilla type's `row_negl`
 #: (src/models/VAE.py:3099)
@@ -88,9 +96,13 @@ def encode(params, x, mask, cfg):
 def forward(params, x, mask, eps, cfg):
     """K importance samples for noise `eps` [B, K, L]; a dict of [B, K, ...]
     tensors and the [B, L] posterior statistics."""
-    mean, scale = encode(params, x, mask, cfg)
-    z = mean[:, None, :] + scale[:, None, :] * eps
-    x_mean, x_scale, df = layers.student_t_decoder_apply(params["decoder"], z)
+    with tracing.span("miwae.encode"):
+        mean, scale = encode(params, x, mask, cfg)
+    with tracing.span("miwae.decode"):
+        z = mean[:, None, :] + scale[:, None, :] * eps
+        x_mean, x_scale, df = layers.student_t_decoder_apply(
+            params["decoder"], z)
+    tracing.count("iw_samples", eps.shape[0] * eps.shape[1])
     return {"mean": mean, "scale": scale, "z": z, "x_mean": x_mean,
             "x_scale": x_scale, "df": df}
 
@@ -98,15 +110,17 @@ def forward(params, x, mask, eps, cfg):
 def _branch_terms(out, x, mask):
     """(logpxobs [B,K], log_w [B,K], logpx_imp [B,K], log p(x|z) [B,K,D])
     for one encoder branch (reference bound terms: VAE.py:3073-3092)."""
-    m = mask[:, None, :]
-    log_pxz = student_t_logpdf(x[:, None, :], out["x_mean"], out["x_scale"],
-                               out["df"])
-    logpxobs = torch.sum(log_pxz * m, dim=-1)
-    logpx_imp = torch.sum(log_pxz * (1.0 - m), dim=-1)
-    logpz = torch.sum(std_normal_logpdf(out["z"]), dim=-1)
-    logq = torch.sum(normal_logpdf_scale(out["z"], out["mean"][:, None, :],
-                                         out["scale"][:, None, :]), dim=-1)
-    return logpxobs, logpxobs + logpz - logq, logpx_imp, log_pxz
+    with tracing.span("miwae.likelihood"):
+        m = mask[:, None, :]
+        log_pxz = student_t_logpdf(x[:, None, :], out["x_mean"],
+                                   out["x_scale"], out["df"])
+        logpxobs = torch.sum(log_pxz * m, dim=-1)
+        logpx_imp = torch.sum(log_pxz * (1.0 - m), dim=-1)
+        logpz = torch.sum(std_normal_logpdf(out["z"]), dim=-1)
+        logq = torch.sum(normal_logpdf_scale(
+            out["z"], out["mean"][:, None, :], out["scale"][:, None, :]),
+            dim=-1)
+        return logpxobs, logpxobs + logpz - logq, logpx_imp, log_pxz
 
 
 def _both_branches(params, x, mask, mask_p, eps, cfg):
@@ -145,12 +159,15 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
     if not cfg.info.regularized:
         out_q = forward(params, x, mask, eps, cfg)
         _, log_w_q, _, _ = _branch_terms(out_q, x, mask)
-        neg_bound_q = _neg_bound(log_w_q)
+        with tracing.span("miwae.weights"):
+            neg_bound_q = _neg_bound(log_w_q)
         return neg_bound_q, {"neg_bound": neg_bound_q}
 
     B = x.shape[0]
     out, log_w, log_pxz = _both_branches(params, x, mask, mask_p, eps, cfg)
-    neg_bound_q, neg_bound_p = _neg_bound(log_w[:B]), _neg_bound(log_w[B:])
+    with tracing.span("miwae.weights"):
+        neg_bound_q = _neg_bound(log_w[:B])
+        neg_bound_p = _neg_bound(log_w[B:])
     row_reg_like, row_kl_reg = _reg_terms(out, log_pxz, mask, mask_p, B)
     # the means over all elements: rows of equal length, so the mean of the
     # row means
@@ -171,18 +188,20 @@ def eval_step(params, x, mask, mask_p, eps, cfg):
     if not cfg.info.regularized:
         out_q = forward(params, x, mask, eps, cfg)
         _, log_w_q, logpx_imp, _ = _branch_terms(out_q, x, mask)
-        xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w_q, dim=1),
-                          out_q["x_mean"])
+        with tracing.span("miwae.weights"):
+            xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w_q, dim=1),
+                              out_q["x_mean"])
+            row_loss = -torch.logsumexp(log_w_q, dim=1)
         row_negl = torch.sum(logpx_imp, dim=1) / NEGL_DIVISOR
-        return {"x_imputed": xm,
-                "row_loss": -torch.logsumexp(log_w_q, dim=1),
+        return {"x_imputed": xm, "row_loss": row_loss,
                 "row_negl": row_negl, "row_negl_imp": row_negl}
 
     out, log_w, log_pxz = _both_branches(params, x, mask, mask_p, eps, cfg)
-    xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w[:B], dim=1),
-                      out["x_mean"][:B])
-    row_neg_bound_q = -torch.logsumexp(log_w[:B], dim=1)
-    row_neg_bound_p = -torch.logsumexp(log_w[B:], dim=1)
+    with tracing.span("miwae.weights"):
+        xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w[:B], dim=1),
+                          out["x_mean"][:B])
+        row_neg_bound_q = -torch.logsumexp(log_w[:B], dim=1)
+        row_neg_bound_p = -torch.logsumexp(log_w[B:], dim=1)
     row_reg_like, row_kl_reg = _reg_terms(out, log_pxz, mask, mask_p, B)
     row_loss = row_neg_bound_q + cfg.alpha * (
         row_kl_reg - row_neg_bound_q + row_neg_bound_p - row_reg_like)
