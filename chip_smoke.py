@@ -489,6 +489,22 @@ BF16_PROFILE_STEPS = 10
 #: wine table (178 rows, 3 steps an epoch at batch 64)
 CSV_TYPES = ("reg_vae1", "reg_EDDI1")
 CSV_EPOCHS = 20
+#: IW1 against its plain version on the card (tests/test_torch_iw_fused.py's
+#: limits): both compute in float32 from the same inputs and differ only in
+#: the order of their sums, so x_mean (in [0, 1]) lies within
+#: IW1_X_MEAN_ATOL and each per-sample sum within IW1_TERMS_RTOL of its size
+#: or IW1_TERMS_ATOL near zero
+IW1_X_MEAN_ATOL = 2e-6
+IW1_TERMS_RTOL = 2e-5
+IW1_TERMS_ATOL = 5e-5
+
+
+def runs_iw1(cfg) -> bool:
+    """Whether `cfg`'s evaluation launches IW1: a MIWAE type (notMIWAE has
+    its own path) computing in float32, as models/miwae chooses it; once an
+    `eval_step` without gradients."""
+    return ("MIWAE" in cfg.vae_type and "notMIWAE" not in cfg.vae_type
+            and cfg.compute_dtype == "float32")
 
 
 @contextlib.contextmanager
@@ -561,6 +577,18 @@ def fused_posterior_bwd_bound_ms(B, L, eps=False):
     and 14 for the logvars' gradients), 1 more for each eps gradient."""
     n_out = 6 if eps else 4
     return _bound(4 * ((8 + n_out) * B * L + 3), (46 if eps else 44) * B * L)
+
+
+def iw_fused_bound_ms(B, K, D, L):
+    """IW1: 2 (L*128 + 128*128 + 128*3D) FLOP of dense products a sample
+    (the density's elementwise work not counted); reads eps and writes
+    x_mean and four sums a sample, reads x, mask, mean, scale a row and the
+    decoder once."""
+    n = B * K
+    ops = 2 * n * (L * 128 + 128 * 128 + 128 * 3 * D)
+    nbytes = 4 * (n * (L + D + 4) + B * (2 * D + 2 * L)
+                  + L * 128 + 128 * 128 + 128 * 3 * D + 256 + 3 * D)
+    return _bound(nbytes, ops)
 
 
 def fused_posterior_replicas_bound_ms(R, B, L, shared_eps=True):
@@ -799,22 +827,29 @@ def main() -> int:
     )
     from vae_posterior_consistency_tpu_torch.engine import profile_train
     from vae_posterior_consistency_tpu_torch.engine import train as trainer
-    from vae_posterior_consistency_tpu_torch.models import get_model, layers
+    from vae_posterior_consistency_tpu_torch.models import (
+        get_model,
+        layers,
+        miwae,
+    )
     from vae_posterior_consistency_tpu_torch.ops import _build
     from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
     from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
+    from vae_posterior_consistency_tpu_torch.ops import fused_iw as fiw
 
     def reset_counts():
         fep.embed_pool.launches = 0
         fep.embed_pool_bwd.launches = 0
         fp.fused_posterior.launches = 0
         fp.fused_posterior.bwd_launches = 0
+        fiw.iw_fused.launches = 0
 
     def counts():
         return {"embed_pool_fwd": fep.embed_pool.launches,
                 "embed_pool_bwd": fep.embed_pool_bwd.launches,
                 "fused_posterior_fwd": fp.fused_posterior.launches,
-                "fused_posterior_bwd": fp.fused_posterior.bwd_launches}
+                "fused_posterior_bwd": fp.fused_posterior.bwd_launches,
+                "iw_fused": fiw.iw_fused.launches}
 
     @contextlib.contextmanager
     def no_plain_on_card():
@@ -825,7 +860,8 @@ def main() -> int:
         for mod, name in ((fep, "embed_pool_reference"),
                           (fep, "embed_pool_bwd_reference"),
                           (fp, "fused_posterior_reference"),
-                          (fp, "fused_posterior_backward")):
+                          (fp, "fused_posterior_backward"),
+                          (fiw, "iw_fused_reference")):
             plain = getattr(mod, name)
 
             def guarded(*args, _plain=plain, _name=name):
@@ -1103,7 +1139,7 @@ def main() -> int:
               f"{serve_counts}", flush=True)
         if serve_counts != {"embed_pool_fwd": len(REQUEST_ROWS),
                             "embed_pool_bwd": 0, "fused_posterior_fwd": 0,
-                            "fused_posterior_bwd": 0}:
+                            "fused_posterior_bwd": 0, "iw_fused": 0}:
             raise AssertionError(f"serving {len(REQUEST_ROWS)} requests "
                                  f"launched {serve_counts}")
 
@@ -1259,7 +1295,7 @@ def main() -> int:
                                           device="cuda")
         step_counts = first_step_card_vs_cpu(
             train_cfg, mnist.train.x[:64], mnist.train.mask[:64], 784)
-        if step_counts != {k: 1 for k in step_counts}:
+        if step_counts != {**{k: 1 for k in step_counts}, "iw_fused": 0}:
             raise AssertionError(f"one step launched {step_counts}")
 
     with tempfile.TemporaryDirectory() as ckpt_root:
@@ -1278,7 +1314,8 @@ def main() -> int:
             n_steps = MNIST_EPOCHS * steps_per_epoch
             print(f"{mnist.train.n} rows, {n_steps} steps in {mnist_s:.3f} s; "
                   f"launches {mnist_counts}", flush=True)
-            if mnist_counts != {k: n_steps for k in mnist_counts}:
+            if mnist_counts != {**{k: n_steps for k in mnist_counts},
+                                "iw_fused": 0}:
                 raise AssertionError(f"{n_steps} steps launched "
                                      f"{mnist_counts}")
             means = [h / steps_per_epoch for h in hist]
@@ -1328,7 +1365,7 @@ def main() -> int:
               f"launches {wine_counts}", flush=True)
         if wine_counts != {"embed_pool_fwd": 0, "embed_pool_bwd": 0,
                            "fused_posterior_fwd": n_steps,
-                           "fused_posterior_bwd": n_steps}:
+                           "fused_posterior_bwd": n_steps, "iw_fused": 0}:
             raise AssertionError(f"{n_steps} steps launched {wine_counts}")
         means = [h / wine_steps for h in wine_hist]
         print(f"mean loss, first and last epoch: {means[0]:.6f} -> "
@@ -1343,7 +1380,8 @@ def main() -> int:
     flow_cfg = RunConfig(vae_type="reg_flow1", missing_rate=30, seed=SEED,
                          epoch=WINE_EPOCHS, batch_size=64)
     no_kernel = {k: 0 for k in ("embed_pool_fwd", "embed_pool_bwd",
-                                "fused_posterior_fwd", "fused_posterior_bwd")}
+                                "fused_posterior_fwd", "fused_posterior_bwd",
+                                "iw_fused")}
     with phase(f"training {flow_cfg.vae_type} / {flow_cfg.reg_type} on "
                f"{flow_cfg.data_type} (a): first step, card vs CPU"):
         flow_data = loaders.data_loader(str(REPO / "Data"),
@@ -1416,7 +1454,7 @@ def main() -> int:
         if drop_counts != {"embed_pool_fwd": n_steps,
                            "embed_pool_bwd": n_steps,
                            "fused_posterior_fwd": 0,
-                           "fused_posterior_bwd": 0}:
+                           "fused_posterior_bwd": 0, "iw_fused": 0}:
             raise AssertionError(f"{n_steps} steps launched {drop_counts}")
         if drawn[("drop", "cuda")] != n_steps or any(
                 dev != "cuda" for _, dev in drawn):
@@ -1570,18 +1608,25 @@ def main() -> int:
                "M=1"):
         n_batches = eval_cfg.M * sum(-(-sp.n // 64)
                                      for sp in (mnist.train, mnist.test))
-        # both splits replay one captured graph of a 64-row batch: the host
-        # launches B2f twice (the warm-up batch and the capture), the
-        # graph once in each other batch
-        graphed = all(evaluate._use_graph(torch.device("cuda"),
-                                          eval_cfg.M * -(-sp.n // 64))
-                      for sp in (mnist.train, mnist.test))
+        # a split of at least _GRAPH_MIN_STEPS batches replays one captured
+        # graph of its batch shape, which the splits share: the host
+        # launches B2f twice for each shape (the warm-up batch and the
+        # capture) and the graph once in each other batch; a shorter split
+        # launches B2f once a batch
+        want_b2f, captured = 0, set()
+        for sp in (mnist.train, mnist.test):
+            steps = eval_cfg.M * -(-sp.n // 64)
+            if not evaluate._use_graph(torch.device("cuda"), steps):
+                want_b2f += steps
+            elif min(64, sp.n) not in captured:
+                captured.add(min(64, sp.n))
+                want_b2f += 2
         cpu_ref = checkpoint.load_reference(path, eval_cfg, 784, device="cpu")
         mnist_eval, mnist_eval_counts = eval_card_vs_cpu(
             "MNIST reg_EDDI1 eval", mnist, eval_cfg, params, cpu_ref,
-            {"embed_pool_fwd": 2 if graphed else n_batches,
-             "embed_pool_bwd": 0, "fused_posterior_fwd": 0,
-             "fused_posterior_bwd": 0})
+            {"embed_pool_fwd": want_b2f, "embed_pool_bwd": 0,
+             "fused_posterior_fwd": 0, "fused_posterior_bwd": 0,
+             "iw_fused": 0})
         committed = float(torch.load(
             artifacts.eval_vae_paths(eval_cfg, "test",
                                      str(REPO / "experiments"))["rmse"],
@@ -1604,7 +1649,8 @@ def main() -> int:
             "wine reg_vae1 eval", wine, wine_eval_cfg, wine_params,
             checkpoint.unflatten(cpu_wine),
             {k: 0 for k in ("embed_pool_fwd", "embed_pool_bwd",
-                            "fused_posterior_fwd", "fused_posterior_bwd")})
+                            "fused_posterior_fwd", "fused_posterior_bwd",
+                            "iw_fused")})
 
     with phase("evaluation (c): wall-clock per split, device operations"):
         eval_times = {}
@@ -1668,9 +1714,13 @@ def main() -> int:
         cpu_miwae = checkpoint.unflatten(
             {k: v.cpu() for k, v in checkpoint.flatten(miwae_params).items()})
         test_only = loaders.Dataset(None, miwae_data.test, miwae_data.obs_dim)
+        # IW1 once a batch (both branches are one stacked stream), counted
+        # from 0: eval_card_vs_cpu resets the counts just before
+        iw_launches = miwae_cfg.M * -(-miwae_data.test.n // min(
+            64, miwae_data.test.n))
         eval_card_vs_cpu(f"{miwae_cfg.vae_type} eval, the test split",
                          test_only, miwae_cfg, miwae_params, cpu_miwae,
-                         no_kernel)
+                         {**no_kernel, "iw_fused": iw_launches})
         secs = split_seconds(miwae_data, miwae_cfg, miwae_params)
         steps = {sp.stage: -(-sp.n // min(64, sp.n))
                  for sp in (miwae_data.train, miwae_data.test)}
@@ -1872,6 +1922,51 @@ def main() -> int:
             raise AssertionError(f"the graph count gives B1's plain backward "
                                  f"{n_plain} device operations")
 
+        # IW1 as an evaluation batch of record 4 (vanilla_MIWAE1, valid_k
+        # 5000) launches it: a stream of 64 rows, then the 17-row test batch,
+        # on the parameters of phase 7 (d); each held against its plain
+        # version on the same inputs first
+        iw_cfg = miwae_cfg.replace(vae_type="vanilla_MIWAE1")
+        iw_err = {}
+        for Bi in (64, 17):
+            xi = miwae_data.train.x[:Bi]
+            mi = miwae_data.train.mask[:Bi]
+            ei = torch.randn(Bi, iw_cfg.valid_k, LATENT, device="cuda",
+                             generator=gen)
+            with torch.no_grad():
+                mean_i, scale_i = miwae.encode(miwae_params, xi, mi, iw_cfg)
+                dec = miwae_params["decoder"]
+                leaves = fiw.decoder_leaves(dec)
+                got_x, got_t = fiw.iw_fused(xi, mi, None, mean_i, scale_i, ei,
+                                            dec)
+                want_x, want_t = fiw.iw_fused_reference(
+                    xi, mi, None, mean_i, scale_i, ei, *leaves)
+                gap_x = (got_x - want_x).abs().max().item()
+                gap_t = (got_t - want_t).abs().max().item()
+                rel_t = ((got_t - want_t).abs()
+                         / (want_t.abs() + 1.0)).max().item()
+                iw_err[Bi] = max(gap_x, gap_t)
+                print(f"IW1 iw_fused [{Bi}, {iw_cfg.valid_k}] against its "
+                      f"plain version: max abs diff x_mean {gap_x:.3e}, "
+                      f"terms {gap_t:.3e} (relative {rel_t:.3e})",
+                      flush=True)
+                torch.testing.assert_close(got_x, want_x, rtol=0,
+                                           atol=IW1_X_MEAN_ATOL)
+                torch.testing.assert_close(got_t, want_t,
+                                           rtol=IW1_TERMS_RTOL,
+                                           atol=IW1_TERMS_ATOL)
+                times[f"iw_fused_{Bi}"] = timed(
+                    f"IW1 iw_fused [{Bi}, {iw_cfg.valid_k}], D={WINE_D}, "
+                    f"L={LATENT} (record 4's evaluation batch)",
+                    lambda: fiw.iw_fused(xi, mi, None, mean_i, scale_i, ei,
+                                         dec),
+                    lambda: fiw.iw_fused_reference(xi, mi, None, mean_i,
+                                                   scale_i, ei, *leaves),
+                    iw_fused_bound_ms(Bi, iw_cfg.valid_k, WINE_D, LATENT))
+            if times[f"iw_fused_{Bi}"][4] != 1:
+                raise AssertionError(f"IW1 [{Bi}]: {times[f'iw_fused_{Bi}'][4]}"
+                                     " device operations a call, not 1")
+
         timed_srv = serve.ImputationServer(params, cfg, 784,
                                            device="cuda").warmup()
         for n, bucket in ((64, 64), (179, 512)):
@@ -1931,8 +2026,12 @@ def main() -> int:
                 outs = [srv.impute(wx[:n], wm[:n]) for n in SERVE_B_BUCKETS]
             launched = counts()
             peak = torch.cuda.max_memory_allocated()
-            if launched != no_kernel:
-                raise AssertionError(f"serving {label} launched {launched}")
+            # IW1 once a request for the MIWAE types
+            want = {**no_kernel, "iw_fused": len(SERVE_B_BUCKETS)
+                    if runs_iw1(scfg) else 0}
+            if launched != want:
+                raise AssertionError(f"serving {label} launched {launched}, "
+                                     f"want {want}")
             replay = iter([t.cpu() for t in kept])
             cpu_srv = serve.ImputationServer(
                 cpu_p, scfg, WINE_D, buckets=SERVE_B_BUCKETS, device="cpu",
@@ -2174,7 +2273,12 @@ def main() -> int:
                 ep = al.run_episode(model, card_p, acfg, x, noise)
             launched = counts()
             want_b2f = 1 + 6 * (D - 1) if "EDDI" in acfg.vae_type else 0
-            if launched != {**no_kernel, "embed_pool_fwd": want_b2f}:
+            # IW1 once an imputation sample of each completion: the
+            # empty-mask predictive MSE's, then each step's imputations and
+            # predictive MSE after the reveal, M (1 + 2 (D-1))
+            want_iw = acfg.M * (1 + 2 * (D - 1)) if runs_iw1(acfg) else 0
+            if launched != {**no_kernel, "embed_pool_fwd": want_b2f,
+                            "iw_fused": want_iw}:
                 raise AssertionError(f"the {acfg.vae_type} episode launched "
                                      f"{launched}")
 
@@ -2265,8 +2369,11 @@ def main() -> int:
                 # candidate posteriors over the M x (D-1) stack, and the
                 # predictive MSE after the reveal: 1 + 6 (D-1)
                 eddi = "EDDI" in acfg.vae_type
+                # IW1, a MIWAE episode: M (1 + 2 (D-1)), as in (a)
                 want = {**no_kernel,
-                        "embed_pool_fwd": 1 + 6 * (D - 1) if eddi else 0}
+                        "embed_pool_fwd": 1 + 6 * (D - 1) if eddi else 0,
+                        "iw_fused": acfg.M * (1 + 2 * (D - 1))
+                        if runs_iw1(acfg) else 0}
                 if r["counts"] != want:
                     raise AssertionError(f"the {acfg.vae_type} episode "
                                          f"launched {r['counts']}, want "
@@ -2841,6 +2948,25 @@ def main() -> int:
         # launches on the completeness phase's serving (a) and CSV
         # imputer (b) runs
         k["completeness_launches"] = completeness_launches[k["name"]]
+    # IW1 replaces no Pallas kernel (the JAX package computes MIWAE in jnp):
+    # its error against its plain version and its times at the evaluation
+    # batches of record 4, its launches on the MIWAE evaluation (e), and on
+    # the MIWAE training (d), the AL grid (b), the AIS phases and the bf16
+    # training run, each asserted where it ran
+    for Bi in (64, 17):
+        k_ms, p_ms, b_ms, b_by, n_ops = times[f"iw_fused_{Bi}"]
+        kernels.append({
+            "name": "iw_fused", "route": "cuda",
+            "source": csrc + "iw_decode.cu", "replaces": None,
+            "shape": [Bi, miwae_cfg.valid_k, WINE_D, LATENT],
+            "launches_per_call": n_ops, "max_abs_err": iw_err[Bi],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "eval_launches": iw_launches,
+            "train_launches": miwae_counts["iw_fused"],
+            "al_launches": al_counts["iw_fused"],
+            "ais_launches": ais_counts["iw_fused"],
+            "bf16_launches": bf16_launches["iw_fused"]})
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -3827,7 +3953,7 @@ def mesh_phase(env) -> dict:
                 want_first = {"fused_posterior_fwd": 1,
                               "fused_posterior_bwd": 1,
                               "embed_pool_fwd": int(eddi),
-                              "embed_pool_bwd": int(eddi)}
+                              "embed_pool_bwd": int(eddi), "iw_fused": 0}
                 if first != want_first:
                     raise AssertionError(f"first sharded step launched "
                                          f"{first}, want {want_first}")
@@ -4072,7 +4198,7 @@ def mesh_part2_phase(env) -> dict:
         again_hist, plain_s = plain_run()
         np.testing.assert_array_equal(again_hist, plain_hist)
         steps = MESH_D_EPOCHS * -(-ds.train.n // cfg.batch_size)
-        want = {k: steps for k in launched}
+        want = {**{k: steps for k in launched}, "iw_fused": 0}
         if launched != want or mesh_hist.shape != (MESH_D_SEEDS,
                                                    MESH_D_EPOCHS):
             raise AssertionError(f"mesh seed ensemble: launched {launched}, "
@@ -4111,7 +4237,8 @@ def mesh_part2_phase(env) -> dict:
                     for name, path in artifacts.active_learning_paths(
                         cfg37.replace(M=AL_CHECK_M), root).items()}
         want = {"embed_pool_fwd": 1 + 6 * (WINE_D - 1), "embed_pool_bwd": 0,
-                "fused_posterior_fwd": 0, "fused_posterior_bwd": 0}
+                "fused_posterior_fwd": 0, "fused_posterior_bwd": 0,
+                "iw_fused": 0}
         if launched["1,1"] != want:
             raise AssertionError(f"AL -mesh 1,1 launched {launched['1,1']}, "
                                  f"want {want}")
@@ -4371,7 +4498,8 @@ def mixed_precision_phase(env) -> dict:
               f"({len(bf16_gemms)} bf16): {sorted(set(gemms))} [{card}]",
               flush=True)
 
-    once = {k: 1 for k in counts()}
+    # B1, B2f and B2b once a step; IW1 never (it runs without gradients)
+    once = {**{k: 1 for k in counts()}, "iw_fused": 0}
     with phase("mixed precision (a): first bf16 steps, card vs CPU, and "
                "their GEMMs under torch.profiler"):
         mcfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
@@ -4431,7 +4559,8 @@ def mixed_precision_phase(env) -> dict:
                     if not os.path.isfile(path):
                         raise AssertionError(f"{dtype}: no {path}")
             steps = run["steps"] * BF16_EPOCHS
-            if run["launches"] != {k: steps for k in counts()}:
+            if run["launches"] != {**{k: steps for k in counts()},
+                                   "iw_fused": 0}:
                 raise AssertionError(f"{dtype}: {run['launches']} launches "
                                      f"in {steps} steps")
             hist = run["hist"]
@@ -4517,6 +4646,21 @@ def mixed_precision_phase(env) -> dict:
               f"rewards equal the float32 rewards of its completions bit "
               f"for bit; completions max |bf16 - f32| "
               f"{max_abs(out['im'], f32_im):.3e}", flush=True)
+
+        # the MIWAE evaluation under bf16 keeps the eager composition:
+        # IW1 computes in float32 only
+        bf16_miwae = env["miwae_cfg"].replace(compute_dtype=BF16)
+        reset_counts()
+        with no_plain_on_card():
+            evaluate.eval_vae(loaders.Dataset(None, env["miwae_data"].test,
+                                              env["miwae_data"].obs_dim),
+                              bf16_miwae, params=env["miwae_params"],
+                              save=False, device="cuda")
+        print(f"bf16 eval_vae of {bf16_miwae.vae_type}, the test split: "
+              f"launches {counts()}", flush=True)
+        if counts()["iw_fused"] != 0:
+            raise AssertionError(f"the bf16 MIWAE evaluation launched IW1: "
+                                 f"{counts()}")
 
     with phase("mixed precision (d): the data plane, data/native_io"):
         lib = native_io.library()
@@ -4623,6 +4767,8 @@ def completeness_phase(env) -> dict:
             want_l = dict.fromkeys(launched, 0)
             if D == 784:
                 want_l["embed_pool_fwd"] = len(rows)
+            if runs_iw1(cfg):  # IW1 once a request
+                want_l["iw_fused"] = len(rows)
             if launched != want_l:
                 raise AssertionError(f"{label}: serving launched {launched},"
                                      f" want {want_l}")
@@ -4695,7 +4841,7 @@ def completeness_phase(env) -> dict:
                 want_l = {"embed_pool_fwd": steps + 1 if eddi else 0,
                           "embed_pool_bwd": steps if eddi else 0,
                           "fused_posterior_fwd": steps,
-                          "fused_posterior_bwd": steps}
+                          "fused_posterior_bwd": steps, "iw_fused": 0}
                 if launched != want_l:
                     raise AssertionError(f"impute_csv {vae_type} launched "
                                          f"{launched}, want {want_l}")

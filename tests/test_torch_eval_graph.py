@@ -27,8 +27,9 @@ COUNTERS = ("eval_eager_batches", "eval_graph_captures",
 
 #: the families and widths the card's tests evaluate: gauss EDDI at the
 #: MNIST width and the gauss VAE, a flow, a regularized MIWAE (fresh
-#: mask_p, two eps branches) and a notMIWAE at a small valid_k, and gauss
-#: EDDI in bf16
+#: mask_p, two eps branches) and a notMIWAE at a small valid_k, gauss
+#: EDDI in bf16, and a vanilla MIWAE at the grid's valid_k (IW1 at 320,000
+#: samples a batch)
 CASES = {
     "reg_EDDI1_784": dict(vae_type="reg_EDDI1", data_type="mnist", D=784),
     "reg_vae1": dict(vae_type="reg_vae1", D=13),
@@ -38,6 +39,8 @@ CASES = {
                               D=13),
     "reg_EDDI1_784_bf16": dict(vae_type="reg_EDDI1", data_type="mnist",
                                D=784, compute_dtype="bfloat16"),
+    "vanilla_MIWAE1_k5000": dict(vae_type="vanilla_MIWAE1", valid_k=5000,
+                                 D=13),
 }
 
 

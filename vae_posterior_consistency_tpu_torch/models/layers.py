@@ -21,6 +21,7 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.nn import core
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool
+from vae_posterior_consistency_tpu_torch.ops.math import student_t_head
 
 
 def dense_encoder_init(generator, obs_dim, latent_dim, widths=(100, 50),
@@ -220,11 +221,8 @@ def student_t_decoder_init(generator, obs_dim, latent_dim, device="cuda"):
 
 def student_t_decoder_apply(params, z):
     """(mean, scale, df): a sigmoid mean, softplus + 0.001 scale and
-    softplus + 3 degrees of freedom (reference: VAE.py:3061-3066)."""
-    h = core.mlp_apply(params, z, hidden_act="relu")
-    mean, scale, df = h.chunk(3, dim=-1)
-    softplus = torch.nn.functional.softplus
-    return torch.sigmoid(mean), softplus(scale) + 0.001, softplus(df) + 3.0
+    softplus + 3 degrees of freedom (`ops/math.student_t_head`)."""
+    return student_t_head(core.mlp_apply(params, z, hidden_act="relu"))
 
 
 def flow_decoder_init(generator, obs_dim, latent_dim, hid_dim, device="cuda"):

@@ -22,19 +22,35 @@ one stacked [2B] stream through the encoder and the decoder. K is the
 noise's sample axis: cfg.train_k in training and cfg.valid_k in
 evaluation, as `train_noise` and `eval_noise` give the engine.
 
+`eval_step` computes its per-sample terms in one pass, IW1
+(`ops/fused_iw`: a CUDA kernel on the card, on the CPU its plain version,
+this module's eager composition to the bit), wherever it runs without
+gradients in float32 (`_fused`): `eval_vae`, `evaluate_sharded`,
+`inference.completion` and `serve`. Where gradients are enabled or
+`compute_dtype('bfloat16')` is active it runs `forward` and `_branch_terms`,
+as `train_loss` always does (IW1 has no backward); AIS calls the layers
+itself.
+
 Under a torch profiler the importance-weighted path records the spans
 `miwae.encode` (the encoder), `miwae.decode` (the reparameterised z and the
-Student-t decoder over B*K samples), `miwae.likelihood` (the Student-t
-log-density, its masked sums, log p(z) and log q), `miwae.weights` (the
-logsumexp over K, the softmax and the imputation) and the counter
-`iw_samples` (rows x K decoded, once a `forward`) (`utils/tracing`).
+Student-t decoder over B*K samples; on IW1's path the whole kernel, the
+log-density and its sums included), `miwae.likelihood` (the Student-t
+log-density, its masked sums, log p(z) and log q; on IW1's path the sum
+log_w = logpxobs + log p(z) - log q), `miwae.weights` (the logsumexp over
+K, the softmax and the imputation) and the counters `iw_samples` (rows x K
+decoded, once a `forward` or an IW1 call) and `iw_fused_samples` (the same,
+once an IW1 call) (`utils/tracing`).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from vae_posterior_consistency_tpu_torch.models import layers
+from vae_posterior_consistency_tpu_torch.nn import core
+from vae_posterior_consistency_tpu_torch.ops import fused_iw
 from vae_posterior_consistency_tpu_torch.ops.math import (
     kl_diag_diag_scale_elems,
     normal_logpdf_scale,
@@ -139,16 +155,75 @@ def _neg_bound(log_w):
     return -torch.mean(torch.logsumexp(log_w, dim=1))
 
 
-def _reg_terms(out, log_pxz, mask, mask_p, B):
-    """Per row: the extra likelihood reward on the cells hidden from the p
-    branch (reference: VAE.py:3244-3246), its mean over K, and the mean
-    over L of the elementwise q/p KL."""
-    extra = (mask * (1.0 - mask_p))[:, None, :]
-    row_reg_like = torch.mean(torch.sum(log_pxz[:B] * extra, dim=-1), dim=1)
+def _extra_mask(mask, mask_p):
+    """The cells hidden from the p branch but seen by the q branch, whose
+    likelihood the regularizer rewards (reference: VAE.py:3244-3246)."""
+    return mask * (1.0 - mask_p)
+
+
+def _extra_sum(log_pxz, extra):
+    """sum_d log p(x|z) * extra [B_extra, K] over the first B_extra rows."""
+    return torch.sum(log_pxz[:extra.shape[0]] * extra[:, None, :], dim=-1)
+
+
+def _reg_terms(mean, scale, extra_sum, B):
+    """Per row: the extra likelihood reward (`extra_sum` [B, K]) meaned over
+    K, and the mean over L of the elementwise q/p KL of the stacked
+    statistics (q rows :B, p rows B:)."""
+    row_reg_like = torch.mean(extra_sum, dim=1)
     row_kl_reg = torch.mean(kl_diag_diag_scale_elems(
-        out["mean"][:B], out["scale"][:B], out["mean"][B:],
-        out["scale"][B:]), dim=-1)
+        mean[:B], scale[:B], mean[B:], scale[B:]), dim=-1)
     return row_reg_like, row_kl_reg
+
+
+class IwTerms(NamedTuple):
+    """An evaluation stream's terms: the encoder's mean and scale [B, L],
+    x_mean [B, K, D], log_w and logpx_imp [B, K], and extra_sum [B_extra, K]
+    (None without `extra`)."""
+
+    mean: torch.Tensor
+    scale: torch.Tensor
+    x_mean: torch.Tensor
+    log_w: torch.Tensor
+    logpx_imp: torch.Tensor
+    extra_sum: Optional[torch.Tensor]
+
+
+def _fused() -> bool:
+    """Whether `eval_step` runs IW1: without gradients (it has no backward)
+    and with float32 products (it computes in float32 only)."""
+    return not torch.is_grad_enabled() and core.active_dtype() == "float32"
+
+
+def _iw_terms(params, x, mask, extra, eps, cfg) -> IwTerms:
+    """The stream's terms through IW1: the encoder, then one IW1 call for
+    z, the decoder, the Student-t log-density and its sums (under `mask`,
+    1 - mask and, where given, `extra` [B_extra, D] on the first B_extra
+    rows), then log_w = logpxobs + log p(z) - log q."""
+    with tracing.span("miwae.encode"):
+        mean, scale = encode(params, x, mask, cfg)
+    with tracing.span("miwae.decode"):
+        x_mean, terms = fused_iw.iw_fused(x, mask, extra, mean, scale, eps,
+                                          params["decoder"])
+    samples = eps.shape[0] * eps.shape[1]
+    tracing.count("iw_samples", samples)
+    tracing.count("iw_fused_samples", samples)
+    with tracing.span("miwae.likelihood"):
+        log_w = terms[0] + terms[2] - terms[3]
+    extra_sum = None if extra is None else terms[4, :extra.shape[0]]
+    return IwTerms(mean, scale, x_mean, log_w, terms[1], extra_sum)
+
+
+def _eval_terms(params, x, mask, extra, eps, cfg) -> IwTerms:
+    """The stream's terms: IW1 where `_fused`, else `forward` and
+    `_branch_terms` as training runs them."""
+    if _fused():
+        return _iw_terms(params, x, mask, extra, eps, cfg)
+    out = forward(params, x, mask, eps, cfg)
+    _, log_w, logpx_imp, log_pxz = _branch_terms(out, x, mask)
+    extra_sum = None if extra is None else _extra_sum(log_pxz, extra)
+    return IwTerms(out["mean"], out["scale"], out["x_mean"], log_w,
+                   logpx_imp, extra_sum)
 
 
 def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
@@ -168,7 +243,9 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
     with tracing.span("miwae.weights"):
         neg_bound_q = _neg_bound(log_w[:B])
         neg_bound_p = _neg_bound(log_w[B:])
-    row_reg_like, row_kl_reg = _reg_terms(out, log_pxz, mask, mask_p, B)
+    row_reg_like, row_kl_reg = _reg_terms(
+        out["mean"], out["scale"],
+        _extra_sum(log_pxz, _extra_mask(mask, mask_p)), B)
     # the means over all elements: rows of equal length, so the mean of the
     # row means
     reg_like = torch.mean(row_reg_like)
@@ -186,23 +263,25 @@ def eval_step(params, x, mask, mask_p, eps, cfg):
     read by regularized types only."""
     B = x.shape[0]
     if not cfg.info.regularized:
-        out_q = forward(params, x, mask, eps, cfg)
-        _, log_w_q, logpx_imp, _ = _branch_terms(out_q, x, mask)
+        t = _eval_terms(params, x, mask, None, eps, cfg)
         with tracing.span("miwae.weights"):
-            xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w_q, dim=1),
-                              out_q["x_mean"])
-            row_loss = -torch.logsumexp(log_w_q, dim=1)
-        row_negl = torch.sum(logpx_imp, dim=1) / NEGL_DIVISOR
+            xm = torch.einsum("bk,bkd->bd", torch.softmax(t.log_w, dim=1),
+                              t.x_mean)
+            row_loss = -torch.logsumexp(t.log_w, dim=1)
+        row_negl = torch.sum(t.logpx_imp, dim=1) / NEGL_DIVISOR
         return {"x_imputed": xm, "row_loss": row_loss,
                 "row_negl": row_negl, "row_negl_imp": row_negl}
 
-    out, log_w, log_pxz = _both_branches(params, x, mask, mask_p, eps, cfg)
+    # the q (rows :B) and p (rows B:) branches as one stacked stream
+    t = _eval_terms(params, torch.cat([x, x]), torch.cat([mask, mask_p]),
+                    _extra_mask(mask, mask_p),
+                    eps.reshape(2 * B, *eps.shape[2:]), cfg)
     with tracing.span("miwae.weights"):
-        xm = torch.einsum("bk,bkd->bd", torch.softmax(log_w[:B], dim=1),
-                          out["x_mean"][:B])
-        row_neg_bound_q = -torch.logsumexp(log_w[:B], dim=1)
-        row_neg_bound_p = -torch.logsumexp(log_w[B:], dim=1)
-    row_reg_like, row_kl_reg = _reg_terms(out, log_pxz, mask, mask_p, B)
+        xm = torch.einsum("bk,bkd->bd", torch.softmax(t.log_w[:B], dim=1),
+                          t.x_mean[:B])
+        row_neg_bound_q = -torch.logsumexp(t.log_w[:B], dim=1)
+        row_neg_bound_p = -torch.logsumexp(t.log_w[B:], dim=1)
+    row_reg_like, row_kl_reg = _reg_terms(t.mean, t.scale, t.extra_sum, B)
     row_loss = row_neg_bound_q + cfg.alpha * (
         row_kl_reg - row_neg_bound_q + row_neg_bound_p - row_reg_like)
     return {"x_imputed": xm, "row_loss": row_loss, "row_negl": row_loss,

@@ -106,6 +106,15 @@ def student_t_logpdf(x, loc, scale, df):
             - 0.5 * (df + 1.0) * torch.log1p(torch.square(y) / df))
 
 
+def student_t_head(h):
+    """(loc, scale, df) of the Student-t decoder's output h [..., 3D]: a
+    sigmoid location, softplus + 0.001 scale and softplus + 3 degrees of
+    freedom (reference: VAE.py:3061-3066)."""
+    loc, scale, df = h.chunk(3, dim=-1)
+    softplus = torch.nn.functional.softplus
+    return torch.sigmoid(loc), softplus(scale) + 0.001, softplus(df) + 3.0
+
+
 def log_mean_exp(x, dim=-1):
     """log(mean(exp(x))) along `dim` (reference: src/utils/utils.py:129-134)."""
     return torch.logsumexp(x, dim=dim) - math.log(x.shape[dim])
