@@ -832,37 +832,33 @@ def main() -> int:
         layers,
         miwae,
     )
-    from vae_posterior_consistency_tpu_torch.ops import _build
+    from vae_posterior_consistency_tpu_torch.ops import _build, _kernel
     from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
     from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
     from vae_posterior_consistency_tpu_torch.ops import fused_iw as fiw
 
-    def reset_counts():
-        fep.embed_pool.launches = 0
-        fep.embed_pool_bwd.launches = 0
-        fp.fused_posterior.launches = 0
-        fp.fused_posterior.bwd_launches = 0
-        fiw.iw_fused.launches = 0
+    reset_counts = _kernel.launches.clear
 
     def counts():
-        return {"embed_pool_fwd": fep.embed_pool.launches,
-                "embed_pool_bwd": fep.embed_pool_bwd.launches,
-                "fused_posterior_fwd": fp.fused_posterior.launches,
-                "fused_posterior_bwd": fp.fused_posterior.bwd_launches,
-                "iw_fused": fiw.iw_fused.launches}
+        """Each kernel's launches since the last `reset_counts()`."""
+        return {k: _kernel.launches[k] for k in _kernel.PLAIN}
+
+    # a phase's expected launches name the kernels it launches; every other
+    # kernel is expected at 0
+    no_kernel = dict.fromkeys(_kernel.PLAIN, 0)
+    #: the kernels of an EDDI training step: B1, its backward, B2f, B2b
+    step_kernels = ("embed_pool_fwd", "embed_pool_bwd", "fused_posterior_fwd",
+                    "fused_posterior_bwd")
 
     @contextlib.contextmanager
     def no_plain_on_card():
-        """Makes each kernel's plain version raise if it is handed a CUDA
-        tensor while the block runs (the Functions look them up in their
-        modules at each call)."""
+        """Makes each kernel's plain version (`_kernel.PLAIN`) raise if it
+        is handed a CUDA tensor while the block runs: the Functions look
+        them up in their modules at each call, so the guard patches the
+        modules."""
         saved = []
-        for mod, name in ((fep, "embed_pool_reference"),
-                          (fep, "embed_pool_bwd_reference"),
-                          (fp, "fused_posterior_reference"),
-                          (fp, "fused_posterior_backward"),
-                          (fiw, "iw_fused_reference")):
-            plain = getattr(mod, name)
+        for plain in _kernel.PLAIN.values():
+            mod, name = sys.modules[plain.__module__], plain.__name__
 
             def guarded(*args, _plain=plain, _name=name):
                 flat = [a for arg in args for a in (
@@ -1137,9 +1133,7 @@ def main() -> int:
         serve_counts = counts()
         print(f"launches while serving {len(REQUEST_ROWS)} requests: "
               f"{serve_counts}", flush=True)
-        if serve_counts != {"embed_pool_fwd": len(REQUEST_ROWS),
-                            "embed_pool_bwd": 0, "fused_posterior_fwd": 0,
-                            "fused_posterior_bwd": 0, "iw_fused": 0}:
+        if serve_counts != {**no_kernel, "embed_pool_fwd": len(REQUEST_ROWS)}:
             raise AssertionError(f"serving {len(REQUEST_ROWS)} requests "
                                  f"launched {serve_counts}")
 
@@ -1180,7 +1174,7 @@ def main() -> int:
         httpd = serve.make_http_server(srv, "127.0.0.1", 0)
         thread = threading.Thread(target=httpd.serve_forever, daemon=True)
         thread.start()
-        before = fep.embed_pool.launches
+        before = _kernel.launches["embed_pool_fwd"]
         try:
             req = urllib.request.Request(
                 f"http://127.0.0.1:{httpd.server_address[1]}/impute",
@@ -1199,7 +1193,7 @@ def main() -> int:
         if got.shape != (2, 784) or len(body["row_score"]) != 2:
             raise AssertionError("bad HTTP response shape")
         np.testing.assert_array_equal(got * mask[:2], x[:2])
-        if fep.embed_pool.launches != before + 1:
+        if _kernel.launches["embed_pool_fwd"] != before + 1:
             raise AssertionError("the HTTP request did not run embed_pool")
         print("POST /impute: 2 rows back", flush=True)
 
@@ -1295,7 +1289,7 @@ def main() -> int:
                                           device="cuda")
         step_counts = first_step_card_vs_cpu(
             train_cfg, mnist.train.x[:64], mnist.train.mask[:64], 784)
-        if step_counts != {**{k: 1 for k in step_counts}, "iw_fused": 0}:
+        if step_counts != {**no_kernel, **dict.fromkeys(step_kernels, 1)}:
             raise AssertionError(f"one step launched {step_counts}")
 
     with tempfile.TemporaryDirectory() as ckpt_root:
@@ -1314,8 +1308,8 @@ def main() -> int:
             n_steps = MNIST_EPOCHS * steps_per_epoch
             print(f"{mnist.train.n} rows, {n_steps} steps in {mnist_s:.3f} s; "
                   f"launches {mnist_counts}", flush=True)
-            if mnist_counts != {**{k: n_steps for k in mnist_counts},
-                                "iw_fused": 0}:
+            if mnist_counts != {**no_kernel,
+                                **dict.fromkeys(step_kernels, n_steps)}:
                 raise AssertionError(f"{n_steps} steps launched "
                                      f"{mnist_counts}")
             means = [h / steps_per_epoch for h in hist]
@@ -1363,9 +1357,8 @@ def main() -> int:
         n_steps = WINE_EPOCHS * wine_steps
         print(f"{wine.train.n} rows x {wine.obs_dim}, {n_steps} steps; "
               f"launches {wine_counts}", flush=True)
-        if wine_counts != {"embed_pool_fwd": 0, "embed_pool_bwd": 0,
-                           "fused_posterior_fwd": n_steps,
-                           "fused_posterior_bwd": n_steps, "iw_fused": 0}:
+        if wine_counts != {**no_kernel, "fused_posterior_fwd": n_steps,
+                           "fused_posterior_bwd": n_steps}:
             raise AssertionError(f"{n_steps} steps launched {wine_counts}")
         means = [h / wine_steps for h in wine_hist]
         print(f"mean loss, first and last epoch: {means[0]:.6f} -> "
@@ -1379,9 +1372,6 @@ def main() -> int:
 
     flow_cfg = RunConfig(vae_type="reg_flow1", missing_rate=30, seed=SEED,
                          epoch=WINE_EPOCHS, batch_size=64)
-    no_kernel = {k: 0 for k in ("embed_pool_fwd", "embed_pool_bwd",
-                                "fused_posterior_fwd", "fused_posterior_bwd",
-                                "iw_fused")}
     with phase(f"training {flow_cfg.vae_type} / {flow_cfg.reg_type} on "
                f"{flow_cfg.data_type} (a): first step, card vs CPU"):
         flow_data = loaders.data_loader(str(REPO / "Data"),
@@ -1451,10 +1441,8 @@ def main() -> int:
         print(f"{drop_data.train.n} rows x {drop_data.obs_dim}, {n_steps} "
               f"steps; launches {drop_counts}; draws {dict(drawn)}",
               flush=True)
-        if drop_counts != {"embed_pool_fwd": n_steps,
-                           "embed_pool_bwd": n_steps,
-                           "fused_posterior_fwd": 0,
-                           "fused_posterior_bwd": 0, "iw_fused": 0}:
+        if drop_counts != {**no_kernel, "embed_pool_fwd": n_steps,
+                           "embed_pool_bwd": n_steps}:
             raise AssertionError(f"{n_steps} steps launched {drop_counts}")
         if drawn[("drop", "cuda")] != n_steps or any(
                 dev != "cuda" for _, dev in drawn):
@@ -1624,9 +1612,7 @@ def main() -> int:
         cpu_ref = checkpoint.load_reference(path, eval_cfg, 784, device="cpu")
         mnist_eval, mnist_eval_counts = eval_card_vs_cpu(
             "MNIST reg_EDDI1 eval", mnist, eval_cfg, params, cpu_ref,
-            {"embed_pool_fwd": want_b2f, "embed_pool_bwd": 0,
-             "fused_posterior_fwd": 0, "fused_posterior_bwd": 0,
-             "iw_fused": 0})
+            {**no_kernel, "embed_pool_fwd": want_b2f})
         committed = float(torch.load(
             artifacts.eval_vae_paths(eval_cfg, "test",
                                      str(REPO / "experiments"))["rmse"],
@@ -1647,10 +1633,7 @@ def main() -> int:
                     checkpoint.flatten(wine_params).items()}
         eval_card_vs_cpu(
             "wine reg_vae1 eval", wine, wine_eval_cfg, wine_params,
-            checkpoint.unflatten(cpu_wine),
-            {k: 0 for k in ("embed_pool_fwd", "embed_pool_bwd",
-                            "fused_posterior_fwd", "fused_posterior_bwd",
-                            "iw_fused")})
+            checkpoint.unflatten(cpu_wine), no_kernel)
 
     with phase("evaluation (c): wall-clock per split, device operations"):
         eval_times = {}
@@ -3869,7 +3852,7 @@ def mesh_phase(env) -> dict:
     card, counts, reset_counts = env["card"], env["counts"], env[
         "reset_counts"]
     no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
-    records = env["records"]
+    records, no_kernel = env["records"], env["no_kernel"]
     launches = collections.Counter()
 
     def step_times(marks):
@@ -3950,10 +3933,10 @@ def mesh_phase(env) -> dict:
                                            rtol=STEP_LOSS_RTOL, atol=0)
                 worst = grads_close(card_grads, cpu_grads, cfg.vae_type)
                 eddi = "EDDI" in cfg.vae_type
-                want_first = {"fused_posterior_fwd": 1,
-                              "fused_posterior_bwd": 1,
-                              "embed_pool_fwd": int(eddi),
-                              "embed_pool_bwd": int(eddi), "iw_fused": 0}
+                want_first = {**no_kernel, "fused_posterior_fwd": 1,
+                              "fused_posterior_bwd": 1}
+                if eddi:
+                    want_first.update(embed_pool_fwd=1, embed_pool_bwd=1)
                 if first != want_first:
                     raise AssertionError(f"first sharded step launched "
                                          f"{first}, want {want_first}")
@@ -4144,6 +4127,7 @@ def mesh_part2_phase(env) -> dict:
     counts, reset_counts = env["counts"], env["reset_counts"]
     no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
     records, card = env["records"], env["card"]
+    no_kernel, step_kernels = env["no_kernel"], env["step_kernels"]
     out = {}
 
     @contextlib.contextmanager
@@ -4198,7 +4182,7 @@ def mesh_part2_phase(env) -> dict:
         again_hist, plain_s = plain_run()
         np.testing.assert_array_equal(again_hist, plain_hist)
         steps = MESH_D_EPOCHS * -(-ds.train.n // cfg.batch_size)
-        want = {**{k: steps for k in launched}, "iw_fused": 0}
+        want = {**no_kernel, **dict.fromkeys(step_kernels, steps)}
         if launched != want or mesh_hist.shape != (MESH_D_SEEDS,
                                                    MESH_D_EPOCHS):
             raise AssertionError(f"mesh seed ensemble: launched {launched}, "
@@ -4236,9 +4220,7 @@ def mesh_part2_phase(env) -> dict:
                     name: torch.load(path, weights_only=True)
                     for name, path in artifacts.active_learning_paths(
                         cfg37.replace(M=AL_CHECK_M), root).items()}
-        want = {"embed_pool_fwd": 1 + 6 * (WINE_D - 1), "embed_pool_bwd": 0,
-                "fused_posterior_fwd": 0, "fused_posterior_bwd": 0,
-                "iw_fused": 0}
+        want = {**no_kernel, "embed_pool_fwd": 1 + 6 * (WINE_D - 1)}
         if launched["1,1"] != want:
             raise AssertionError(f"AL -mesh 1,1 launched {launched['1,1']}, "
                                  f"want {want}")
@@ -4358,6 +4340,7 @@ def mixed_precision_phase(env) -> dict:
     counts, reset_counts = env["counts"], env["reset_counts"]
     no_plain_on_card, grid_dir = env["no_plain_on_card"], env["grid_dir"]
     records, card, mnist = env["records"], env["card"], env["mnist"]
+    no_kernel, step_kernels = env["no_kernel"], env["step_kernels"]
     step_timer = env["step_timer"]
     BF16 = "bfloat16"
 
@@ -4499,7 +4482,7 @@ def mixed_precision_phase(env) -> dict:
               flush=True)
 
     # B1, B2f and B2b once a step; IW1 never (it runs without gradients)
-    once = {**{k: 1 for k in counts()}, "iw_fused": 0}
+    once = {**no_kernel, **dict.fromkeys(step_kernels, 1)}
     with phase("mixed precision (a): first bf16 steps, card vs CPU, and "
                "their GEMMs under torch.profiler"):
         mcfg = RunConfig(vae_type="reg_EDDI1", data_type="mnist",
@@ -4512,7 +4495,8 @@ def mixed_precision_phase(env) -> dict:
         wine = loaders.data_loader(str(REPO / "Data"), "reg_vae1", 30, 64,
                                    "wine", device="cuda")
         first_step(wine_cfg, wine.train.x[:64], wine.train.mask[:64],
-                   WINE_D, dict(once, embed_pool_fwd=0, embed_pool_bwd=0))
+                   WINE_D, {**no_kernel, "fused_posterior_fwd": 1,
+                            "fused_posterior_bwd": 1})
 
     rec = records[BF16_RECORD - 1]
     runs = {}
@@ -4559,8 +4543,8 @@ def mixed_precision_phase(env) -> dict:
                     if not os.path.isfile(path):
                         raise AssertionError(f"{dtype}: no {path}")
             steps = run["steps"] * BF16_EPOCHS
-            if run["launches"] != {**{k: steps for k in counts()},
-                                   "iw_fused": 0}:
+            if run["launches"] != {**no_kernel,
+                                   **dict.fromkeys(step_kernels, steps)}:
                 raise AssertionError(f"{dtype}: {run['launches']} launches "
                                      f"in {steps} steps")
             hist = run["hist"]
@@ -4714,7 +4698,7 @@ def completeness_phase(env) -> dict:
 
     counts, reset_counts = env["counts"], env["reset_counts"]
     no_plain_on_card, card = env["no_plain_on_card"], env["card"]
-    seeded, mnist = env["seeded"], env["mnist"]
+    seeded, mnist, no_kernel = env["seeded"], env["mnist"], env["no_kernel"]
     miwae_cfg, flow_cfg = env["miwae_cfg"], env["flow_cfg"]
     total = collections.Counter()
 
@@ -4838,10 +4822,11 @@ def completeness_phase(env) -> dict:
                 wall = time.perf_counter() - t0
                 launched = counts()
                 total.update(launched)
-                want_l = {"embed_pool_fwd": steps + 1 if eddi else 0,
-                          "embed_pool_bwd": steps if eddi else 0,
-                          "fused_posterior_fwd": steps,
-                          "fused_posterior_bwd": steps, "iw_fused": 0}
+                want_l = {**no_kernel, "fused_posterior_fwd": steps,
+                          "fused_posterior_bwd": steps}
+                if eddi:
+                    want_l.update(embed_pool_fwd=steps + 1,
+                                  embed_pool_bwd=steps)
                 if launched != want_l:
                     raise AssertionError(f"impute_csv {vae_type} launched "
                                          f"{launched}, want {want_l}")

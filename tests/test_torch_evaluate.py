@@ -26,7 +26,7 @@ from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
 from vae_posterior_consistency_tpu_torch.engine import evaluate as teval
 from vae_posterior_consistency_tpu_torch.engine import inference as tinf
 from vae_posterior_consistency_tpu_torch.models import get_model
-from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as tfep
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 
 #: the port's eval against JAX's under the same key stream: the same float32
 #: arithmetic in another summation order
@@ -160,9 +160,9 @@ def test_eval_vae_at_mnist_width_matches_jax():
     arrays = [t[:100].numpy() for t in (full.train.x, full.train.mask,
                                         full.test.x, full.test.mask)]
     jds, tds = _datasets(*arrays)
-    before = tfep.embed_pool.launches
+    before = _kernel.launches.copy()
     got, want = _both(jc, tc, jds, tds, 784, save=False)
-    assert tfep.embed_pool.launches == before  # CPU: the plain version
+    assert _kernel.launches == before  # CPU: the plain versions
     for stage in want:
         np.testing.assert_allclose(got[stage]["rmse"], want[stage]["rmse"],
                                    rtol=RTOL, err_msg=stage)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from vae_posterior_consistency_tpu.ops import fused_posterior as jfp
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.ops import fused_posterior as tfp
 from torch_b1 import NEEDS, encoder_output, statistics
 
@@ -91,11 +92,11 @@ def test_strided_inputs_take_the_same_values():
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
     arrays = [torch.from_numpy(a) for a in _case(0, 5, 3)]
-    before = tfp.fused_posterior.launches
+    before = _kernel.launches.copy()
     for g, w in zip(tfp.fused_posterior(*arrays),
                     tfp.fused_posterior_reference(*arrays)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert tfp.fused_posterior.launches == before
+    assert _kernel.launches == before
 
 
 def test_non_cpu_tensors_are_never_routed_to_the_plain_version():
@@ -214,12 +215,11 @@ def test_gradients_through_strided_halves_of_one_encoder_output():
 
 def test_cpu_backward_counts_no_launch():
     inputs = [torch.from_numpy(a).requires_grad_() for a in _case(1, 4, 3)]
-    before = (tfp.fused_posterior.launches, tfp.fused_posterior.bwd_launches)
+    before = _kernel.launches.copy()
     z_q, z_p, kl_q, kl_p, kl_reg = tfp.fused_posterior(*inputs)
     (z_q.sum() + z_p.sum() + kl_q + kl_p + kl_reg).backward()
     assert all(t.grad is not None for t in inputs)
-    assert (tfp.fused_posterior.launches,
-            tfp.fused_posterior.bwd_launches) == before
+    assert _kernel.launches == before
 
 
 def test_non_cpu_tensors_never_reach_the_plain_backward(monkeypatch):
@@ -238,11 +238,11 @@ def test_non_cpu_tensors_never_reach_the_plain_backward(monkeypatch):
     with pytest.raises(ValueError):
         tfp.FusedPosterior.backward(_Ctx(arrays, NEEDS["all"]), cts[0],
                                     cts[1].to("meta"), cts[2])
-    before = tfp.fused_posterior.bwd_launches
+    before = _kernel.launches["fused_posterior_bwd"]
     with pytest.raises(ValueError, match="CUDA"):
         tfp.fused_posterior_backward_kernel(meta, *(t.to("meta")
                                                     for t in cts))
-    assert tfp.fused_posterior.bwd_launches == before
+    assert _kernel.launches["fused_posterior_bwd"] == before
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from vae_posterior_consistency_tpu_torch.data.loaders import Dataset, Split
 from vae_posterior_consistency_tpu_torch.engine import checkpoint, evaluate
 from vae_posterior_consistency_tpu_torch.models import get_model, miwae
 from vae_posterior_consistency_tpu_torch.nn import core
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.ops import fused_iw
 from vae_posterior_consistency_tpu_torch.ops.math import (
     normal_logpdf_scale,
@@ -289,9 +290,9 @@ def test_iw1_matches_its_plain_version_on_the_card(cuda, vae_type, B, K, D,
     cfg, params, *batch = _case(vae_type, B, K, D=D, L=L, device=cuda)
     with torch.no_grad():
         inputs = _stream(cfg, params, *batch)
-        before = fused_iw.iw_fused.launches
+        before = _kernel.launches["iw_fused"]
         _assert_iw1_matches_plain(inputs, params["decoder"])
-    assert fused_iw.iw_fused.launches == before + 1
+    assert _kernel.launches["iw_fused"] == before + 1
 
 
 @pytest.mark.cuda
@@ -311,9 +312,9 @@ def test_iw1_replicas_in_one_launch(cuda):
         return fused_iw.iw_fused(x, mask, extra, mean, scale, eps, dec)
 
     with torch.no_grad():
-        before = fused_iw.iw_fused.launches
+        before = _kernel.launches["iw_fused"]
         got = torch.func.vmap(call)(stacked["decoder"], mean, scale)
-        assert fused_iw.iw_fused.launches == before + 1
+        assert _kernel.launches["iw_fused"] == before + 1
         for r, p in enumerate(serial):
             want = call(p["decoder"], mean[r], scale[r])
             assert all(torch.equal(g[r], w) for g, w in zip(got, want))
@@ -336,8 +337,8 @@ def test_one_launch_a_stream_a_batch(cuda, vae_type):
     ds = Dataset(split(150, "train"), split(17, "test"), 13)
     params = get_model(cfg).init(torch.Generator(device=cuda).manual_seed(1),
                                  cfg, 13, device=cuda)
-    before = fused_iw.iw_fused.launches
+    before = _kernel.launches["iw_fused"]
     res = evaluate.eval_vae(ds, cfg, params=params, save=False, device=cuda)
     batches = 3 + 1  # under _GRAPH_MIN_STEPS a split: every batch eager
-    assert fused_iw.iw_fused.launches == before + batches
+    assert _kernel.launches["iw_fused"] == before + batches
     assert all(np.isfinite(v) for s in res.values() for v in s.values())

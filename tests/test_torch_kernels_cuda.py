@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
 from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
 from torch_b1 import NEEDS, encoder_output, statistics
@@ -42,10 +43,10 @@ def _case(seed, S, B, D, K, device):
     (2, 300, 20000, 10)])
 def test_embed_pool_kernel_matches_plain(cuda, S, B, D, K):
     args = _case(S * 1000 + B + K, S, B, D, K, cuda)
-    before = fep.embed_pool.launches
+    before = _kernel.launches["embed_pool_fwd"]
     got = fep.embed_pool(*args)
     torch.cuda.synchronize()
-    assert fep.embed_pool.launches == before + 1
+    assert _kernel.launches["embed_pool_fwd"] == before + 1
     # the sums over d run in another order in the kernel
     torch.testing.assert_close(got, fep.embed_pool_reference(*args),
                                rtol=1e-5, atol=1e-4)
@@ -85,10 +86,10 @@ def test_embed_pool_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     want = fep.embed_pool(x, masks, A, C)
     for args in ((x.t().contiguous().t(), masks, A, C),
                  (x, masks, A.t().contiguous().t(), C)):
-        before = fep.embed_pool.launches
+        before = _kernel.launches["embed_pool_fwd"]
         got = fep.embed_pool(*args)
         torch.cuda.synchronize()
-        assert fep.embed_pool.launches == before + 1
+        assert _kernel.launches["embed_pool_fwd"] == before + 1
         assert torch.equal(got, want)
     # the layer below it keeps the kernels' contract
     with pytest.raises(ValueError, match="contiguous"):
@@ -99,9 +100,10 @@ def test_embed_pool_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fep.embed_pool_bwd(x, masks, A, C, torch.ones(1, 4, 5))
     # inputs that need a gradient go through the backward kernel
     A.requires_grad_()
-    before = fep.embed_pool_bwd.launches
+    before = _kernel.launches["embed_pool_bwd"]
     fep.embed_pool(x, masks, A, C).sum().backward()
-    assert fep.embed_pool_bwd.launches == before + 1 and A.grad is not None
+    assert _kernel.launches["embed_pool_bwd"] == before + 1
+    assert A.grad is not None
 
 
 def _assert_bwd_close(got, want, B, dmasks=True):
@@ -125,10 +127,10 @@ def test_embed_pool_bwd_kernel_matches_plain(cuda, S, B, dmasks):
     x, masks, A, C = _case(S * 1000 + B, S, B, D, K, cuda)
     g = torch.randn(S, B, K, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(B))
-    before = fep.embed_pool_bwd.launches
+    before = _kernel.launches["embed_pool_bwd"]
     got = fep.embed_pool_bwd(x, masks, A, C, g, dmasks=dmasks)
     torch.cuda.synchronize()
-    assert fep.embed_pool_bwd.launches == before + 1
+    assert _kernel.launches["embed_pool_bwd"] == before + 1
     want = fep.embed_pool_bwd_reference(x, masks, A, C, g)
     _assert_bwd_close(got, want, B, dmasks)
 
@@ -143,10 +145,10 @@ def test_embed_pool_bwd_kernel_matches_plain_at_any_shape(cuda, S, B, D, K):
     x, masks, A, C = _case(S * 1000 + B + K, S, B, D, K, cuda)
     g = torch.randn(S, B, K, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(K))
-    before = fep.embed_pool_bwd.launches
+    before = _kernel.launches["embed_pool_bwd"]
     got = fep.embed_pool_bwd(x, masks, A, C, g)
     torch.cuda.synchronize()
-    assert fep.embed_pool_bwd.launches == before + 1
+    assert _kernel.launches["embed_pool_bwd"] == before + 1
     assert got[2].is_contiguous() and got[3].is_contiguous()
     want = fep.embed_pool_bwd_reference(x, masks, A, C, g)
     _assert_bwd_close(got, want, B)
@@ -181,10 +183,10 @@ def test_fused_posterior_kernel_matches_plain(cuda, B, L):
     gen = torch.Generator(device=cuda).manual_seed(B + L)
     mq, mp, eq, ep = torch.randn(4, B, L, device=cuda, generator=gen)
     lq, lp = torch.rand(2, B, L, device=cuda, generator=gen) * 3.0 - 2.0
-    before = fp.fused_posterior.launches
+    before = _kernel.launches["fused_posterior_fwd"]
     got = fp.fused_posterior(mq, lq, mp, lp, eq, ep)
     torch.cuda.synchronize()
-    assert fp.fused_posterior.launches == before + 1
+    assert _kernel.launches["fused_posterior_fwd"] == before + 1
     want = fp.fused_posterior_reference(mq, lq, mp, lp, eq, ep)
     # z elementwise; the three KL sums over B*L cells in another order
     for g, w in zip(got, want):
@@ -206,9 +208,9 @@ def test_functions_gradients_match_autograd_of_plain(cuda):
            *torch.randn(3, device=cuda, generator=gen)]
     a = [t.clone().requires_grad_() for t in stats]
     b = [t.clone().requires_grad_() for t in stats]
-    before = fp.fused_posterior.bwd_launches
+    before = _kernel.launches["fused_posterior_bwd"]
     got = torch.autograd.grad(fp.fused_posterior(*a), a, cts)
-    assert fp.fused_posterior.bwd_launches == before + 1
+    assert _kernel.launches["fused_posterior_bwd"] == before + 1
     want = torch.autograd.grad(fp.fused_posterior_reference(*b), b, cts)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
@@ -273,10 +275,10 @@ def test_fused_posterior_bwd_kernel_matches_plain(cuda, B, L, needs,
                                                   expanded):
     stats = _stats(B, L, cuda, B + L)
     cts = _cotangents(B, L, cuda, B * L, expanded)
-    before = fp.fused_posterior.bwd_launches
+    before = _kernel.launches["fused_posterior_bwd"]
     got = fp.fused_posterior_backward_kernel(stats, *cts, needs=NEEDS[needs])
     torch.cuda.synchronize()
-    assert fp.fused_posterior.bwd_launches == before + 1
+    assert _kernel.launches["fused_posterior_bwd"] == before + 1
     want = fp.fused_posterior_backward(stats, *cts)
     for g, w, n in zip(got, want, NEEDS[needs]):
         if not n:
@@ -293,10 +295,10 @@ def test_fused_posterior_forward_is_one_launch_at_any_size(cuda, B, L):
     """One block walks all the cells, many turns a thread, and sums them in
     the same launch."""
     stats = _stats(B, L, cuda, 3, strided=False)
-    before = fp.fused_posterior.launches
+    before = _kernel.launches["fused_posterior_fwd"]
     got = fp.fused_posterior(*stats)
     torch.cuda.synchronize()
-    assert fp.fused_posterior.launches == before + 1
+    assert _kernel.launches["fused_posterior_fwd"] == before + 1
     want = fp.fused_posterior_reference(*stats)
     # z elementwise; the three KL sums over B*L cells in another order
     for g, w in zip(got, want):
@@ -330,10 +332,10 @@ def test_fused_posterior_forward_and_backward_are_one_launch_each(cuda):
     assert _device_ops(lambda: fp.fused_posterior_kernel(*stats)) == 1
     outs = fp.FusedPosterior.apply(*leaves, *stats[4:])
     cts = _cotangents(64, 10, cuda, 6)
-    before = fp.fused_posterior.bwd_launches
+    before = _kernel.launches["fused_posterior_bwd"]
     assert _device_ops(lambda: torch.autograd.grad(
         outs, leaves, cts, retain_graph=True)) == 1
-    assert fp.fused_posterior.bwd_launches == before + 2
+    assert _kernel.launches["fused_posterior_bwd"] == before + 2
 
 
 # ---------------------------------------------------------------------------
@@ -357,12 +359,12 @@ def test_fused_posterior_replica_kernels_match_plain(cuda, R):
     cts = [torch.randn(R, B, L, device=cuda, generator=gen),
            torch.randn(R, B, L, device=cuda, generator=gen),
            torch.randn(R, 3, device=cuda, generator=gen)]
-    before = (fp.fused_posterior.launches, fp.fused_posterior.bwd_launches)
+    before = _kernel.launches.copy()
     got = fp.fused_posterior_kernel(*stats)
     grads = fp.fused_posterior_backward_kernel(stats, *cts)
     torch.cuda.synchronize()
-    assert (fp.fused_posterior.launches, fp.fused_posterior.bwd_launches
-            ) == (before[0] + 1, before[1] + 1)
+    assert _kernel.launches - before == {"fused_posterior_fwd": 1,
+                                         "fused_posterior_bwd": 1}
     z_q, z_p, kq, kp, kr = fp.fused_posterior_reference(*stats)
     for g, w in zip(got, (z_q, z_p, torch.stack([kq, kp, kr], -1))):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
@@ -425,12 +427,12 @@ def test_embed_pool_replica_kernels_match_plain(cuda, R, D):
     g = torch.randn(R, S, B, K, device=cuda,
                     generator=torch.Generator(device=cuda).manual_seed(R))
     for xs in (x, x[0].expand(R, B, D)):
-        before = (fep.embed_pool.launches, fep.embed_pool_bwd.launches)
+        before = _kernel.launches.copy()
         got = fep.embed_pool(xs, masks, A, C)
         grads = fep.embed_pool_bwd(xs, masks, A, C, g)
         torch.cuda.synchronize()
-        assert (fep.embed_pool.launches, fep.embed_pool_bwd.launches) == (
-            before[0] + 1, before[1] + 1)
+        assert _kernel.launches - before == {"embed_pool_fwd": 1,
+                                             "embed_pool_bwd": 1}
         torch.testing.assert_close(
             got, fep.embed_pool_reference(xs, masks, A, C), rtol=1e-5,
             atol=1e-4)

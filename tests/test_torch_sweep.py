@@ -29,8 +29,7 @@ from vae_posterior_consistency_tpu.utils import early_stopping as jes
 from vae_posterior_consistency_tpu_torch import config as tcfg
 from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
 from vae_posterior_consistency_tpu_torch.engine import train as ttrain
-from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as tfep
-from vae_posterior_consistency_tpu_torch.ops import fused_posterior as tfp
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.parallel import sweep as tsweep
 from vae_posterior_consistency_tpu_torch.utils import early_stopping as tes
 from test_torch_resume import FEW_APART, HIST_RTOL, JaxValKeys, _datasets
@@ -288,12 +287,10 @@ def test_replicas_are_the_serial_runs_of_their_seeds_at_init():
 def test_cpu_ensembles_count_no_launch_and_cuda_needs_a_card():
     _, tc = _cfgs("reg_EDDI1", epoch=1)
     _, tds = _datasets(N, D)
-    before = (tfp.fused_posterior.launches, tfp.fused_posterior.bwd_launches,
-              tfep.embed_pool.launches, tfep.embed_pool_bwd.launches)
+    before = _kernel.launches.copy()
     _, hist = tsweep.train_seed_ensemble(tds, tc, [0, 1], device="cpu")
     assert np.isfinite(hist).all()
-    assert (tfp.fused_posterior.launches, tfp.fused_posterior.bwd_launches,
-            tfep.embed_pool.launches, tfep.embed_pool_bwd.launches) == before
+    assert _kernel.launches == before
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):

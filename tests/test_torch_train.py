@@ -22,8 +22,7 @@ from vae_posterior_consistency_tpu_torch.data import loaders as tloaders
 from vae_posterior_consistency_tpu_torch.engine import checkpoint as tckpt
 from vae_posterior_consistency_tpu_torch.engine import train as ttrain
 from vae_posterior_consistency_tpu_torch.models import get_model
-from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as tfep
-from vae_posterior_consistency_tpu_torch.ops import fused_posterior as tfp
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 
 #: tests/test_golden.py's pinned pairs and tolerance, for the gauss families
 GOLDEN = {
@@ -271,12 +270,10 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 def test_cpu_training_counts_no_kernel_launch_and_cuda_needs_a_card():
     tc = tcfg.RunConfig(vae_type="reg_EDDI1", epoch=1, batch_size=4)
     _, tds = _tiny_datasets(6, 5, seed=4)
-    before = (tfp.fused_posterior.launches, tfep.embed_pool.launches,
-              tfep.embed_pool_bwd.launches)
+    before = _kernel.launches.copy()
     _, hist = ttrain.train(tds, tc, save=False, device="cpu")
     assert np.isfinite(hist).all()
-    assert (tfp.fused_posterior.launches, tfep.embed_pool.launches,
-            tfep.embed_pool_bwd.launches) == before
+    assert _kernel.launches == before
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -120,9 +120,3 @@ def library(stem: str) -> ctypes.CDLL:
             _libs[stem] = lib
         return _libs[stem]
 
-
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
-    if code != 0:
-        msg = lib.vpc_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

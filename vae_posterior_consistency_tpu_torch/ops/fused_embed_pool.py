@@ -22,23 +22,17 @@ backward recomputes the embed and returns dx, dmasks, dA, dC (dA and dC
 For CUDA tensors it launches the kernels or raises; there is no switch back
 to the plain versions and no loop over replicas. Under `torch.func.vmap`
 `EmbedPool.vmap` folds the vmapped axis into the replica axis, so a vmapped
-call is one launch whatever the number of replicas. Forward launches count
-in `embed_pool.launches`, backward launches in `embed_pool_bwd.launches`.
+call is one launch whatever the number of replicas. Launches count in
+`ops/_kernel.launches` (`embed_pool_fwd`, `embed_pool_bwd`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from vae_posterior_consistency_tpu_torch.ops import _build
-from vae_posterior_consistency_tpu_torch.ops.fused_posterior import (
-    fold_replicas,
-    logical_dim,
-    unfold_replicas,
-)
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.utils import tracing
 
 #: values of k one forward block takes (csrc/embed_pool.cu `kChunkK`)
@@ -101,38 +95,20 @@ def fwd_plan(B, D, K, n_sm):
     return k_chunk, segments, rows, staged
 
 
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
-def _lib():
-    lib = _build.library("embed_pool")
-    fwd = lib.vpc_embed_pool_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    bwd = lib.vpc_embed_pool_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    return lib, fwd, bwd
+_fwd = _kernel.entry(
+    "embed_pool", "vpc_embed_pool_fwd",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
+    + [ctypes.c_int], "embed_pool_fwd", embed_pool_reference)
+_bwd = _kernel.entry(
+    "embed_pool", "vpc_embed_pool_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+    + [ctypes.c_int], "embed_pool_bwd", embed_pool_bwd_reference)
 
 
 def _check(x, masks, A, C, what):
     """The kernels' contract on CUDA tensors; returns (S, B, D, K)."""
     tensors = (x, masks, A, C)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise ValueError(f"{what}: x, masks, A, C must lie on one CUDA "
-                         f"device (or all on the CPU), got "
-                         f"{sorted(map(str, devices))}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what}: the kernel takes float32 only, got "
-                        f"{[str(t.dtype) for t in tensors]}")
+    _kernel.check_inputs(what, tensors)
     lead = x.dim() - 2
     want = "x [B,D], masks [S,B,D], A and C [D,K]" if lead == 0 else (
         "x [R,B,D], masks [R,S,B,D], A and C [R,D,K]")
@@ -153,18 +129,13 @@ def _check(x, masks, A, C, what):
     if R and R[0] > MAX_REPLICAS:
         raise ValueError(f"{what}: at most {MAX_REPLICAS} replicas a launch, "
                          f"got {R[0]}")
-    if not (_slices_contiguous(x, lead) and _slices_contiguous(masks, lead)
+    # a copy would be needed where replica_slices is not the identity
+    if not (_kernel.replica_slices(x, lead) is x
+            and _kernel.replica_slices(masks, lead) is masks
             and A.is_contiguous() and C.is_contiguous()):
         raise ValueError(f"{what}: A and C must be contiguous, and so must "
                          "each replica's x and masks")
     return S, B, D, K
-
-
-def _slices_contiguous(t, lead) -> bool:
-    """Whether each replica's slice of `t` is contiguous (the replica
-    stride itself may be anything, 0 included: x and masks shared by the
-    replicas)."""
-    return t[(0,) * lead].is_contiguous() if lead else t.is_contiguous()
 
 
 def _kernel_layout(x, masks, A, C):
@@ -172,12 +143,9 @@ def _kernel_layout(x, masks, A, C):
     replica slices (a replica stride of 0 kept), A and C contiguous (each
     replica's own; one shared by the replicas is materialized)."""
     lead = x.dim() - 2
-    return (_contiguous_slices(x, lead), _contiguous_slices(masks, lead),
-            A.contiguous(), C.contiguous())
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return (_kernel.replica_slices(x, lead),
+            _kernel.replica_slices(masks, lead), A.contiguous(),
+            C.contiguous())
 
 
 def _replica_args(x, masks):
@@ -196,13 +164,10 @@ def _embed_pool_fwd_kernel(x, masks, A, C, S, B, D, K, plan=None):
     lead = () if R is None else (R,)
     out = torch.empty((*lead, S, B, K), device=x.device, dtype=torch.float32)
     k_chunk, segments, rows, staged = plan or fwd_plan(
-        B, D, K, max(1, _sm_count(x.device.index) // n))
-    lib, fwd, _ = _lib()
-    code = fwd(x.data_ptr(), masks.data_ptr(), A.data_ptr(), C.data_ptr(),
-               out.data_ptr(), S, B, D, K, k_chunk, segments, rows,
-               int(staged), x_rs, m_rs, n, x.device.index, _stream(x))
-    _build.check(lib, code, "embed_pool kernel launch")
-    embed_pool.launches += 1
+        B, D, K, max(1, _kernel.sm_count(x.device.index) // n))
+    _fwd(x.device, x.data_ptr(), masks.data_ptr(), A.data_ptr(),
+         C.data_ptr(), out.data_ptr(), S, B, D, K, k_chunk, segments, rows,
+         int(staged), x_rs, m_rs, n)
     return out
 
 
@@ -216,7 +181,6 @@ def _embed_pool_bwd_kernel(x, masks, A, C, g, S, B, D, K, want_dx=True,
     if tuple(g.shape) != (*lead, S, B, K):
         raise ValueError(f"embed_pool_bwd: want g {list((*lead, S, B, K))}, "
                          f"got {list(g.shape)}")
-    lib, _, bwd = _lib()
 
     def out(shape, wanted=True):
         return (torch.empty((*lead, *shape), device=dev, dtype=torch.float32)
@@ -224,13 +188,10 @@ def _embed_pool_bwd_kernel(x, masks, A, C, g, S, B, D, K, want_dx=True,
 
     dx, dm = out((B, D), want_dx), out((S, B, D), want_dm)
     dA, dC = out((D, K)), out((D, K))
-    code = bwd(x.data_ptr(), masks.data_ptr(), A.data_ptr(), C.data_ptr(),
-               g.data_ptr(), dx.data_ptr() if dx is not None else None,
-               dm.data_ptr() if dm is not None else None, dA.data_ptr(),
-               dC.data_ptr(), S, B, D, K, x_rs, m_rs, n, dev.index,
-               _stream(x))
-    _build.check(lib, code, "embed_pool backward kernel launch")
-    embed_pool_bwd.launches += 1
+    _bwd(dev, x.data_ptr(), masks.data_ptr(), A.data_ptr(), C.data_ptr(),
+         g.data_ptr(), dx.data_ptr() if dx is not None else None,
+         dm.data_ptr() if dm is not None else None, dA.data_ptr(),
+         dC.data_ptr(), S, B, D, K, x_rs, m_rs, n)
     return dx, dm, dA, dC
 
 
@@ -239,9 +200,9 @@ def embed_pool_bwd(x, masks, A, C, g, dmasks=True):
     (or [R,S,B,K] with a replica axis). dmasks is None when `dmasks=False`
     (the kernel then skips that write).
 
-    CPU tensors: the plain version. CUDA tensors: the kernel, counted in
-    `embed_pool_bwd.launches`."""
-    if _on_cpu(x, masks, A, C, g):
+    CPU tensors: the plain version. CUDA tensors: the kernel, each launch
+    counted (`ops/_kernel.launches`)."""
+    if _kernel.on_cpu(x, masks, A, C, g):
         dx, dm, dA, dC = embed_pool_bwd_reference(x, masks, A, C, g)
         return dx, dm if dmasks else None, dA, dC
     S, B, D, K = _check(x, masks, A, C, "embed_pool_bwd")
@@ -250,17 +211,6 @@ def embed_pool_bwd(x, masks, A, C, g, dmasks=True):
                          f"on {x.device}")
     return _embed_pool_bwd_kernel(x, masks, A, C, g, S, B, D, K,
                                   want_dm=dmasks)
-
-
-embed_pool_bwd.launches = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
-def _contiguous_slices(t, lead):
-    return t if _slices_contiguous(t, lead) else t.contiguous()
 
 
 class EmbedPool(torch.autograd.Function):
@@ -273,7 +223,7 @@ class EmbedPool(torch.autograd.Function):
 
     @staticmethod
     def forward(x, masks, A, C):
-        if _on_cpu(x, masks, A, C):
+        if _kernel.on_cpu(x, masks, A, C):
             return embed_pool_reference(x, masks, A, C)
         x, masks, A, C = _kernel_layout(x, masks, A, C)
         S, B, D, K = _check(x, masks, A, C, "embed_pool")
@@ -281,7 +231,7 @@ class EmbedPool(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.on_card = not _on_cpu(*inputs)
+        ctx.on_card = not _kernel.on_cpu(*inputs)
         if ctx.on_card:
             inputs = _kernel_layout(*inputs)
             *_, S, B, K = output.shape
@@ -302,10 +252,11 @@ class EmbedPool(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, masks, A, C):
         V = info.batch_size
-        lead = logical_dim(x, in_dims[0]) - 2  # x [B, D]: 0, [R, B, D]: 1
-        folded = [fold_replicas(t, d, V, lead)
+        # x [B, D]: 0, [R, B, D]: 1
+        lead = _kernel.logical_dim(x, in_dims[0]) - 2
+        folded = [_kernel.fold_replicas(t, d, V, lead)
                   for t, d in zip((x, masks, A, C), in_dims)]
-        return unfold_replicas(EmbedPool.apply(*folded), V, lead), 0
+        return _kernel.unfold_replicas(EmbedPool.apply(*folded), V, lead), 0
 
 
 def embed_pool(x, masks, A, C):
@@ -314,11 +265,8 @@ def embed_pool(x, masks, A, C):
     axis).
 
     CPU tensors: the plain versions. CUDA tensors: the kernels, each launch
-    counted (`embed_pool.launches` forward, `embed_pool_bwd.launches`
-    backward). The host's side of the forward (checks, layout, allocation,
-    launch) is the span `ops.embed_pool` (`utils/tracing`)."""
+    counted (`ops/_kernel.launches`). The host's side of the forward
+    (checks, layout, allocation, launch) is the span `ops.embed_pool`
+    (`utils/tracing`)."""
     with tracing.span("ops.embed_pool"):
         return EmbedPool.apply(x, masks, A, C)
-
-
-embed_pool.launches = 0

@@ -27,23 +27,17 @@ CUDA tensors it launches the kernel or raises; there is no switch back to
 the plain version. It has no backward: call it without gradients. Under
 `torch.func.vmap` `IwFused.vmap` folds the vmapped axis into the replica
 axis, so a vmapped call is one launch. Launches count in
-`iw_fused.launches`.
+`ops/_kernel.launches` (`iw_fused`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from vae_posterior_consistency_tpu_torch.nn import core
-from vae_posterior_consistency_tpu_torch.ops import _build
-from vae_posterior_consistency_tpu_torch.ops.fused_posterior import (
-    fold_replicas,
-    logical_dim,
-    unfold_replicas,
-)
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.ops.math import (
     normal_logpdf_scale,
     std_normal_logpdf,
@@ -94,16 +88,6 @@ def iw_fused_reference(x, mask, extra, mean, scale, eps, w1, b1, w2, b2, w3,
     return x_mean, torch.stack(terms)
 
 
-@functools.cache
-def _lib():
-    lib = _build.library("iw_decode")
-    fn = lib.vpc_iw_decode
-    fn.argtypes = [ctypes.POINTER(_Pointers), ctypes.POINTER(_Strides),
-                   ctypes.POINTER(_Dims), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
 class _Pointers(ctypes.Structure):
     """`IwPointers` of csrc/iw_decode.cu."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
@@ -125,23 +109,17 @@ class _Dims(ctypes.Structure):
                                              "B_extra", "blocks")]
 
 
-@functools.cache
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
+_launch = _kernel.entry(
+    "iw_decode", "vpc_iw_decode",
+    [ctypes.POINTER(_Pointers), ctypes.POINTER(_Strides),
+     ctypes.POINTER(_Dims)], "iw_fused", iw_fused_reference)
 
 
 def _shapes(x, mask, extra, mean, scale, eps, leaves):
     """The kernel's contract; returns (lead, B, K, D, L, B_extra), lead 1
     for inputs with a replica axis."""
-    tensors = [t for t in (x, mask, extra, mean, scale, eps, *leaves)
-               if t is not None]
-    devices = {t.device for t in tensors}
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise ValueError(f"iw_fused: every input must lie on one CUDA device "
-                         f"(or all on the CPU), got {sorted(map(str, devices))}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"iw_fused: the kernel takes float32 only, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
+    _kernel.check_inputs("iw_fused", (x, mask, extra, mean, scale, eps,
+                                      *leaves))
     lead = x.dim() - 2
     R = tuple(x.shape[:lead])
     B, D = x.shape[lead:] if lead in (0, 1) else (0, 0)
@@ -168,30 +146,13 @@ def _shapes(x, mask, extra, mean, scale, eps, leaves):
     return lead, B, K, D, L, Be
 
 
-def _columns(t):
-    """`t` with contiguous columns (rows and replicas of any stride)."""
-    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
-
-
-def _slices(t, lead):
-    """`t` with each replica's slice contiguous (the replica stride, 0
-    included, kept), checked on the strides without making a view."""
-    want = 1
-    for size, stride in zip(reversed(t.shape[lead:]),
-                            reversed(t.stride()[lead:])):
-        if size != 1 and stride != want:
-            return t.contiguous()
-        want *= size
-    return t
-
-
 def iw_fused_kernel(x, mask, extra, mean, scale, eps, *leaves):
     """One launch on the card for one run or R replicas: (x_mean, terms),
-    shaped as the module says. Counts each launch in `iw_fused.launches`."""
+    shaped as the module says."""
     lead, B, K, D, L, Be = _shapes(x, mask, extra, mean, scale, eps, leaves)
-    rows = [None if t is None else _columns(t)
+    rows = [None if t is None else _kernel.columns(t)
             for t in (x, mask, extra, mean, scale)]
-    rest = [_slices(t, lead) for t in (eps, *leaves)]
+    rest = [_kernel.replica_slices(t, lead) for t in (eps, *leaves)]
     R = x.shape[:lead]
     n = R[0] if lead else 1
     dev = x.device
@@ -199,7 +160,7 @@ def iw_fused_kernel(x, mask, extra, mean, scale, eps, *leaves):
     terms = torch.empty((*R, 4 if extra is None else 5, B, K), device=dev,
                         dtype=torch.float32)
     tiles = -(-B * K // TILE)
-    blocks = min(-(-tiles // GROUPS), max(1, _sm_count(dev.index) // n))
+    blocks = min(-(-tiles // GROUPS), max(1, _kernel.sm_count(dev.index) // n))
 
     def replicas(t):  # the replica stride, 0 for one run
         return t.stride(0) if lead and t is not None else 0
@@ -210,16 +171,9 @@ def iw_fused_kernel(x, mask, extra, mean, scale, eps, *leaves):
     strides = _Strides(*(0 if t is None else t.stride(-2) for t in rows),
                        *map(replicas, rows), *map(replicas, rest))
     dims = _Dims(n, B, K, D, L, 0 if extra is None else Be, blocks)
-    lib, fn = _lib()
-    code = fn(ctypes.byref(ptrs), ctypes.byref(strides), ctypes.byref(dims),
-              dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "iw_fused kernel launch")
-    iw_fused.launches += 1
+    _launch(dev, ctypes.byref(ptrs), ctypes.byref(strides),
+            ctypes.byref(dims))
     return x_mean, terms
-
-
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
 class IwFused(torch.autograd.Function):
@@ -233,7 +187,7 @@ class IwFused(torch.autograd.Function):
     @staticmethod
     def forward(x, mask, extra, mean, scale, eps, *leaves):
         inputs = (x, mask, extra, mean, scale, eps, *leaves)
-        if not _on_cpu(*inputs):
+        if not _kernel.on_cpu(*inputs):
             return iw_fused_kernel(*inputs)
         if x.dim() == 2:
             return iw_fused_reference(*inputs)
@@ -249,12 +203,12 @@ class IwFused(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, *inputs):
         V = info.batch_size
-        lead = logical_dim(inputs[0], in_dims[0]) - 2  # x [B, D]: 0
-        folded = [None if t is None else fold_replicas(t, d, V, lead)
+        lead = _kernel.logical_dim(inputs[0], in_dims[0]) - 2  # x [B, D]: 0
+        folded = [None if t is None else _kernel.fold_replicas(t, d, V, lead)
                   for t, d in zip(inputs, in_dims)]
         x_mean, terms = IwFused.apply(*folded)
-        return (unfold_replicas(x_mean, V, lead),
-                unfold_replicas(terms, V, lead)), (0, 0)
+        return (_kernel.unfold_replicas(x_mean, V, lead),
+                _kernel.unfold_replicas(terms, V, lead)), (0, 0)
 
 
 def iw_fused(x, mask, extra, mean, scale, eps, decoder):
@@ -264,13 +218,10 @@ def iw_fused(x, mask, extra, mean, scale, eps, decoder):
     where gradients are enabled and an input requires one.
 
     CPU tensors: the plain version. CUDA tensors: the kernel, each launch
-    counted in `iw_fused.launches`."""
+    counted (`ops/_kernel.launches`)."""
     inputs = (x, mask, extra, mean, scale, eps, *decoder_leaves(decoder))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):
         raise RuntimeError("iw_fused has no backward: call it under "
                            "torch.no_grad()")
     return IwFused.apply(*inputs)
-
-
-iw_fused.launches = 0

@@ -25,18 +25,17 @@ replicas. Under `torch.func.vmap` (the ensemble trainers vmap a model's loss
 over its replicas) `FusedPosterior.vmap` folds the vmapped axis into the
 replica axis R, so a vmapped step is one launch of each kernel whatever the
 number of replicas, and its `backward` gets each replica's own KL
-cotangents. Forward launches count in `fused_posterior.launches`, backward
-launches in `fused_posterior.bwd_launches`.
+cotangents. Launches count in `ops/_kernel.launches` (`fused_posterior_fwd`,
+`fused_posterior_bwd`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from vae_posterior_consistency_tpu_torch.ops import _build
+from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.utils import tracing
 
 
@@ -80,50 +79,31 @@ def fused_posterior_backward(inputs, dz_q, dz_p, dkl):
     return g_mq, g_lq, g_mp, g_lp, dz_q * std_q, dz_p * std_p
 
 
-@functools.cache
-def _lib():
-    lib = _build.library("fused_posterior")
-    fwd = lib.vpc_fused_posterior_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                    + [ctypes.c_longlong] * 6
-                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    bwd = lib.vpc_fused_posterior_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                    + [ctypes.c_longlong] * 6
-                    + [ctypes.c_void_p] * 2
-                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] * 2
-                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    return lib, fwd, bwd
-
-
-def _row_major(t):
-    """The kernels take any replica and row strides but contiguous
-    columns."""
-    return t if t.stride(-1) == 1 and t.stride(-2) >= t.shape[-1] else (
-        t.contiguous())
+_fwd = _kernel.entry(
+    "fused_posterior", "vpc_fused_posterior_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3,
+    "fused_posterior_fwd", fused_posterior_reference)
+_bwd = _kernel.entry(
+    "fused_posterior", "vpc_fused_posterior_bwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6
+    + [ctypes.c_void_p] * 2
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] * 2
+    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3,
+    "fused_posterior_bwd", fused_posterior_backward)
 
 
 def _check(tensors, what):
-    """The kernels' contract on the six statistics; returns (R, B, L), R
+    """The kernels' contract on the six statistics (and the cotangents
+    after them, whose shapes the backward checks); returns (R, B, L), R
     None for [B, L] inputs (one run)."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1 or tensors[0].device.type != "cuda":
-        raise ValueError(f"{what}: the six inputs must lie on one CUDA device "
-                         f"(or all on the CPU), got "
-                         f"{sorted(map(str, devices))}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what}: the kernel takes float32 only, got "
-                        f"{[str(t.dtype) for t in tensors]}")
+    _kernel.check_inputs(what, tensors)
     shape = tuple(tensors[0].shape)
     if len(shape) not in (2, 3) or any(tuple(t.shape) != shape
-                                       for t in tensors) or min(shape) < 1:
+                                       for t in tensors[:6]) or min(shape) < 1:
         raise ValueError(f"{what}: want six [B, L] or six [R, B, L] inputs, "
-                         f"got {[tuple(t.shape) for t in tensors]}")
+                         f"got {[tuple(t.shape) for t in tensors[:6]]}")
     return (None, *shape) if len(shape) == 2 else shape
 
 
@@ -132,30 +112,26 @@ def _replicas(t):
     return t if t.dim() == 3 else t.unsqueeze(0)
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+def _rows(t):
+    """A statistic as the kernels take it: [R, B, L], contiguous columns."""
+    return _kernel.columns(_replicas(t), apart=True)
 
 
 def fused_posterior_kernel(mean_q, logvar_q, mean_p, logvar_p, eps_q, eps_p):
     """The forward on the card, one launch for any number of replicas:
     (z_q, z_p, kl), kl [3] for [B, L] inputs and [R, 3] for [R, B, L]
-    inputs. Counts each launch in `fused_posterior.launches`."""
+    inputs."""
     tensors = (mean_q, logvar_q, mean_p, logvar_p, eps_q, eps_p)
     R, B, L = _check(tensors, "fused_posterior")
-    tensors = [_row_major(_replicas(t)) for t in tensors]
-    lib, fwd, _ = _lib()
+    tensors = [_rows(t) for t in tensors]
     dev = mean_q.device
     n = R or 1
     z_q = torch.empty((n, B, L), device=dev, dtype=torch.float32)
     z_p = torch.empty((n, B, L), device=dev, dtype=torch.float32)
     kl = torch.empty((n, 3), device=dev, dtype=torch.float32)
-    code = fwd(*(t.data_ptr() for t in tensors),
-               *(t.stride(1) for t in tensors),
-               *(t.stride(0) for t in tensors),
-               z_q.data_ptr(), z_p.data_ptr(), kl.data_ptr(), n, B, L,
-               dev.index, _stream(dev))
-    _build.check(lib, code, "fused_posterior kernel launch")
-    fused_posterior.launches += 1
+    _fwd(dev, *(t.data_ptr() for t in tensors),
+         *(t.stride(1) for t in tensors), *(t.stride(0) for t in tensors),
+         z_q.data_ptr(), z_p.data_ptr(), kl.data_ptr(), n, B, L)
     if R is None:
         return z_q.view(B, L), z_p.view(B, L), kl.view(3)
     return z_q, z_p, kl
@@ -167,40 +143,28 @@ def fused_posterior_backward_kernel(inputs, dz_q, dz_p, dkl,
     gradients of the six inputs (None where `needs` says no; the kernel
     skips those writes), shaped like the inputs. dz_q and dz_p may have any
     strides, dkl ([3], or [R, 3] for [R, B, L] inputs) any strides; nothing
-    is copied and nothing waits on the host. Counts each launch in
-    `fused_posterior.bwd_launches`."""
-    R, B, L = _check(inputs, "fused_posterior backward")
+    is copied and nothing waits on the host."""
+    R, B, L = _check((*inputs, dz_q, dz_p, dkl), "fused_posterior backward")
     dev = inputs[0].device
     lead = () if R is None else (R,)
     for name, t, shape in (("dz_q", dz_q, (*lead, B, L)),
                            ("dz_p", dz_p, (*lead, B, L)),
                            ("dkl", dkl, (*lead, 3))):
-        if t.device != dev or t.dtype != torch.float32 or (
-                tuple(t.shape) != shape):
+        if tuple(t.shape) != shape:
             raise ValueError(f"fused_posterior backward: want {name} "
-                             f"float32 {list(shape)} on {dev}, got "
-                             f"{t.dtype} {list(t.shape)} on {t.device}")
-    inputs = [_row_major(_replicas(t)) for t in inputs]
+                             f"{list(shape)}, got {list(t.shape)}")
+    inputs = [_rows(t) for t in inputs]
     dz_q, dz_p = _replicas(dz_q), _replicas(dz_p)
     dkl = dkl if dkl.dim() == 2 else dkl.unsqueeze(0)
-    lib, _, bwd = _lib()
     n = R or 1
     grads = [torch.empty((*lead, B, L), device=dev, dtype=torch.float32)
              if need else None for need in needs]
-    code = bwd(*(t.data_ptr() for t in inputs),
-               *(t.stride(1) for t in inputs),
-               *(t.stride(0) for t in inputs),
-               dz_q.data_ptr(), dz_p.data_ptr(), *dz_q.stride(),
-               *dz_p.stride(), dkl.data_ptr(), *dkl.stride(),
-               *(g.data_ptr() if g is not None else None for g in grads),
-               n, B, L, dev.index, _stream(dev))
-    _build.check(lib, code, "fused_posterior backward kernel launch")
-    fused_posterior.bwd_launches += 1
+    _bwd(dev, *(t.data_ptr() for t in inputs),
+         *(t.stride(1) for t in inputs), *(t.stride(0) for t in inputs),
+         dz_q.data_ptr(), dz_p.data_ptr(), *dz_q.stride(), *dz_p.stride(),
+         dkl.data_ptr(), *dkl.stride(),
+         *(g.data_ptr() if g is not None else None for g in grads), n, B, L)
     return tuple(grads)
-
-
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
 
 
 class FusedPosterior(torch.autograd.Function):
@@ -215,7 +179,7 @@ class FusedPosterior(torch.autograd.Function):
     @staticmethod
     def forward(mean_q, logvar_q, mean_p, logvar_p, eps_q, eps_p):
         inputs = (mean_q, logvar_q, mean_p, logvar_p, eps_q, eps_p)
-        if _on_cpu(*inputs):
+        if _kernel.on_cpu(*inputs):
             z_q, z_p, kl_q, kl_p, kl_reg = fused_posterior_reference(*inputs)
             return z_q, z_p, torch.stack([kl_q, kl_p, kl_reg], dim=-1)
         return fused_posterior_kernel(*inputs)
@@ -227,7 +191,7 @@ class FusedPosterior(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz_q, dz_p, dkl):
         inputs, need = ctx.saved_tensors, ctx.needs_input_grad
-        if _on_cpu(*inputs, dz_q, dz_p, dkl):
+        if _kernel.on_cpu(*inputs, dz_q, dz_p, dkl):
             grads = fused_posterior_backward(inputs, dz_q, dz_p, dkl)
             return tuple(g if n else None for g, n in zip(grads, need))
         return fused_posterior_backward_kernel(inputs, dz_q, dz_p, dkl,
@@ -237,47 +201,23 @@ class FusedPosterior(torch.autograd.Function):
     def vmap(info, in_dims, *inputs):
         V = info.batch_size
         # 0 for [B, L] inputs, 1 for [R, B, L]
-        lead = logical_dim(inputs[0], in_dims[0]) - 2
-        folded = [fold_replicas(t, d, V, lead)
+        lead = _kernel.logical_dim(inputs[0], in_dims[0]) - 2
+        folded = [_kernel.fold_replicas(t, d, V, lead)
                   for t, d in zip(inputs, in_dims)]
         z_q, z_p, kl = FusedPosterior.apply(*folded)
-        return tuple(unfold_replicas(t, V, lead) for t in (z_q, z_p, kl)), (
-            0, 0, 0)
-
-
-def logical_dim(t, dim) -> int:
-    """The number of axes a vmap rule's input `t` has inside the vmap."""
-    return t.dim() - (dim is not None)
-
-
-def fold_replicas(t, dim, V, lead):
-    """A vmap rule's input `t` (vmapped at `dim`, or not vmapped: None) as V
-    replicas folded into its replica axis: [V, ...] when it has none inside
-    the vmap (`lead` 0), [V*R, ...] when it has R (`lead` 1). An input that
-    is not vmapped is expanded without a copy (stride 0 on the new axis)."""
-    t = t.movedim(dim, 0) if dim is not None else t.expand(V, *t.shape)
-    return t.flatten(0, 1) if lead else t
-
-
-def unfold_replicas(t, V, lead):
-    """An output of a folded call back as [V, ...]: unchanged for `lead` 0,
-    [V, R, ...] for `lead` 1."""
-    return t.unflatten(0, (V, -1)) if lead else t
+        return tuple(_kernel.unfold_replicas(t, V, lead)
+                     for t in (z_q, z_p, kl)), (0, 0, 0)
 
 
 def fused_posterior(mean_q, logvar_q, mean_p, logvar_p, eps_q, eps_p):
     """(z_q, z_p, KL_q, KL_p, KL_reg) in one fused pass, differentiable.
 
-    CPU tensors: the plain versions. CUDA tensors: the kernels, counted in
-    `fused_posterior.launches` (forward) and `fused_posterior.bwd_launches`
-    (backward). The host's side of the forward is the span
-    `ops.fused_posterior` (`utils/tracing`)."""
+    CPU tensors: the plain versions. CUDA tensors: the kernels, each launch
+    counted (`ops/_kernel.launches`). The host's side of the forward is the
+    span `ops.fused_posterior` (`utils/tracing`)."""
     with tracing.span("ops.fused_posterior"):
         z_q, z_p, kl = FusedPosterior.apply(mean_q, logvar_q, mean_p,
                                             logvar_p, eps_q, eps_p)
     kl_q, kl_p, kl_reg = kl.unbind(-1)
     return z_q, z_p, kl_q, kl_p, kl_reg
 
-
-fused_posterior.launches = 0
-fused_posterior.bwd_launches = 0
