@@ -491,8 +491,8 @@ CSV_TYPES = ("reg_vae1", "reg_EDDI1")
 CSV_EPOCHS = 20
 #: IW1 against its plain version on the card (tests/test_torch_iw_fused.py's
 #: limits): both compute in float32 from the same inputs and differ only in
-#: the order of their sums, so x_mean (in [0, 1]) lies within
-#: IW1_X_MEAN_ATOL and each per-sample sum within IW1_TERMS_RTOL of its size
+#: the order of their sums, so x_imputed (in [0, 1]) lies within
+#: IW1_X_MEAN_ATOL and every other output within IW1_TERMS_RTOL of its size
 #: or IW1_TERMS_ATOL near zero
 IW1_X_MEAN_ATOL = 2e-6
 IW1_TERMS_RTOL = 2e-5
@@ -581,13 +581,16 @@ def fused_posterior_bwd_bound_ms(B, L, eps=False):
 
 def iw_fused_bound_ms(B, K, D, L):
     """IW1: 2 (L*128 + 128*128 + 128*3D) FLOP of dense products a sample
-    (the density's elementwise work not counted); reads eps and writes
-    x_mean and four sums a sample, reads x, mask, mean, scale a row and the
-    decoder once."""
+    and 2 (D*128 + 128*128 + 128*2L) a row for the encoder (the density's
+    and the reductions' elementwise work not counted); reads eps a sample,
+    x and mask a row and both networks once, writes x_imputed, three row
+    values, mean and scale a row."""
     n = B * K
-    ops = 2 * n * (L * 128 + 128 * 128 + 128 * 3 * D)
-    nbytes = 4 * (n * (L + D + 4) + B * (2 * D + 2 * L)
-                  + L * 128 + 128 * 128 + 128 * 3 * D + 256 + 3 * D)
+    ops = 2 * n * (L * 128 + 128 * 128 + 128 * 3 * D) + 2 * B * (
+        D * 128 + 128 * 128 + 128 * 2 * L)
+    nbytes = 4 * (n * L + B * (3 * D + 3 + 2 * L)
+                  + L * 128 + 128 * 128 + 128 * 3 * D + 256 + 3 * D
+                  + D * 128 + 128 * 128 + 128 * 2 * L + 256 + 2 * L)
     return _bound(nbytes, ops)
 
 
@@ -1906,49 +1909,76 @@ def main() -> int:
                                  f"{n_plain} device operations")
 
         # IW1 as an evaluation batch of record 4 (vanilla_MIWAE1, valid_k
-        # 5000) launches it: a stream of 64 rows, then the 17-row test batch,
+        # 5000) calls it: a stream of 64 rows, then the 17-row test batch,
         # on the parameters of phase 7 (d); each held against its plain
-        # version on the same inputs first
+        # version on the same inputs first. A call is two device operations:
+        # the encoder, then the body with its reductions over K
         iw_cfg = miwae_cfg.replace(vae_type="vanilla_MIWAE1")
         iw_err = {}
+        enc, dec = miwae_params["encoder"], miwae_params["decoder"]
+        leaves = (*fiw.mlp_leaves(enc), *fiw.mlp_leaves(dec))
         for Bi in (64, 17):
             xi = miwae_data.train.x[:Bi]
             mi = miwae_data.train.mask[:Bi]
             ei = torch.randn(Bi, iw_cfg.valid_k, LATENT, device="cuda",
                              generator=gen)
             with torch.no_grad():
-                mean_i, scale_i = miwae.encode(miwae_params, xi, mi, iw_cfg)
-                dec = miwae_params["decoder"]
-                leaves = fiw.decoder_leaves(dec)
-                got_x, got_t = fiw.iw_fused(xi, mi, None, mean_i, scale_i, ei,
-                                            dec)
-                want_x, want_t = fiw.iw_fused_reference(
-                    xi, mi, None, mean_i, scale_i, ei, *leaves)
-                gap_x = (got_x - want_x).abs().max().item()
-                gap_t = (got_t - want_t).abs().max().item()
-                rel_t = ((got_t - want_t).abs()
-                         / (want_t.abs() + 1.0)).max().item()
-                iw_err[Bi] = max(gap_x, gap_t)
+                got = fiw.iw_fused(xi, mi, None, ei, enc, dec,
+                                   miwae.NEGL_DIVISOR)
+                want = fiw.iw_fused_reference(xi, mi, None, ei,
+                                              miwae.NEGL_DIVISOR, *leaves)
+                gaps = [max_abs(g, w) for g, w in zip(got, want)]
+                iw_err[Bi] = max(gaps)
                 print(f"IW1 iw_fused [{Bi}, {iw_cfg.valid_k}] against its "
-                      f"plain version: max abs diff x_mean {gap_x:.3e}, "
-                      f"terms {gap_t:.3e} (relative {rel_t:.3e})",
-                      flush=True)
-                torch.testing.assert_close(got_x, want_x, rtol=0,
+                      f"plain version: max abs diff x_imputed {gaps[0]:.3e}, "
+                      f"per_row {gaps[1]:.3e}, mean {gaps[2]:.3e}, scale "
+                      f"{gaps[3]:.3e}", flush=True)
+                torch.testing.assert_close(got[0], want[0], rtol=0,
                                            atol=IW1_X_MEAN_ATOL)
-                torch.testing.assert_close(got_t, want_t,
-                                           rtol=IW1_TERMS_RTOL,
-                                           atol=IW1_TERMS_ATOL)
+                for g, w in zip(got[1:], want[1:]):
+                    torch.testing.assert_close(g, w, rtol=IW1_TERMS_RTOL,
+                                               atol=IW1_TERMS_ATOL)
                 times[f"iw_fused_{Bi}"] = timed(
                     f"IW1 iw_fused [{Bi}, {iw_cfg.valid_k}], D={WINE_D}, "
                     f"L={LATENT} (record 4's evaluation batch)",
-                    lambda: fiw.iw_fused(xi, mi, None, mean_i, scale_i, ei,
-                                         dec),
-                    lambda: fiw.iw_fused_reference(xi, mi, None, mean_i,
-                                                   scale_i, ei, *leaves),
+                    lambda: fiw.iw_fused(xi, mi, None, ei, enc, dec,
+                                         miwae.NEGL_DIVISOR),
+                    lambda: fiw.iw_fused_reference(
+                        xi, mi, None, ei, miwae.NEGL_DIVISOR, *leaves),
                     iw_fused_bound_ms(Bi, iw_cfg.valid_k, WINE_D, LATENT))
-            if times[f"iw_fused_{Bi}"][4] != 1:
+            if times[f"iw_fused_{Bi}"][4] != 2:
                 raise AssertionError(f"IW1 [{Bi}]: {times[f'iw_fused_{Bi}'][4]}"
-                                     " device operations a call, not 1")
+                                     " device operations a call, not 2")
+            if Bi == 64:
+                # the model's whole step: IW1's two operations, nothing else
+                with torch.no_grad():
+                    n_step = device_ops(lambda: lambda: miwae.eval_step(
+                        miwae_params, xi, mi, None, ei, iw_cfg))
+                print(f"vanilla_MIWAE1 eval_step [64, {iw_cfg.valid_k}]: "
+                      f"{n_step} device operations a call", flush=True)
+                if n_step != 2:
+                    raise AssertionError(f"a vanilla MIWAE eval_step is "
+                                         f"{n_step} device operations, not 2")
+        # one eval_vae call of miwae_wine's shape (record 4, both splits,
+        # 3 + 1 batches): its device operations, from a trace of the call
+        evaluate.eval_vae(miwae_data, iw_cfg, params=miwae_params,
+                          save=False, device="cuda")
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            evaluate.eval_vae(miwae_data, iw_cfg, params=miwae_params,
+                              save=False, device="cuda")
+            torch.cuda.synchronize()
+        on_card = profile_train.device_events(prof)
+        iw_names = sum("iw_" in e.name for e in on_card)
+        print(f"vanilla_MIWAE1 eval_vae on the wine splits "
+              f"({miwae_data.train.n} + {miwae_data.test.n} rows, valid_k "
+              f"{iw_cfg.valid_k}): "
+              + (f"{len(on_card)} device operations a call, {iw_names} of "
+                 f"them IW1's" if on_card else
+                 "device operations not measured (the trace held none)")
+              + f" [{card}]", flush=True)
 
         timed_srv = serve.ImputationServer(params, cfg, 784,
                                            device="cuda").warmup()

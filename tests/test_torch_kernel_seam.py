@@ -46,14 +46,17 @@ def _iw():
     B, K, D, L, H = 3, 5, 4, 2, fused_iw.HIDDEN
     x, extra = _randn(B, D, seed=1), _randn(2, D, seed=2)
     mask = (_randn(B, D, seed=3) > 0).float()
-    mean, scale = _randn(B, L, seed=4), _randn(B, L, seed=5).exp()
-    widths = ((L, H), (H, H), (H, 3 * D))
-    decoder = {f"layer{i}": {"w": _randn(*wh, seed=10 + i) * 0.1,
-                             "b": _randn(wh[1], seed=20 + i) * 0.1}
-               for i, wh in enumerate(widths)}
+
+    def mlp(widths, seed):
+        return {f"layer{i}": {"w": _randn(*wh, seed=seed + i) * 0.1,
+                              "b": _randn(wh[1], seed=seed + 10 + i) * 0.1}
+                for i, wh in enumerate(widths)}
+
+    encoder = mlp(((D, H), (H, H), (H, 2 * L)), 10)
+    decoder = mlp(((L, H), (H, H), (H, 3 * D)), 30)
     with torch.no_grad():
-        fused_iw.iw_fused(x, mask, extra, mean, scale, _randn(B, K, L),
-                          decoder)
+        fused_iw.iw_fused(x, mask, extra, _randn(B, K, L), encoder, decoder,
+                          5000.0)
 
 
 #: a CPU call of each kernel's public wrapper, by its name in `launches`

@@ -351,13 +351,20 @@ class _NoTracing:
         pass
 
 
+@pytest.mark.parametrize("path", ["fused", "eager"])
 @pytest.mark.parametrize("vae_type,branches", [("vanilla_MIWAE1", 1),
                                                ("reg_MIWAE1", 2)])
-def test_miwae_spans_nest_in_the_model_step(vae_type, branches, monkeypatch):
-    """A profiled `eval_vae` of a MIWAE type records the model's four spans
+def test_miwae_spans_nest_in_the_model_step(vae_type, branches, path,
+                                            monkeypatch):
+    """A profiled `eval_vae` of a MIWAE type records the model's spans
     inside each `model.eval_step` and `iw_samples` = rows x K decoded (both
-    branches of a regularized type); unprofiled it records nothing, and the
-    results are bit-equal to those of the model without its spans."""
+    branches of a regularized type): on IW1's path (`_fused`, which
+    `eval_vae` takes) the one call under `miwae.decode` and `iw_fused_rows`
+    = the stream's rows; on the eager path all four spans. Unprofiled it
+    records nothing, and the results are bit-equal to those of the model
+    without its spans."""
+    if path == "eager":
+        monkeypatch.setattr(miwae, "_fused", lambda: False)
     cfg = RunConfig(vae_type=vae_type, valid_k=16, M=1)
     ds = loaders.data_loader(os.path.join(REPO, "Data"), cfg.vae_type, 50,
                              64, "wine", device="cpu")
@@ -374,12 +381,22 @@ def test_miwae_spans_nest_in_the_model_step(vae_type, branches, monkeypatch):
              for _ in range(-(-s.n // min(cfg.batch_size, s.n)))]
     model = {s.id for s in spans["model.eval_step"]}
     assert len(model) == len(steps)
+    recorded = MIWAE_SPANS if path == "eager" else ("miwae.decode",)
     for name in MIWAE_SPANS:
+        if name not in recorded:
+            assert name not in spans, name
+            continue
         assert len(spans[name]) == len(steps), name
         assert {s.parent for s in spans[name]} == model, name
-    samples = by_name(recs, tracing.Count)["iw_samples"]
+    counts = by_name(recs, tracing.Count)
+    samples = counts["iw_samples"]
     assert {c.parent for c in samples} == model
     assert sum(c.n for c in samples) == branches * sum(steps) * cfg.valid_k
+    if path == "fused":
+        assert sum(c.n for c in counts["iw_fused_rows"]) == (
+            branches * sum(steps))
+    else:
+        assert "iw_fused_rows" not in counts
     monkeypatch.setattr(miwae, "tracing", _NoTracing)
     plain = evaluate.eval_vae(ds, cfg, params=params, save=False,
                               device="cpu")

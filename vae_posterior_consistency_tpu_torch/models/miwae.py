@@ -22,29 +22,29 @@ one stacked [2B] stream through the encoder and the decoder. K is the
 noise's sample axis: cfg.train_k in training and cfg.valid_k in
 evaluation, as `train_noise` and `eval_noise` give the engine.
 
-`eval_step` computes its per-sample terms in one pass, IW1
-(`ops/fused_iw`: a CUDA kernel on the card, on the CPU its plain version,
-this module's eager composition to the bit), wherever it runs without
-gradients in float32 (`_fused`): `eval_vae`, `evaluate_sharded`,
-`inference.completion` and `serve`. Where gradients are enabled or
-`compute_dtype('bfloat16')` is active it runs `forward` and `_branch_terms`,
-as `train_loss` always does (IW1 has no backward); AIS calls the layers
-itself.
+`eval_step` runs its whole stream as one IW1 call (`ops/fused_iw`: a
+CUDA kernel on the card, on the CPU its plain version, this module's eager
+composition to the bit): the encoder, the per-sample terms and each row's
+reductions over K, wherever it runs without gradients in float32
+(`_fused`): `eval_vae`, `evaluate_sharded`, `inference.completion` and
+`serve`. Where gradients are enabled or `compute_dtype('bfloat16')` is
+active it runs `forward`, `_branch_terms` and `ops/fused_iw.reduce_over_k`,
+as `train_loss` always runs the first two (IW1 has no backward); AIS calls
+the layers itself.
 
-Under a torch profiler the importance-weighted path records the spans
-`miwae.encode` (the encoder), `miwae.decode` (the reparameterised z and the
-Student-t decoder over B*K samples; on IW1's path the whole kernel, the
-log-density and its sums included), `miwae.likelihood` (the Student-t
-log-density, its masked sums, log p(z) and log q; on IW1's path the sum
-log_w = logpxobs + log p(z) - log q), `miwae.weights` (the logsumexp over
-K, the softmax and the imputation) and the counters `iw_samples` (rows x K
-decoded, once a `forward` or an IW1 call) and `iw_fused_samples` (the same,
-once an IW1 call) (`utils/tracing`).
+Under a torch profiler the eager path records the spans `miwae.encode`
+(the encoder), `miwae.decode` (the reparameterised z and the Student-t
+decoder over B*K samples), `miwae.likelihood` (the Student-t log-density,
+its masked sums, log p(z) and log q) and `miwae.weights` (the logsumexp
+over K, the softmax and the imputation); IW1's path records only
+`miwae.decode`, around the one call, which holds all of that work. The
+counters (`utils/tracing`): `iw_samples` (rows x K decoded, once a
+`forward` or an IW1 call), `iw_fused_samples` (the same, once an IW1 call)
+and `iw_fused_rows` (the stream's rows, whose reductions over K the call
+made, once an IW1 call).
 """
 
 from __future__ import annotations
-
-from typing import NamedTuple, Optional
 
 import torch
 
@@ -166,27 +166,18 @@ def _extra_sum(log_pxz, extra):
     return torch.sum(log_pxz[:extra.shape[0]] * extra[:, None, :], dim=-1)
 
 
+def _row_kl_reg(mean, scale, B):
+    """The mean over L of the elementwise q/p KL of the stacked statistics
+    (q rows :B, p rows B:), a row."""
+    return torch.mean(kl_diag_diag_scale_elems(
+        mean[:B], scale[:B], mean[B:], scale[B:]), dim=-1)
+
+
 def _reg_terms(mean, scale, extra_sum, B):
     """Per row: the extra likelihood reward (`extra_sum` [B, K]) meaned over
     K, and the mean over L of the elementwise q/p KL of the stacked
     statistics (q rows :B, p rows B:)."""
-    row_reg_like = torch.mean(extra_sum, dim=1)
-    row_kl_reg = torch.mean(kl_diag_diag_scale_elems(
-        mean[:B], scale[:B], mean[B:], scale[B:]), dim=-1)
-    return row_reg_like, row_kl_reg
-
-
-class IwTerms(NamedTuple):
-    """An evaluation stream's terms: the encoder's mean and scale [B, L],
-    x_mean [B, K, D], log_w and logpx_imp [B, K], and extra_sum [B_extra, K]
-    (None without `extra`)."""
-
-    mean: torch.Tensor
-    scale: torch.Tensor
-    x_mean: torch.Tensor
-    log_w: torch.Tensor
-    logpx_imp: torch.Tensor
-    extra_sum: Optional[torch.Tensor]
+    return torch.mean(extra_sum, dim=1), _row_kl_reg(mean, scale, B)
 
 
 def _fused() -> bool:
@@ -195,35 +186,31 @@ def _fused() -> bool:
     return not torch.is_grad_enabled() and core.active_dtype() == "float32"
 
 
-def _iw_terms(params, x, mask, extra, eps, cfg) -> IwTerms:
-    """The stream's terms through IW1: the encoder, then one IW1 call for
-    z, the decoder, the Student-t log-density and its sums (under `mask`,
-    1 - mask and, where given, `extra` [B_extra, D] on the first B_extra
-    rows), then log_w = logpxobs + log p(z) - log q."""
-    with tracing.span("miwae.encode"):
-        mean, scale = encode(params, x, mask, cfg)
+def _fused_rows(params, x, mask, extra, eps):
+    """The stream's (x_imputed, per_row, mean, scale) from one IW1 call: the
+    encoder, z, the decoder, the Student-t log-density and its sums (under
+    `mask`, 1 - mask and, where given, `extra` [B_extra, D] on the first
+    B_extra rows), and the reductions over K (`ops/fused_iw`)."""
     with tracing.span("miwae.decode"):
-        x_mean, terms = fused_iw.iw_fused(x, mask, extra, mean, scale, eps,
-                                          params["decoder"])
+        out = fused_iw.iw_fused(x, mask, extra, eps, params["encoder"],
+                                params["decoder"], NEGL_DIVISOR)
     samples = eps.shape[0] * eps.shape[1]
     tracing.count("iw_samples", samples)
     tracing.count("iw_fused_samples", samples)
-    with tracing.span("miwae.likelihood"):
-        log_w = terms[0] + terms[2] - terms[3]
-    extra_sum = None if extra is None else terms[4, :extra.shape[0]]
-    return IwTerms(mean, scale, x_mean, log_w, terms[1], extra_sum)
+    tracing.count("iw_fused_rows", x.shape[0])
+    return out
 
 
-def _eval_terms(params, x, mask, extra, eps, cfg) -> IwTerms:
-    """The stream's terms: IW1 where `_fused`, else `forward` and
-    `_branch_terms` as training runs them."""
-    if _fused():
-        return _iw_terms(params, x, mask, extra, eps, cfg)
+def _eager_rows(params, x, mask, extra, eps, cfg):
+    """The same from `forward`, `_branch_terms` and the reductions over K,
+    as training runs the first two."""
     out = forward(params, x, mask, eps, cfg)
     _, log_w, logpx_imp, log_pxz = _branch_terms(out, x, mask)
     extra_sum = None if extra is None else _extra_sum(log_pxz, extra)
-    return IwTerms(out["mean"], out["scale"], out["x_mean"], log_w,
-                   logpx_imp, extra_sum)
+    with tracing.span("miwae.weights"):
+        x_imputed, per_row = fused_iw.reduce_over_k(
+            log_w, out["x_mean"], logpx_imp, extra_sum, NEGL_DIVISOR)
+    return x_imputed, per_row, out["mean"], out["scale"]
 
 
 def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
@@ -260,29 +247,29 @@ def eval_step(params, x, mask, mask_p, eps, cfg):
     """llh_eval semantics (reference: VAE.py:3095-3099, 3254-3258), per row:
     the importance-weighted imputation xm = sum_k w_k x_mean_k and the
     bound. `mean(row_*)` equals the reference's batch scalars. `mask_p` is
-    read by regularized types only."""
+    read by regularized types only. Without gradients in float32 the whole
+    stream is one IW1 call (`_fused`)."""
     B = x.shape[0]
+    extra = None
+    if cfg.info.regularized:
+        # the q (rows :B) and p (rows B:) branches as one stacked stream
+        x, mask, extra = (torch.cat([x, x]), torch.cat([mask, mask_p]),
+                          _extra_mask(mask, mask_p))
+        eps = eps.reshape(2 * B, *eps.shape[2:])
+    if _fused():
+        x_imputed, per_row, mean, scale = _fused_rows(params, x, mask, extra,
+                                                      eps)
+    else:
+        x_imputed, per_row, mean, scale = _eager_rows(params, x, mask, extra,
+                                                      eps, cfg)
     if not cfg.info.regularized:
-        t = _eval_terms(params, x, mask, None, eps, cfg)
-        with tracing.span("miwae.weights"):
-            xm = torch.einsum("bk,bkd->bd", torch.softmax(t.log_w, dim=1),
-                              t.x_mean)
-            row_loss = -torch.logsumexp(t.log_w, dim=1)
-        row_negl = torch.sum(t.logpx_imp, dim=1) / NEGL_DIVISOR
-        return {"x_imputed": xm, "row_loss": row_loss,
-                "row_negl": row_negl, "row_negl_imp": row_negl}
+        negl = per_row[1]
+        return {"x_imputed": x_imputed, "row_loss": per_row[0],
+                "row_negl": negl, "row_negl_imp": negl}
 
-    # the q (rows :B) and p (rows B:) branches as one stacked stream
-    t = _eval_terms(params, torch.cat([x, x]), torch.cat([mask, mask_p]),
-                    _extra_mask(mask, mask_p),
-                    eps.reshape(2 * B, *eps.shape[2:]), cfg)
-    with tracing.span("miwae.weights"):
-        xm = torch.einsum("bk,bkd->bd", torch.softmax(t.log_w[:B], dim=1),
-                          t.x_mean[:B])
-        row_neg_bound_q = -torch.logsumexp(t.log_w[:B], dim=1)
-        row_neg_bound_p = -torch.logsumexp(t.log_w[B:], dim=1)
-    row_reg_like, row_kl_reg = _reg_terms(t.mean, t.scale, t.extra_sum, B)
+    row_neg_bound_q, row_neg_bound_p = per_row[0, :B], per_row[0, B:]
+    row_kl_reg = _row_kl_reg(mean, scale, B)
     row_loss = row_neg_bound_q + cfg.alpha * (
-        row_kl_reg - row_neg_bound_q + row_neg_bound_p - row_reg_like)
-    return {"x_imputed": xm, "row_loss": row_loss, "row_negl": row_loss,
-            "row_negl_imp": row_loss}
+        row_kl_reg - row_neg_bound_q + row_neg_bound_p - per_row[2, :B])
+    return {"x_imputed": x_imputed[:B], "row_loss": row_loss,
+            "row_negl": row_loss, "row_negl_imp": row_loss}
