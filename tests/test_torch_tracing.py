@@ -3,8 +3,8 @@ torch profiler records; nesting, parents and one root a request under one;
 thread-local stacks; counter events; the cap; one clock with the
 profiler's events; the spans merged into `profile_trace`'s Chrome trace
 (and an entry point's `-profile DIR`); and the spans and counters of the
-evaluator, the server, the trainer, the AL engine and the MIWAE model on
-the CPU."""
+evaluator, the server, the trainer, the AL engine, the MIWAE model, the
+MNAR evaluator and the notMIWAE model on the CPU."""
 
 import collections
 import contextlib
@@ -26,8 +26,15 @@ from vae_posterior_consistency_tpu_torch.engine import (
     serve,
     train,
 )
-from vae_posterior_consistency_tpu_torch.experiment_main import imputation
-from vae_posterior_consistency_tpu_torch.models import get_model, miwae
+from vae_posterior_consistency_tpu_torch.experiment_main import (
+    imputation,
+    imputation_mnar,
+)
+from vae_posterior_consistency_tpu_torch.models import (
+    get_model,
+    miwae,
+    notmiwae,
+)
 from vae_posterior_consistency_tpu_torch.utils import logging, tracing
 from cli_harness import REPO
 
@@ -401,3 +408,102 @@ def test_miwae_spans_nest_in_the_model_step(vae_type, branches, path,
     plain = evaluate.eval_vae(ds, cfg, params=params, save=False,
                               device="cpu")
     assert off == on == plain  # the same floats, bit for bit
+
+
+# -- the MNAR evaluator and the notMIWAE model's spans ------------------------
+
+NOTMIWAE_SPANS = ("notmiwae.encode", "notmiwae.decode", "notmiwae.likelihood",
+                  "notmiwae.missingness", "notmiwae.weights")
+
+
+def _mnar(M, valid_k=16):
+    cfg = RunConfig(vae_type="reg_notMIWAE1", valid_k=valid_k, M=M)
+    ds = loaders.data_loader_mnar(os.path.join(REPO, "Data"), cfg.vae_type,
+                                  50, 64, "wine", device="cpu")
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 ds.obs_dim, device="cpu")
+    return cfg, ds.train, params
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_eval_vae_mnar_spans_nest_and_read_once(M, monkeypatch):
+    """A profiled `eval_vae_mnar` call records its root `eval_vae_mnar`;
+    in it, a rep's `eval.draw` and `model.eval_step`, the model's five
+    spans inside each `model.eval_step`, and `eval.readback` around the
+    call's one `host_reads`; `iw_samples` = rows x K a rep. Unprofiled it
+    records nothing, and the RMSE is bit-equal to that of the model
+    without its spans."""
+    cfg, split, params = _mnar(M)
+    call = lambda: evaluate.eval_vae_mnar(  # noqa: E731
+        split.x, split.mask, cfg, params=params, save=False, device="cpu")
+    off = call()
+    assert tracing.spans() == []
+    with profiler():
+        on = call()
+    recs = tracing.take()
+    spans = by_name(recs)
+    (root,) = spans["eval_vae_mnar"]
+    assert root.parent is None
+    steps = {s.id for s in spans["model.eval_step"]}
+    assert len(steps) == len(spans["eval.draw"]) == M
+    assert {s.parent for s in spans["model.eval_step"] + spans["eval.draw"]
+            } == {root.id}
+    for name in NOTMIWAE_SPANS:
+        assert len(spans[name]) == M, name
+        assert {s.parent for s in spans[name]} == steps, name
+    (read,) = spans["eval.readback"]
+    assert read.parent == root.id
+    assert all(s.root == root.id for r in spans.values() for s in r)
+    counts = by_name(recs, tracing.Count)
+    (reads,) = counts["host_reads"]
+    assert reads.n == 1 and reads.parent == read.id
+    samples = counts["iw_samples"]
+    assert {c.parent for c in samples} == steps
+    assert sum(c.n for c in samples) == M * split.n * cfg.valid_k
+    monkeypatch.setattr(notmiwae, "tracing", _NoTracing)
+    assert off == on == call()  # the same float, bit for bit
+
+
+def test_mnar_ensemble_evaluation_has_the_root_span():
+    cfg, split, params = _mnar(1)
+    ens = checkpoint.unflatten({k: torch.stack([v, v]) for k, v in
+                                checkpoint.flatten(params).items()})
+    with profiler():
+        evaluate.eval_vae_mnar_ensemble(split.x, split.mask, cfg, ens,
+                                        save=False, device="cpu")
+    recs = tracing.take()
+    spans = by_name(recs)
+    (root,) = spans["eval_vae_mnar"]
+    assert {s.root for r in spans.values() for s in r} == {root.id}
+    assert len(spans["notmiwae.decode"]) == 1
+    assert sum(c.n for c in by_name(recs, tracing.Count)["host_reads"]) == 1
+
+
+def test_profile_flag_of_the_mnar_entry_point_writes_the_spans(tmp_path,
+                                                               monkeypatch):
+    """`-profile DIR` on the CPU (the MNAR grid's record 2, reg_notMIWAE1,
+    one epoch, valid_k cut to 20): the Chrome trace holds the MNAR
+    evaluator's and the model's spans and both counters."""
+    os.makedirs(tmp_path / "Data")
+    shutil.copytree(os.path.join(REPO, "Data", "wine"),
+                    tmp_path / "Data" / "wine")
+    record = json.loads(open(os.path.join(
+        REPO, "Data", "imputation_args_mnar.json")).readlines()[1])
+    assert record["vae_type"]["default"] == "reg_notMIWAE1"
+    (tmp_path / "Data" / "imputation_args_mnar.json").write_text(
+        json.dumps(record) + "\n")
+    monkeypatch.chdir(tmp_path)
+    assert imputation_mnar.main(["-device", "cpu", "-valid_k", "20",
+                                 "-profile", "prof"]) == 0
+    (trace,) = os.listdir("prof")
+    with open(os.path.join("prof", trace)) as fh:
+        events = json.load(fh)["traceEvents"]
+    vpc = [e for e in events if e.get("cat") == "vpc"]
+    names = collections.Counter(e["name"] for e in vpc if e["ph"] == "X")
+    assert names["eval_vae_mnar"] == 1 and names["eval.readback"] == 1
+    for name in NOTMIWAE_SPANS:
+        # the training steps' model spans, and the evaluation's once
+        assert names[name] >= 2, name
+    counters = {e["name"] for e in vpc if e["ph"] == "C"}
+    assert {"host_reads", "iw_samples"} <= counters
+    assert tracing.spans() == []

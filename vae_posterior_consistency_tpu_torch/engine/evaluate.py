@@ -32,7 +32,10 @@ profiler a call records the spans `eval_vae` (its root), `eval.split`,
 the replay, with `graph=1`), `eval.stats` (a replay's copy out),
 `eval.capture` and `eval.readback`, one `host_reads` a split, and the
 counters `eval_eager_batches`, `eval_graph_captures` and
-`eval_graph_replays` (`utils/tracing`).
+`eval_graph_replays` (`utils/tracing`). An MNAR call (either evaluator
+below) records its root span `eval_vae_mnar`, `eval.draw` and
+`model.eval_step` a rep, and `eval.readback` around its one host read,
+with one `host_reads`.
 
 It serves every family. Those whose `eval_kind` is 'miwae' (MIWAE and
 notMIWAE) evaluate with cfg.valid_k importance samples a row and save only
@@ -356,11 +359,13 @@ def eval_vae_mnar(data, mask, cfg: RunConfig, params: Optional[dict] = None,
         params = load_trained(dataset, cfg, experiments_root, device=device)
     params = checkpoint.on_device(params, device)
     noise = GeneratorNoise(cfg.seed + 2, device) if noise is None else noise
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("eval_vae_mnar"):
         # one rep at a time, as the JAX package maps over them
         reps = [_mnar_rep(model, cfg, params, x, mask, noise, m)
                 for m in range(cfg.M)]
-        rmse = torch.stack(reps).mean().item()  # the one host sync
+        with tracing.span("eval.readback"):
+            rmse = torch.stack(reps).mean().item()  # the one host sync
+            tracing.count("host_reads")
     if save:
         paths = artifacts.eval_mnar_paths(cfg, experiments_root)
         artifacts.save_tensor(rmse, paths["rmse"])
@@ -514,7 +519,7 @@ def eval_vae_mnar_ensemble(data, mask, cfg: RunConfig, params_ens,
     S = next(iter(checkpoint.flatten(params_ens).values())).shape[0]
     noise = GeneratorNoise(cfg.seed + 2, device) if noise is None else noise
     chunk = _replica_chunk(model, cfg, x.shape[0])
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("eval_vae_mnar"):
         reps = []
         for m in range(cfg.M):
             # the replicas share the data, the mask and the draws
@@ -522,7 +527,9 @@ def eval_vae_mnar_ensemble(data, mask, cfg: RunConfig, params_ens,
             reps.append(_chunked(
                 lambda p: _mnar_rmse(model, cfg, p, x, mask, mask_p, eps),
                 params_ens, (), S, chunk))
-        rmses = torch.stack(reps).mean(dim=0).cpu().numpy()
+        with tracing.span("eval.readback"):
+            rmses = torch.stack(reps).mean(dim=0).cpu().numpy()
+            tracing.count("host_reads")
     if save:
         paths = artifacts.eval_mnar_paths(cfg, experiments_root)
         artifacts.save_tensor(float(rmses[0]), paths["rmse"])

@@ -26,6 +26,15 @@ Where the JAX functions take a PRNG key, these take the noise: `eps`
 branch) for a regularized type's; and for the 'sampled_mask' variant
 `mask_s`, the uniforms [B, D] of its Bernoulli draw: JAX's
 `bernoulli(ks, p)` is `uniform(ks, p.shape) < p`.
+
+Under a torch profiler a step records the spans `notmiwae.encode` (the
+encoder), `notmiwae.decode` (the reparameterised z and the decoder's trunk
+and heads over B*K samples), `notmiwae.likelihood` (RE, log q, log p),
+`notmiwae.missingness` (x_mixed, the missingness logits and the Bernoulli
+log-pmf of the mask) and `notmiwae.weights` (the logsumexp over K, the
+softmax and the imputation), nested in the caller's `model.eval_step` or
+`model.train_loss`, and the counter `iw_samples` (rows x K decoded, once a
+`forward`) (`utils/tracing`).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from vae_posterior_consistency_tpu_torch.ops.math import (
     softmax_neg,
     std_normal_logpdf,
 )
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 
 def train_noise(cfg, B, D):
@@ -97,10 +107,13 @@ def encode(params, x, mask, cfg):
 def forward(params, x, mask, eps, cfg):
     """K samples for noise `eps` [B, K, L]: a dict of [B, K, ...] tensors
     and the [B, L] posterior statistics."""
-    mean, logvar = encode(params, x, mask, cfg)
-    z = mean[:, None, :] + torch.exp(0.5 * logvar)[:, None, :] * eps
-    x_mean, x_logvar = layers.notmiwae_decoder_apply(
-        params["decoder"], z, variant=cfg.not_miwae_type)
+    with tracing.span("notmiwae.encode"):
+        mean, logvar = encode(params, x, mask, cfg)
+    with tracing.span("notmiwae.decode"):
+        z = mean[:, None, :] + torch.exp(0.5 * logvar)[:, None, :] * eps
+        x_mean, x_logvar = layers.notmiwae_decoder_apply(
+            params["decoder"], z, variant=cfg.not_miwae_type)
+    tracing.count("iw_samples", eps.shape[0] * eps.shape[1])
     return {"mean": mean, "logvar": logvar, "z": z, "x_mean": x_mean,
             "x_logvar": x_logvar}
 
@@ -122,24 +135,26 @@ def _x_mixed(out, x, m):
 
 def _branch(params, out, x, mask, missing_process, with_s=True):
     """RE, KL, log p(s|x) and l_w of one branch, all [B, K]."""
-    m = mask[:, None, :]
-    new_x = x[:, None, :]
-    RE = -torch.sum(normal_logpdf(new_x * m, out["x_mean"] * m,
-                                  out["x_logvar"] * m), dim=-1)
-    # KL = log q(z) - log p(z), Monte Carlo with the decoder's z
-    # (the reference redraws z: VAE.py:2791-2798)
-    logq = torch.sum(normal_logpdf(out["z"], out["mean"][:, None, :],
-                                   out["logvar"][:, None, :]), dim=-1)
-    logp = torch.sum(std_normal_logpdf(out["z"]), dim=-1)
-    KL = logq - logp
-    l_w = RE + KL
-    log_p_s = torch.zeros_like(RE)
+    with tracing.span("notmiwae.likelihood"):
+        m = mask[:, None, :]
+        new_x = x[:, None, :]
+        RE = -torch.sum(normal_logpdf(new_x * m, out["x_mean"] * m,
+                                      out["x_logvar"] * m), dim=-1)
+        # KL = log q(z) - log p(z), Monte Carlo with the decoder's z
+        # (the reference redraws z: VAE.py:2791-2798)
+        logq = torch.sum(normal_logpdf(out["z"], out["mean"][:, None, :],
+                                       out["logvar"][:, None, :]), dim=-1)
+        logp = torch.sum(std_normal_logpdf(out["z"]), dim=-1)
+        KL = logq - logp
+        l_w = RE + KL
+        log_p_s = torch.zeros_like(RE)
     if with_s:
-        logits = missingness_logits(params, _x_mixed(out, x, m),
-                                    missing_process)
-        log_p_s = torch.sum(bernoulli_logits_logpmf(
-            logits, m.expand(logits.shape)), dim=-1)
-        l_w = l_w - log_p_s
+        with tracing.span("notmiwae.missingness"):
+            logits = missingness_logits(params, _x_mixed(out, x, m),
+                                        missing_process)
+            log_p_s = torch.sum(bernoulli_logits_logpmf(
+                logits, m.expand(logits.shape)), dim=-1)
+            l_w = l_w - log_p_s
     return RE, KL, log_p_s, l_w
 
 
@@ -172,12 +187,15 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg, mask_s=None,
     if not cfg.info.regularized:
         out_q = forward(params, x, mask, eps, cfg)
         RE_q, _, _, l_w_q = _branch(params, out_q, x, mask, missing_process)
-        return _bound(l_w_q, K, fixed), {"RE_q": torch.mean(RE_q)}
+        with tracing.span("notmiwae.weights"):
+            loss_q = _bound(l_w_q, K, fixed)
+        return loss_q, {"RE_q": torch.mean(RE_q)}
 
     variant = cfg.reg_notmiwae_variant
     out_q = forward(params, x, mask, eps[0], cfg)
     _, _, _, l_w_q = _branch(params, out_q, x, mask, missing_process)
-    loss_q = _bound(l_w_q, K, fixed)
+    with tracing.span("notmiwae.weights"):
+        loss_q = _bound(l_w_q, K, fixed)
 
     if variant == "sampled_mask":
         # REG_notMIWAE_new_version: mask_p drawn from the learned p(s|x) of
@@ -194,7 +212,8 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg, mask_s=None,
     out_p = forward(params, x, mask_p, eps[1], cfg)
     _, _, _, l_w_p = _branch(params, out_p, x, mask_p, missing_process,
                              with_s=with_s_p)
-    loss_p = _bound(l_w_p, K, fixed)
+    with tracing.span("notmiwae.weights"):
+        loss_p = _bound(l_w_p, K, fixed)
 
     # the elementwise q/p KL's mean (the reference's `.mean()`, VAE.py:2448)
     B, L = out_q["mean"].shape
@@ -216,7 +235,8 @@ def eval_step(params, x, mask, mask_p, eps, cfg,
     K = eps.shape[-2]
     out_q = forward(params, x, mask, eps, cfg)
     RE_q, _, _, l_w_q = _branch(params, out_q, x, mask, missing_process)
-    row_re = torch.mean(RE_q, dim=1)
-    return {"x_imputed": _impute(l_w_q, out_q["x_mean"]),
-            "row_loss": _row_bound(l_w_q, K, cfg.fixed_iwae_bound),
-            "row_negl": row_re, "row_negl_imp": row_re}
+    with tracing.span("notmiwae.weights"):
+        row_re = torch.mean(RE_q, dim=1)
+        return {"x_imputed": _impute(l_w_q, out_q["x_mean"]),
+                "row_loss": _row_bound(l_w_q, K, cfg.fixed_iwae_bound),
+                "row_negl": row_re, "row_negl_imp": row_re}
