@@ -78,27 +78,32 @@ Run from the root of a checkout. It drives only the port
    and not the launch set the time (S=2, B=4096), B1
    (`fused_posterior_kernel`) and its backward as the step calls it
    (`FusedPosterior.backward` for the four statistics, through autograd),
-   at [64, 10] and at a diagnostic [4096, 10]; each figure with
+   at [64, 10] and at a diagnostic [4096, 10]; IW1 at record 4's
+   evaluation batches [64, 5000] and [17, 5000], and IW2 at the MNAR
+   records' [178, 10000] and an eval_vae batch's [64, 10000], each against
+   its plain version first; each figure with
    the number of device operations one call makes, counted in a CUDA graph
-   captured from one call, which must be 1 for each B1 kernel;
+   captured from one call, which must be 1 for each B1 kernel and 2 for
+   IW1 and IW2;
 10. serving (b), every family at the wine width (D=13) from seeded
    parameters, buckets 1, 8 and 64: vanilla_MIWAE1 and record 1's
    reg_MIWAE1 at its valid_k=5000 importance samples a row,
    vanilla_notMIWAE1 at the same valid_k, and record 10's reg_flow1 with
    ActNorm (non-identity affines): observed cells unchanged, every output
-   finite, no kernel launched, no plain version on a CUDA tensor; a CPU
+   finite, IW1 once a request of a MIWAE type and IW2 of the notMIWAE one
+   and no other kernel launched, no plain version on a CUDA tensor; a CPU
    server fed the card's recorded noise must agree; the p50 latency of a
    request of 64 rows and the peak device memory of each;
 11. MNAR evaluation (a): engine/evaluate.eval_vae_mnar on the 178 rows of
    the MNAR wine table (data_loader_mnar: rows permuted, target column
    dropped) for both records of Data/imputation_args_mnar.json
    (vanilla_notMIWAE1, reg_notMIWAE1) from seeded parameters, at M=2 and
-   valid_k cut from 10000 to 500: no kernel, the RMSE against a CPU
-   eval_vae_mnar fed the card's recorded noise;
+   valid_k cut from 10000 to 500: IW2 once a rep and no other kernel, the
+   RMSE against a CPU eval_vae_mnar fed the card's recorded noise;
 12. MNAR grid (b): the entry point experiment_main/imputation_mnar.py in a
    temporary directory with Data linked in, over both records as they
    stand (epoch 1, batch 128, valid_k 10000, M=1, p_missingness 50): both
-   run, no kernel, each RMSE finite and equal to its artifact at its
+   run, IW2 once a record's evaluation and no other kernel, each RMSE finite and equal to its artifact at its
    eval_mnar_paths name, each checkpoint at its reference name; each
    record's wall-clock, and of its valid_k=10000 evaluation (1.78 M
    decoder rows in one eval_step) the peak device memory and, under
@@ -497,6 +502,13 @@ CSV_EPOCHS = 20
 IW1_X_MEAN_ATOL = 2e-6
 IW1_TERMS_RTOL = 2e-5
 IW1_TERMS_ATOL = 5e-5
+#: IW2 against its plain version on the card, the MNAR cell's limits
+#: (tests/test_torch_notmiwae_fused.py): x_imputed within IW2_IMPUTED_ATOL,
+#: the bound and the mean of RE within IW2_ROW_RTOL of max(1, their size)
+IW2_IMPUTED_ATOL = 1e-6
+IW2_ROW_RTOL = 1e-6
+#: the MNAR records' importance samples a row (Data/imputation_args_mnar.json)
+MNAR_VALID_K = 10000
 
 
 def runs_iw1(cfg) -> bool:
@@ -505,6 +517,13 @@ def runs_iw1(cfg) -> bool:
     `eval_step` without gradients."""
     return ("MIWAE" in cfg.vae_type and "notMIWAE" not in cfg.vae_type
             and cfg.compute_dtype == "float32")
+
+
+def runs_iw2(cfg) -> bool:
+    """Whether `cfg`'s evaluation launches IW2: a notMIWAE type computing in
+    float32 under the default missingness process, as models/notmiwae
+    chooses it; once an `eval_step` without gradients."""
+    return "notMIWAE" in cfg.vae_type and cfg.compute_dtype == "float32"
 
 
 @contextlib.contextmanager
@@ -591,6 +610,21 @@ def iw_fused_bound_ms(B, K, D, L):
     nbytes = 4 * (n * L + B * (3 * D + 3 + 2 * L)
                   + L * 128 + 128 * 128 + 128 * 3 * D + 256 + 3 * D
                   + D * 128 + 128 * 128 + 128 * 2 * L + 256 + 2 * L)
+    return _bound(nbytes, ops)
+
+
+def iw_mnar_bound_ms(B, K, D, L):
+    """IW2: 2 (L*128 + 128*128 + 128*2D) FLOP of dense products a sample
+    and 2 (D*128 + 128*128 + 128*2L) a row for the encoder (the ELUs', the
+    per-feature terms' and the reductions' elementwise work not counted);
+    reads eps a sample, x and mask a row and the parameters once, writes
+    x_imputed, two row values, mean and logvar a row."""
+    n = B * K
+    ops = 2 * n * (L * 128 + 128 * 128 + 128 * 2 * D) + 2 * B * (
+        D * 128 + 128 * 128 + 128 * 2 * L)
+    nbytes = 4 * (n * L + B * (3 * D + 2 + 2 * L)
+                  + L * 128 + 128 * 128 + 128 * 2 * D + 256 + 2 * D
+                  + D * 128 + 128 * 128 + 128 * 2 * L + 256 + 2 * L + 2 * D)
     return _bound(nbytes, ops)
 
 
@@ -834,11 +868,13 @@ def main() -> int:
         get_model,
         layers,
         miwae,
+        notmiwae,
     )
     from vae_posterior_consistency_tpu_torch.ops import _build, _kernel
     from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
     from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
     from vae_posterior_consistency_tpu_torch.ops import fused_iw as fiw
+    from vae_posterior_consistency_tpu_torch.ops import fused_iw_mnar as fim
 
     reset_counts = _kernel.launches.clear
 
@@ -1959,6 +1995,66 @@ def main() -> int:
                 if n_step != 2:
                     raise AssertionError(f"a vanilla MIWAE eval_step is "
                                          f"{n_step} device operations, not 2")
+        # IW2 as eval_vae_mnar calls it for the MNAR grid's records (all
+        # 178 rows of the MNAR wine table at valid_k 10000), then as an
+        # eval_vae batch of 64 of them at that valid_k, on seeded
+        # parameters of the grid's 'changed' network; each held against its
+        # plain version first. A call is two device operations: the
+        # encoder, then the body with its reductions over K
+        iw2_cfg = RunConfig(vae_type="reg_notMIWAE1", latent_dim=LATENT,
+                            valid_k=MNAR_VALID_K, not_miwae_type="changed")
+        iw2_data = loaders.data_loader_mnar(str(REPO / "Data"),
+                                            iw2_cfg.vae_type, 50, 128,
+                                            "wine", device="cuda")
+        iw2_D = iw2_data.obs_dim
+        iw2_p = get_model(iw2_cfg).init(
+            torch.Generator(device="cuda").manual_seed(SEED), iw2_cfg,
+            iw2_D, device="cuda")
+        iw2_leaves = fim.leaves_of(iw2_p)
+        iw2_err = {}
+        for Bi in (iw2_data.train.n, 64):
+            xi = iw2_data.train.x[:Bi]
+            mi = iw2_data.train.mask[:Bi]
+            ei = torch.randn(Bi, iw2_cfg.valid_k, LATENT, device="cuda",
+                             generator=gen)
+            with torch.no_grad():
+                got = fim.iw_mnar(xi, mi, ei, iw2_p, iw2_cfg)
+                want = fim.iw_mnar_reference(xi, mi, ei, iw2_cfg,
+                                             *iw2_leaves)
+                x_gap = max_abs(got[0], want[0])
+                row_gap = float(((got[1] - want[1]).abs()
+                                 / want[1].abs().clamp(min=1.0)).max())
+                iw2_err[Bi] = max(x_gap, row_gap)
+                print(f"IW2 iw_mnar [{Bi}, {iw2_cfg.valid_k}] against its "
+                      f"plain version: max abs diff x_imputed {x_gap:.3e}, "
+                      f"per_row (relative) {row_gap:.3e}, mean "
+                      f"{max_abs(got[2], want[2]):.3e}, logvar "
+                      f"{max_abs(got[3], want[3]):.3e}", flush=True)
+                if not (x_gap <= IW2_IMPUTED_ATOL and row_gap <= IW2_ROW_RTOL):
+                    raise AssertionError(f"IW2 [{Bi}]: x_imputed {x_gap}, "
+                                         f"per_row {row_gap}")
+                times[f"iw_mnar_{Bi}"] = timed(
+                    f"IW2 iw_mnar [{Bi}, {iw2_cfg.valid_k}], D={iw2_D}, "
+                    f"L={LATENT} (the MNAR records' evaluation)" if Bi != 64
+                    else f"IW2 iw_mnar [64, {iw2_cfg.valid_k}], D={iw2_D}, "
+                    f"L={LATENT} (an eval_vae batch)",
+                    lambda: fim.iw_mnar(xi, mi, ei, iw2_p, iw2_cfg),
+                    lambda: fim.iw_mnar_reference(xi, mi, ei, iw2_cfg,
+                                                  *iw2_leaves),
+                    iw_mnar_bound_ms(Bi, iw2_cfg.valid_k, iw2_D, LATENT))
+            if times[f"iw_mnar_{Bi}"][4] != 2:
+                raise AssertionError(f"IW2 [{Bi}]: {times[f'iw_mnar_{Bi}'][4]}"
+                                     " device operations a call, not 2")
+            if Bi != 64:
+                # the model's whole step: IW2's two operations, nothing else
+                with torch.no_grad():
+                    n_step = device_ops(lambda: lambda: notmiwae.eval_step(
+                        iw2_p, xi, mi, None, ei, iw2_cfg))
+                print(f"reg_notMIWAE1 eval_step [{Bi}, {iw2_cfg.valid_k}]: "
+                      f"{n_step} device operations a call", flush=True)
+                if n_step != 2:
+                    raise AssertionError(f"a notMIWAE eval_step is {n_step} "
+                                         "device operations, not 2")
         # one eval_vae call of miwae_wine's shape (record 4, both splits,
         # 3 + 1 batches): its device operations, from a trace of the call
         evaluate.eval_vae(miwae_data, iw_cfg, params=miwae_params,
@@ -2039,9 +2135,11 @@ def main() -> int:
                 outs = [srv.impute(wx[:n], wm[:n]) for n in SERVE_B_BUCKETS]
             launched = counts()
             peak = torch.cuda.max_memory_allocated()
-            # IW1 once a request for the MIWAE types
+            # IW1 once a request for the MIWAE types, IW2 for notMIWAE
             want = {**no_kernel, "iw_fused": len(SERVE_B_BUCKETS)
-                    if runs_iw1(scfg) else 0}
+                    if runs_iw1(scfg) else 0,
+                    "iw_mnar": len(SERVE_B_BUCKETS)
+                    if runs_iw2(scfg) else 0}
             if launched != want:
                 raise AssertionError(f"serving {label} launched {launched}, "
                                      f"want {want}")
@@ -2126,9 +2224,10 @@ def main() -> int:
                     mnar.train.x, mnar.train.mask, ecfg, params=card_p,
                     noise=noise, save=False, device="cuda")
             launched = counts()
-            if launched != no_kernel:
+            if launched != {**no_kernel, "iw_mnar": ecfg.M}:
                 raise AssertionError(f"MNAR eval of {ecfg.vae_type} "
-                                     f"launched {launched}")
+                                     f"launched {launched}, not IW2 once a "
+                                     "rep")
             replay = iter([t.cpu() for t in kept])
             want = evaluate.eval_vae_mnar(
                 mnar.train.x.cpu(), mnar.train.mask.cpu(), ecfg,
@@ -2194,7 +2293,9 @@ def main() -> int:
                 trainer.train, evaluate.eval_vae_mnar = real_train, real_eval
                 os.chdir(cwd)
             grid_counts = counts()
-            if rc != 0 or grid_counts != no_kernel:
+            # IW2 once a record's evaluation rep; training runs no kernel
+            if rc != 0 or grid_counts != {
+                    **no_kernel, "iw_mnar": sum(c.M for c in mnar_cfgs)}:
                 raise AssertionError(f"the MNAR grid returned {rc}, launched "
                                      f"{grid_counts}")
             if [r["cfg"].vae_type for r in per_record] != [
@@ -2980,6 +3081,20 @@ def main() -> int:
             "al_launches": al_counts["iw_fused"],
             "ais_launches": ais_counts["iw_fused"],
             "bf16_launches": bf16_launches["iw_fused"]})
+    # IW2 replaces no Pallas kernel either (the JAX package computes
+    # notMIWAE in jnp): its error against its plain version and its times at
+    # the MNAR records' evaluation and an eval_vae batch
+    for Bi in (iw2_data.train.n, 64):
+        k_ms, p_ms, b_ms, b_by, n_ops = times[f"iw_mnar_{Bi}"]
+        kernels.append({
+            "name": "iw_mnar", "route": "cuda",
+            "source": csrc + "iw_decode.cu", "replaces": None,
+            "shape": [Bi, MNAR_VALID_K, iw2_D, LATENT],
+            "launches_per_call": n_ops, "max_abs_err": iw2_err[Bi],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "ais_launches": ais_counts["iw_mnar"],
+            "bf16_launches": bf16_launches["iw_mnar"]})
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -4783,6 +4898,8 @@ def completeness_phase(env) -> dict:
                 want_l["embed_pool_fwd"] = len(rows)
             if runs_iw1(cfg):  # IW1 once a request
                 want_l["iw_fused"] = len(rows)
+            if runs_iw2(cfg):  # IW2 once a request
+                want_l["iw_mnar"] = len(rows)
             if launched != want_l:
                 raise AssertionError(f"{label}: serving launched {launched},"
                                      f" want {want_l}")

@@ -9,9 +9,11 @@ import sys
 import pytest
 import torch
 
+from vae_posterior_consistency_tpu_torch.config import RunConfig
+from vae_posterior_consistency_tpu_torch.models import notmiwae
 from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
-from vae_posterior_consistency_tpu_torch.ops import fused_iw
+from vae_posterior_consistency_tpu_torch.ops import fused_iw, fused_iw_mnar
 from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
 
 
@@ -59,6 +61,17 @@ def _iw():
                           5000.0)
 
 
+def _iw_mnar():
+    """IW2 at B=3, K=5, D=4, L=2, on seeded notMIWAE parameters."""
+    cfg = RunConfig(vae_type="vanilla_notMIWAE1", latent_dim=2, valid_k=5)
+    params = notmiwae.init(torch.Generator().manual_seed(0), cfg, 4,
+                           device="cpu")
+    mask = (_randn(3, 4, seed=3) > 0).float()
+    with torch.no_grad():
+        fused_iw_mnar.iw_mnar(_randn(3, 4, seed=1), mask, _randn(3, 5, 2),
+                              params, cfg)
+
+
 #: a CPU call of each kernel's public wrapper, by its name in `launches`
 CALLS = {
     "fused_posterior_fwd": lambda: _posterior(False),
@@ -66,6 +79,7 @@ CALLS = {
     "embed_pool_fwd": lambda: _embed_pool(False),
     "embed_pool_bwd": lambda: _embed_pool(True),
     "iw_fused": _iw,
+    "iw_mnar": _iw_mnar,
 }
 
 

@@ -67,6 +67,26 @@ def by_name(records, kind=tracing.Span):
     return out
 
 
+def test_muted_records_nothing_on_its_thread():
+    """Inside `muted` no span or counter is recorded (a kernel's plain
+    version running a model's spanned composition); around it, as before,
+    and nested mutes unwind."""
+    tracing.take()
+    with profiler():
+        with tracing.span("outer"):
+            with tracing.muted():
+                with tracing.muted():
+                    tracing.count("deep")
+                with tracing.span("inner"):
+                    tracing.count("hidden")
+            tracing.count("after")
+    recs = tracing.take()
+    assert sorted(r.name for r in recs) == ["after", "outer"]
+    (after,) = [r for r in recs if r.name == "after"]
+    (outer,) = [r for r in recs if r.name == "outer"]
+    assert after.parent == outer.id
+
+
 def test_off_records_nothing_and_returns_the_shared_no_op():
     assert not tracing.recording()
     sp = tracing.span("a", rows=3)
@@ -425,14 +445,17 @@ def _mnar(M, valid_k=16):
     return cfg, ds.train, params
 
 
-@pytest.mark.parametrize("M", [1, 2])
-def test_eval_vae_mnar_spans_nest_and_read_once(M, monkeypatch):
+def _check_mnar_spans(M, path, monkeypatch):
     """A profiled `eval_vae_mnar` call records its root `eval_vae_mnar`;
-    in it, a rep's `eval.draw` and `model.eval_step`, the model's five
-    spans inside each `model.eval_step`, and `eval.readback` around the
-    call's one `host_reads`; `iw_samples` = rows x K a rep. Unprofiled it
-    records nothing, and the RMSE is bit-equal to that of the model
-    without its spans."""
+    in it, a rep's `eval.draw` and `model.eval_step`, the model's spans
+    inside each `model.eval_step` (on IW2's path, `_fused`, which the
+    evaluator takes, the one call under `notmiwae.decode`; on the eager
+    path all five), and `eval.readback` around the call's one
+    `host_reads`; `iw_samples` = rows x K a rep, and on IW2's path
+    `iw_fused_samples` the same. Unprofiled it records nothing, and the
+    RMSE is bit-equal to that of the model without its spans."""
+    if path == "eager":
+        monkeypatch.setattr(notmiwae, "_fused", lambda: False)
     cfg, split, params = _mnar(M)
     call = lambda: evaluate.eval_vae_mnar(  # noqa: E731
         split.x, split.mask, cfg, params=params, save=False, device="cpu")
@@ -448,7 +471,11 @@ def test_eval_vae_mnar_spans_nest_and_read_once(M, monkeypatch):
     assert len(steps) == len(spans["eval.draw"]) == M
     assert {s.parent for s in spans["model.eval_step"] + spans["eval.draw"]
             } == {root.id}
+    recorded = NOTMIWAE_SPANS if path == "eager" else ("notmiwae.decode",)
     for name in NOTMIWAE_SPANS:
+        if name not in recorded:
+            assert name not in spans, name
+            continue
         assert len(spans[name]) == M, name
         assert {s.parent for s in spans[name]} == steps, name
     (read,) = spans["eval.readback"]
@@ -460,8 +487,21 @@ def test_eval_vae_mnar_spans_nest_and_read_once(M, monkeypatch):
     samples = counts["iw_samples"]
     assert {c.parent for c in samples} == steps
     assert sum(c.n for c in samples) == M * split.n * cfg.valid_k
+    fused = counts.get("iw_fused_samples", [])
+    assert sum(c.n for c in fused) == (
+        0 if path == "eager" else M * split.n * cfg.valid_k)
     monkeypatch.setattr(notmiwae, "tracing", _NoTracing)
     assert off == on == call()  # the same float, bit for bit
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_eval_vae_mnar_spans_nest_and_read_once(M, monkeypatch):
+    _check_mnar_spans(M, "fused", monkeypatch)
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_eval_vae_mnar_spans_on_the_eager_path(M, monkeypatch):
+    _check_mnar_spans(M, "eager", monkeypatch)
 
 
 def test_mnar_ensemble_evaluation_has_the_root_span():

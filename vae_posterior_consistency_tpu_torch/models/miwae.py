@@ -49,7 +49,6 @@ from __future__ import annotations
 import torch
 
 from vae_posterior_consistency_tpu_torch.models import layers
-from vae_posterior_consistency_tpu_torch.nn import core
 from vae_posterior_consistency_tpu_torch.ops import fused_iw
 from vae_posterior_consistency_tpu_torch.ops.math import (
     kl_diag_diag_scale_elems,
@@ -180,10 +179,9 @@ def _reg_terms(mean, scale, extra_sum, B):
     return torch.mean(extra_sum, dim=1), _row_kl_reg(mean, scale, B)
 
 
-def _fused() -> bool:
-    """Whether `eval_step` runs IW1: without gradients (it has no backward)
-    and with float32 products (it computes in float32 only)."""
-    return not torch.is_grad_enabled() and core.active_dtype() == "float32"
+#: whether `eval_step` runs IW1: the rule notMIWAE's IW2 shares (patch it
+#: here to send this model's steps down the eager path)
+_fused = fused_iw.fused_eval
 
 
 def _fused_rows(params, x, mask, extra, eps):

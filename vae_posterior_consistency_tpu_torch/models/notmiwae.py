@@ -27,14 +27,28 @@ branch) for a regularized type's; and for the 'sampled_mask' variant
 `mask_s`, the uniforms [B, D] of its Bernoulli draw: JAX's
 `bernoulli(ks, p)` is `uniform(ks, p.shape) < p`.
 
-Under a torch profiler a step records the spans `notmiwae.encode` (the
-encoder), `notmiwae.decode` (the reparameterised z and the decoder's trunk
-and heads over B*K samples), `notmiwae.likelihood` (RE, log q, log p),
+`eval_step` runs as one IW2 call (`ops/fused_iw_mnar`: a CUDA kernel on the
+card, on the CPU its plain version, this module's eager composition to the
+bit): the encoder, the per-sample terms and each row's reductions over K,
+wherever it runs without gradients in float32 (`_fused`, the rule
+`models/miwae` shares) under the self-masking-known missingness process,
+the one every evaluation caller passes: `eval_vae_mnar` and its ensemble,
+`eval_vae`, `evaluate_sharded`, `inference.completion` and `serve`. Where
+gradients are enabled, `compute_dtype('bfloat16')` is active or another
+process is asked for, it runs `_eager_rows` (`forward`, `_branch` and the
+reductions over K), as `train_loss` always runs the first two (IW2 has no
+backward); AIS calls the layers itself.
+
+Under a torch profiler the eager path records the spans `notmiwae.encode`
+(the encoder), `notmiwae.decode` (the reparameterised z and the decoder's
+trunk and heads over B*K samples), `notmiwae.likelihood` (RE, log q, log p),
 `notmiwae.missingness` (x_mixed, the missingness logits and the Bernoulli
 log-pmf of the mask) and `notmiwae.weights` (the logsumexp over K, the
 softmax and the imputation), nested in the caller's `model.eval_step` or
-`model.train_loss`, and the counter `iw_samples` (rows x K decoded, once a
-`forward`) (`utils/tracing`).
+`model.train_loss`; IW2's path records only `notmiwae.decode`, around the
+one call, which holds all of that work. The counters (`utils/tracing`):
+`iw_samples` (rows x K decoded, once a `forward` or an IW2 call) and
+`iw_fused_samples` (the same, once an IW2 call).
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.models import layers
 from vae_posterior_consistency_tpu_torch.nn import core
+from vae_posterior_consistency_tpu_torch.ops import fused_iw, fused_iw_mnar
 from vae_posterior_consistency_tpu_torch.ops.math import (
     bernoulli_logits_logpmf,
     kl_diag_diag,
@@ -227,16 +242,52 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg, mask_s=None,
     return loss, {"loss_q": loss_q, "loss_p": loss_p, "KL_reg": KL_reg}
 
 
-def eval_step(params, x, mask, mask_p, eps, cfg,
-              missing_process="selfmasking_known"):
-    """llh_eval semantics (reference: VAE.py:2458-2461, 2810-2813), per row,
-    on the q branch; `mask_p` is unused, as in the JAX package."""
-    del mask_p
+#: whether `eval_step` runs IW2 (under the default missingness process):
+#: IW1's rule, shared with `models/miwae` (patch it here to send this
+#: model's steps down the eager path)
+_fused = fused_iw.fused_eval
+
+
+def _eager_rows(params, x, mask, eps, cfg,
+                missing_process="selfmasking_known"):
+    """(x_imputed [B, D], row_loss [B], row_negl [B], mean, logvar) of the q
+    branch from `forward`, `_branch` and the reductions over K: the eager
+    composition (training runs its first two) and IW2's plain version."""
     K = eps.shape[-2]
     out_q = forward(params, x, mask, eps, cfg)
     RE_q, _, _, l_w_q = _branch(params, out_q, x, mask, missing_process)
     with tracing.span("notmiwae.weights"):
         row_re = torch.mean(RE_q, dim=1)
-        return {"x_imputed": _impute(l_w_q, out_q["x_mean"]),
-                "row_loss": _row_bound(l_w_q, K, cfg.fixed_iwae_bound),
-                "row_negl": row_re, "row_negl_imp": row_re}
+        return (_impute(l_w_q, out_q["x_mean"]),
+                _row_bound(l_w_q, K, cfg.fixed_iwae_bound), row_re,
+                out_q["mean"], out_q["logvar"])
+
+
+def _fused_rows(params, x, mask, eps, cfg):
+    """(x_imputed, row_loss, row_negl) from one IW2 call: the encoder, z,
+    the decoder, RE, the KL, the missingness log-pmf and the reductions over
+    K (`ops/fused_iw_mnar`)."""
+    with tracing.span("notmiwae.decode"):
+        x_imputed, per_row, _, _ = fused_iw_mnar.iw_mnar(x, mask, eps,
+                                                         params, cfg)
+    samples = eps.shape[0] * eps.shape[1]
+    tracing.count("iw_samples", samples)
+    tracing.count("iw_fused_samples", samples)
+    return x_imputed, per_row[0], per_row[1]
+
+
+def eval_step(params, x, mask, mask_p, eps, cfg,
+              missing_process="selfmasking_known"):
+    """llh_eval semantics (reference: VAE.py:2458-2461, 2810-2813), per row,
+    on the q branch; `mask_p` is unused, as in the JAX package. Without
+    gradients in float32 under the self-masking-known process the step is
+    one IW2 call (`_fused`)."""
+    del mask_p
+    if _fused() and missing_process == "selfmasking_known":
+        x_imputed, row_loss, row_negl = _fused_rows(params, x, mask, eps,
+                                                    cfg)
+    else:
+        x_imputed, row_loss, row_negl, _, _ = _eager_rows(
+            params, x, mask, eps, cfg, missing_process)
+    return {"x_imputed": x_imputed, "row_loss": row_loss,
+            "row_negl": row_negl, "row_negl_imp": row_negl}

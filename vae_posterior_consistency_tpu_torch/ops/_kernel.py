@@ -1,7 +1,8 @@
 """The seam between the port's kernel wrappers and their C entry points.
 
 Each wrapper module (`fused_posterior`: B1 and its backward;
-`fused_embed_pool`: B2f, B2b; `fused_iw`: IW1) keeps its kernel's contract:
+`fused_embed_pool`: B2f, B2b; `fused_iw`: IW1; `fused_iw_mnar`: IW2, which
+shares IW1's source and skeleton) keeps its kernel's contract:
 the plain version, the shape checks, the autograd Function and its vmap
 rule. What lies between that contract and the C entry point is here, once:
 
@@ -31,7 +32,7 @@ import torch
 from vae_posterior_consistency_tpu_torch.ops import _build
 
 #: launches of each kernel on the card: embed_pool_fwd, embed_pool_bwd,
-#: fused_posterior_fwd, fused_posterior_bwd, iw_fused
+#: fused_posterior_fwd, fused_posterior_bwd, iw_fused (IW1), iw_mnar (IW2)
 launches: collections.Counter = collections.Counter()
 #: each kernel's plain version, under its name in `launches`. The wrappers
 #: call their plain versions by their module's name at each call, so one

@@ -28,6 +28,11 @@ body, which keeps the decoder's [B*K, 128] activations, the density and the
 [B, K] terms out of device memory and reduces over K in its epilogue. Its
 source says what bounds it and how it is laid out.
 
+IW2 (`ops/fused_iw_mnar`, notMIWAE's step) shares the source: one skeleton,
+instantiated for each model by a policy. This module's `grid` and
+`slot_scratch_floats` size both launches, and `fused_eval` is the rule by
+which either model's `eval_step` takes its kernel.
+
 `iw_fused` takes the plain version for CPU tensors only: the eager
 composition of `models/miwae.forward`, `_branch_terms` and `reduce_over_k`,
 to the bit. For CUDA tensors it launches the kernel or raises; there is no
@@ -163,14 +168,39 @@ _launch = _kernel.entry(
      ctypes.POINTER(_Dims)], "iw_fused", iw_fused_reference)
 
 
-def _work_floats(R, B, D, blocks, parts) -> int:
-    """The kernel's workspace in floats (`work_floats` of the source): a
-    replica's (parts + B) slots of D + 4 floats, and for D > CHUNK a [TILE,
-    D] scratch and two running slots a tile group; then a ticket a
-    replica."""
-    F = D + 4
+def fused_eval() -> bool:
+    """Whether a model's `eval_step` runs its fused kernel (IW1 for MIWAE,
+    IW2 for notMIWAE): without gradients (neither has a backward) and with
+    float32 products (both compute in float32 only)."""
+    return not torch.is_grad_enabled() and core.active_dtype() == "float32"
+
+
+def slot_scratch_floats(B, D, blocks, parts, head) -> int:
+    """A replica's slots and scratch in the kernels' workspace
+    (`slot_scratch_floats` of the source): (parts + B) slots of D + `head`
+    floats, and for D > CHUNK a [TILE, D] scratch and two running slots a
+    tile group."""
+    F = D + head
     scratch = blocks * GROUPS * (TILE * D + 2 * F) if D > CHUNK else 0
-    return R * ((parts + B) * F + scratch) + R
+    return (parts + B) * F + scratch
+
+
+def grid(B, K, replicas, device) -> tuple:
+    """The body's (blocks a replica, ranges of tiles) for B x K samples: a
+    block an SM shared by the replicas, a range a tile group on one
+    replica, so the ranges (and the sums) depend on the shapes and the
+    card alone."""
+    tiles = -(-B * K // TILE)
+    sms = _kernel.sm_count(device.index)
+    blocks = min(-(-tiles // GROUPS), max(1, sms // replicas))
+    parts = min(GROUPS * min(-(-tiles // GROUPS), sms), tiles)
+    return blocks, parts
+
+
+def _work_floats(R, B, D, blocks, parts) -> int:
+    """IW1's workspace in floats (`work_floats` of the source): a replica's
+    slots of D + 4 floats and scratch, then a ticket a replica."""
+    return R * slot_scratch_floats(B, D, blocks, parts, 4) + R
 
 
 def _shapes(x, mask, extra, eps, leaves):
@@ -216,11 +246,7 @@ def iw_fused_kernel(x, mask, extra, eps, divisor, *leaves):
     R = x.shape[:lead]
     n = R[0] if lead else 1
     dev = x.device
-    tiles = -(-B * K // TILE)
-    sms = _kernel.sm_count(dev.index)
-    blocks = min(-(-tiles // GROUPS), max(1, sms // n))
-    # ranges of tiles: a tile group each for one replica, as many for R
-    parts = min(GROUPS * min(-(-tiles // GROUPS), sms), tiles)
+    blocks, parts = grid(B, K, n, dev)
     work_floats = _work_floats(n, B, D, blocks, parts)
     outs = [torch.empty(shape, device=dev, dtype=torch.float32)
             for shape in ((*R, B, D), (*R, 3, B), (*R, B, L), (*R, B, L),

@@ -22,13 +22,16 @@ take `spans()` after their traced window.
 Recording is on exactly while a torch profiler records (torch's own flag,
 `torch.autograd.profiler._is_profiler_enabled`): otherwise `span` returns
 one shared no-op object and `count` returns at once, so an untraced run
-pays one flag read a site. Spans are not `record_function` ranges: they do
-not appear among the profiler's host operations, whose labels the
-benchmark's idle-gap breakdown reads.
+pays one flag read a site. Inside `muted()` a thread records nothing either:
+a kernel's plain version that runs a model's own spanned composition on the
+CPU records what the kernel records on the card. Spans are not
+`record_function` ranges: they do not appear among the profiler's host
+operations, whose labels the benchmark's idle-gap breakdown reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -148,19 +151,34 @@ OFF = _Off()
 
 def span(name: str, **attrs):
     """A context manager recording span `name` with `attrs` while a torch
-    profiler records; the shared no-op `OFF` otherwise."""
-    if not recording():
+    profiler records (and this thread is not `muted`); the shared no-op
+    `OFF` otherwise."""
+    if not recording() or getattr(_local, "muted", 0):
         return OFF
     return _Open(name, attrs)
 
 
 def count(name: str, n: int = 1) -> None:
-    """Record `n` of counter `name` now, while a torch profiler records."""
-    if not recording():
+    """Record `n` of counter `name` now, while a torch profiler records
+    (and this thread is not `muted`)."""
+    if not recording() or getattr(_local, "muted", 0):
         return
     stack, tid = _thread()
     top = stack[-1] if stack else None
     _keep((name, time.time_ns(), n, tid, top and top.id, top and top.root))
+
+
+@contextlib.contextmanager
+def muted():
+    """While it lasts, this thread records no span and no counter: a
+    kernel's plain version that runs a model's own eager composition (its
+    spans and counters included) records what the kernel would, nothing
+    inside the caller's span around the call."""
+    _local.muted = getattr(_local, "muted", 0) + 1
+    try:
+        yield
+    finally:
+        _local.muted -= 1
 
 
 def _typed(records) -> list:
