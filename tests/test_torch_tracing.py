@@ -4,7 +4,7 @@ thread-local stacks; counter events; the cap; one clock with the
 profiler's events; the spans merged into `profile_trace`'s Chrome trace
 (and an entry point's `-profile DIR`); and the spans and counters of the
 evaluator, the server, the trainer, the AL engine, the MIWAE model, the
-MNAR evaluator and the notMIWAE model on the CPU."""
+MNAR evaluator, the notMIWAE model and the flow model on the CPU."""
 
 import collections
 import contextlib
@@ -31,10 +31,12 @@ from vae_posterior_consistency_tpu_torch.experiment_main import (
     imputation_mnar,
 )
 from vae_posterior_consistency_tpu_torch.models import (
+    flow_vae,
     get_model,
     miwae,
     notmiwae,
 )
+from vae_posterior_consistency_tpu_torch.nn import flow as flowlib
 from vae_posterior_consistency_tpu_torch.utils import logging, tracing
 from cli_harness import REPO
 
@@ -547,3 +549,77 @@ def test_profile_flag_of_the_mnar_entry_point_writes_the_spans(tmp_path,
     counters = {e["name"] for e in vpc if e["ph"] == "C"}
     assert {"host_reads", "iw_samples"} <= counters
     assert tracing.spans() == []
+
+
+# -- the flow model's spans ---------------------------------------------------
+
+FLOW_SPANS = ("flow.encode", "flow.spline", "flow.decode", "flow.likelihood")
+
+
+@pytest.fixture(scope="module")
+def flow_wine():
+    cfg = RunConfig(vae_type="reg_flow1", M=2, missing_rate=30)
+    ds = loaders.data_loader(os.path.join(REPO, "Data"), cfg.vae_type, 30,
+                             64, "wine", device="cpu")
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                 ds.obs_dim, device="cpu")
+    return cfg, ds, params
+
+
+def test_flow_spans_nest_in_the_model_step(flow_wine, monkeypatch):
+    """A profiled eager `eval_vae` of `reg_flow1` records `flow.encode`,
+    `flow.spline`, `flow.decode` and `flow.likelihood` once inside each
+    `model.eval_step`, and `flow_rows` (inside `flow.spline`) the batch's
+    rows: their sum is the rows of every batch of every rep. Under
+    `tracing.muted()`, or unprofiled, it records nothing, and the results
+    are bit-equal to those of the model without its spans."""
+    cfg, ds, params = flow_wine
+    call = lambda: evaluate.eval_vae(  # noqa: E731
+        ds, cfg, params=params, save=False, device="cpu")
+    off = call()
+    assert tracing.spans() == []
+    with profiler():
+        on = call()
+    recs = tracing.take()
+    spans = by_name(recs)
+    steps = [min(cfg.batch_size, s.n) for s in (ds.train, ds.test)
+             for _ in range(cfg.M * -(-s.n // min(cfg.batch_size, s.n)))]
+    model = {s.id for s in spans["model.eval_step"]}
+    assert len(model) == len(steps)
+    for name in FLOW_SPANS:
+        assert len(spans[name]) == len(steps), name
+        assert {s.parent for s in spans[name]} == model, name
+    rows = by_name(recs, tracing.Count)["flow_rows"]
+    assert {c.parent for c in rows} == {s.id for s in spans["flow.spline"]}
+    assert sorted(c.n for c in rows) == sorted(steps)
+    with profiler(), tracing.muted():
+        call()
+    assert tracing.take() == []
+    monkeypatch.setattr(flow_vae, "tracing", _NoTracing)
+    monkeypatch.setattr(flowlib, "tracing", _NoTracing)
+    assert off == on == call()  # the same floats, bit for bit
+
+
+def test_flow_spans_of_the_inverse_and_of_training(flow_wine):
+    """`encoder_log_prob` (the inverse pass) records `flow.encode` and
+    `flow.spline` with `flow_rows` of its z; a regularized `train_loss`
+    pushes both branches, 2 B rows, through one spline stack and records
+    `flow.likelihood` once."""
+    cfg, ds, params = flow_wine
+    x, m = ds.train.x[:9], ds.train.mask[:9]
+    g = torch.Generator().manual_seed(1)
+    z = torch.rand(9, cfg.latent_dim, generator=g) * 2.0 - 1.0
+    eps = torch.randn(2, 9, cfg.latent_dim, generator=g)
+    with profiler():
+        flow_vae.encoder_log_prob(params, z, x, m, cfg)
+    recs = tracing.take()
+    spans = by_name(recs)
+    assert {k: len(v) for k, v in spans.items()} == {"flow.encode": 1,
+                                                     "flow.spline": 1}
+    assert [c.n for c in by_name(recs, tracing.Count)["flow_rows"]] == [9]
+    with profiler():
+        flow_vae.train_loss(params, x, m, m, eps, 0, cfg)
+    recs = tracing.take()
+    assert {k: len(v) for k, v in by_name(recs).items()} == {
+        name: 1 for name in FLOW_SPANS}
+    assert [c.n for c in by_name(recs, tracing.Count)["flow_rows"]] == [18]

@@ -14,6 +14,12 @@ normal base noise: `eps` [B, latent_dim] for `encode` and `eval_step`; for
 for regularized types and [B, latent_dim] for vanilla ones. A regularized
 `train_loss` runs both branches as one stacked [2B] stream through the
 encoder, the flow and the decoder.
+
+Under a torch profiler the model records the spans (`utils/tracing`)
+`flow.encode` (the context trunk, in `encode` and `encoder_log_prob`),
+`flow.decode` (the decoder) and `flow.likelihood` (the RE and KL sums of
+`eval_step` and `train_loss`), beside `nn/flow`'s `flow.spline` (the
+spline stack) and its counter `flow_rows`.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from vae_posterior_consistency_tpu_torch.ops.math import (
     normal_logpdf,
     std_normal_logpdf,
 )
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 
 def train_noise(cfg, B, D):
@@ -86,7 +93,9 @@ def _actnorm(params, cfg):
 def encode(params, x, mask, eps, cfg):
     """z from the flow posterior for base noise `eps`; returns (z,
     elementwise log q(z)) (reference: src/models/VAE.py:1924-1931)."""
-    context = layers.flow_context_encoder_apply(params["encoder"], x, mask)
+    with tracing.span("flow.encode"):
+        context = layers.flow_context_encoder_apply(params["encoder"], x,
+                                                    mask)
     return flowlib.flow_forward(eps, context, cfg.latent_dim,
                                 tails=cfg.flow_tails,
                                 actnorm=_actnorm(params, cfg))
@@ -95,14 +104,17 @@ def encode(params, x, mask, eps, cfg):
 def encoder_log_prob(params, z, x, mask, cfg):
     """log q(z | x, mask) of an external z, the `backward` hook of AIS and
     the flow-ratio AL reward (reference: src/models/VAE.py:1933-1941)."""
-    context = layers.flow_context_encoder_apply(params["encoder"], x, mask)
+    with tracing.span("flow.encode"):
+        context = layers.flow_context_encoder_apply(params["encoder"], x,
+                                                    mask)
     return flowlib.flow_log_prob(z, context, cfg.latent_dim,
                                  tails=cfg.flow_tails,
                                  actnorm=_actnorm(params, cfg))
 
 
 def decode(params, z):
-    return layers.flow_decoder_apply(params["decoder"], z)
+    with tracing.span("flow.decode"):
+        return layers.flow_decoder_apply(params["decoder"], z)
 
 
 def _re_cells(x, x_mean, x_logvar, m):
@@ -127,9 +139,10 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
     if not cfg.info.regularized:
         z_q, z_logprob_q = encode(params, x, mask, eps, cfg)
         x_mean_q, x_logvar_q = decode(params, z_q)
-        RE_q = _re_terms(x, x_mean_q, x_logvar_q, mask)
-        KL_q = torch.sum(z_logprob_q - std_normal_logpdf(z_q))
-        loss = (RE_q + cfg.beta * KL_q) / B
+        with tracing.span("flow.likelihood"):
+            RE_q = _re_terms(x, x_mean_q, x_logvar_q, mask)
+            KL_q = torch.sum(z_logprob_q - std_normal_logpdf(z_q))
+            loss = (RE_q + cfg.beta * KL_q) / B
         return loss, {"RE_q": RE_q / B, "KL_q": KL_q / B}
 
     # both branches, q (rows :B) and p (rows B:), as one stacked stream
@@ -137,17 +150,19 @@ def train_loss(params, x, mask, mask_p, eps, epoch, cfg):
     m2 = torch.cat([mask, mask_p])
     z, z_logprob = encode(params, x2, m2, eps.reshape(2 * B, L), cfg)
     x_mean, x_logvar = decode(params, z)
-    re_cells = _re_cells(x2, x_mean, x_logvar, m2)
-    kl_cells = z_logprob - std_normal_logpdf(z)
-    RE_q, RE_p = re_cells[:B].sum(), re_cells[B:].sum()
-    KL_q, KL_p = kl_cells[:B].sum(), kl_cells[B:].sum()
+    with tracing.span("flow.likelihood"):
+        re_cells = _re_cells(x2, x_mean, x_logvar, m2)
+        kl_cells = z_logprob - std_normal_logpdf(z)
+        RE_q, RE_p = re_cells[:B].sum(), re_cells[B:].sum()
+        KL_q, KL_p = kl_cells[:B].sum(), kl_cells[B:].sum()
 
-    loss_q = RE_q + cfg.beta * KL_q
-    loss_p = RE_p + cfg.beta * KL_p
-    KL_reg = torch.sum(torch.abs(z_logprob[:B] - z_logprob[B:]))
-    extra_mask = mask * (1.0 - mask_p)
-    RE_extra = _re_terms(x, x_mean[:B], x_logvar[:B], extra_mask)
-    loss = (loss_q + cfg.alpha * (KL_reg - loss_q + loss_p + RE_extra)) / B
+        loss_q = RE_q + cfg.beta * KL_q
+        loss_p = RE_p + cfg.beta * KL_p
+        KL_reg = torch.sum(torch.abs(z_logprob[:B] - z_logprob[B:]))
+        extra_mask = mask * (1.0 - mask_p)
+        RE_extra = _re_terms(x, x_mean[:B], x_logvar[:B], extra_mask)
+        loss = (loss_q + cfg.alpha * (KL_reg - loss_q + loss_p + RE_extra)
+                ) / B
     return loss, {"RE_q": RE_q / B, "KL_q": KL_q / B, "RE_p": RE_p / B,
                   "KL_p": KL_p / B}
 
@@ -159,9 +174,10 @@ def eval_step(params, x, mask, mask_p, eps, cfg, epoch=None):
     del mask_p, epoch
     z_q, z_logprob_q = encode(params, x, mask, eps, cfg)
     x_mean_q, x_logvar_q = decode(params, z_q)
-    row_re = _re_terms(x, x_mean_q, x_logvar_q, mask, dim=-1)
-    row_re_imp = _re_terms(x, x_mean_q, x_logvar_q, 1.0 - mask, dim=-1)
-    row_kl = torch.sum(z_logprob_q - std_normal_logpdf(z_q), dim=-1)
+    with tracing.span("flow.likelihood"):
+        row_re = _re_terms(x, x_mean_q, x_logvar_q, mask, dim=-1)
+        row_re_imp = _re_terms(x, x_mean_q, x_logvar_q, 1.0 - mask, dim=-1)
+        row_kl = torch.sum(z_logprob_q - std_normal_logpdf(z_q), dim=-1)
     return {
         "x_imputed": x_mean_q,
         "row_loss": row_re + cfg.beta * row_kl,

@@ -15,16 +15,22 @@ Where the JAX function takes a PRNG key, `flow_forward` takes the standard
 normal base noise `eps` itself. Bins are read with `torch.gather`. The
 clips that carry a gradient are `core.hardtanh`, whose gradient at a bound
 is 0.5 as `jnp.clip`'s is (`torch.clamp` gives 1).
+
+Under a torch profiler `flow_forward` and `flow_log_prob` record the span
+`flow.spline` around the whole stack and count `flow_rows`, the rows
+(leading elements of `eps` or `z`) pushed through it (`utils/tracing`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from vae_posterior_consistency_tpu_torch.nn import core
 from vae_posterior_consistency_tpu_torch.ops.math import std_normal_logpdf
+from vae_posterior_consistency_tpu_torch.utils import tracing
 
 NUM_LAYERS = 3
 TAIL_BOUND = 1.0
@@ -150,6 +156,20 @@ def _spline_stack(pdf_logits, tails, actnorm):
     return stack
 
 
+def _traced_stack(fn):
+    """`fn(x, context, dim, ...)` inside the span `flow.spline`, counting
+    the rows of x in `flow_rows`."""
+
+    @functools.wraps(fn)
+    def traced(x, context, dim, *args, **kwargs):
+        with tracing.span("flow.spline"):
+            tracing.count("flow_rows", x.numel() // dim)
+            return fn(x, context, dim, *args, **kwargs)
+
+    return traced
+
+
+@_traced_stack
 def flow_forward(eps, context, dim, num_bins=None, tails="clamp",
                  actnorm=None):
     """Push the base noise `eps` (..., dim) ~ N(0, I) through the 3 spline
@@ -245,6 +265,7 @@ def multiscale_apply(layers, x, context=None):
     return torch.cat(outputs[::-1], dim=-1), log_det
 
 
+@_traced_stack
 def flow_log_prob(z, context, dim, num_bins=None, tails="clamp",
                   actnorm=None):
     """Element-wise log q(z | context) via the inverse pass
