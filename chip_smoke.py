@@ -62,8 +62,9 @@ Run from the root of a checkout. It drives only the port
    the CPU's in the same way; (c) the wall-clock of each split on the host
    clock, with a sync at each end, and the device operations of one split
    of one batch from torch.profiler ("not measured" where no trace was
-   whole); (d) the reg_flow1 of phase 7 at record 12's M=50: no kernel,
-   the metrics against the CPU's in the same way, the wall-clock of each
+   whole); (d) the reg_flow1 of phase 7 at record 12's M=50: F1 twice a
+   batch shape (the graph's warm-up and capture) and no other kernel, the
+   metrics against the CPU's in the same way, the wall-clock of each
    split; (e) the reg_MIWAE1 of phase 7 (d) at record 1's valid_k=5000
    importance samples and M=1: no kernel, the metrics on the 17-row test
    split against the CPU's in the same way, the wall-clock of each split,
@@ -80,11 +81,14 @@ Run from the root of a checkout. It drives only the port
    (`FusedPosterior.backward` for the four statistics, through autograd),
    at [64, 10] and at a diagnostic [4096, 10]; IW1 at record 4's
    evaluation batches [64, 5000] and [17, 5000], and IW2 at the MNAR
-   records' [178, 10000] and an eval_vae batch's [64, 10000], each against
-   its plain version first; each figure with
+   records' [178, 10000] and an eval_vae batch's [64, 10000], and F1 at
+   the flow's evaluation batches [64, 10] and [17, 10] and its AL
+   episode's [10200, 10], each against its plain version first (F1 with
+   no element apart); each figure with
    the number of device operations one call makes, counted in a CUDA graph
-   captured from one call, which must be 1 for each B1 kernel and 2 for
-   IW1 and IW2;
+   captured from one call, which must be 1 for each B1 kernel and F1 and 2
+   for IW1 and IW2; and the device operations of one reg_flow1 evaluation
+   batch with F1 and with the eager stack, the same bits from both;
 10. serving (b), every family at the wine width (D=13) from seeded
    parameters, buckets 1, 8 and 64: vanilla_MIWAE1 and record 1's
    reg_MIWAE1 at its valid_k=5000 importance samples a row,
@@ -116,14 +120,16 @@ Run from the root of a checkout. It drives only the port
    the 17 wine test rows, M cut to 5: rewards, imputations and the
    predictive-MSE curve within their tolerances, the reveals equal
    wherever a row's top two rewards clear the tolerance, B2f launched
-   1 + 6 (D-1) = 73 times on the EDDI episode and no other kernel;
+   1 + 6 (D-1) = 73 times on the EDDI episode, F1 as often on the flow
+   episode, IW1 on the MIWAE one, and no other kernel;
 14. active learning (b): the entry point experiment_main/active_learning.py
    in a temporary directory holding those records as they stand (M=50;
    valid_k 5000 and M=1 for reg_MIWAE1) and their checkpoints: every
    artifact at its reference name with the JAX package's shape and dtype,
    each row revealing each feature once; B2f exactly 73 times on the
-   reg_EDDI1 episode (its largest call over M (D-1) 17 = 10200 rows), no
-   kernel on the others, no plain version on a CUDA tensor; each episode's
+   reg_EDDI1 episode (its largest call over M (D-1) 17 = 10200 rows), F1
+   as often on the reg_flow1 one, IW1 on the reg_MIWAE1 one, no other
+   kernel, no plain version on a CUDA tensor; each episode's
    wall-clock, launches and, under torch.profiler, busy share and top
    device operations; then B2f timed at its episode's largest shape;
 15. resume and early stopping (a): the entry point
@@ -250,7 +256,8 @@ Run from the root of a checkout. It drives only the port
    convert_state_dict gives the parameters back bit for bit, and the
    converted model served on the card (requests of 1 and 8 rows) agrees
    with a CPU server fed the card's recorded noise (B2f once a request on
-   the EDDI model, no other kernel); (b) examples/impute_csv.main on the
+   the EDDI model, IW1, IW2 and F1 on the MIWAE, notMIWAE and flow ones,
+   no other kernel); (b) examples/impute_csv.main on the
    178-row wine table with about 30% of its cells blanked
    (native_io.mcar_mask), reg_vae1 and reg_EDDI1 for 20 epochs each: the
    observed cells written back unchanged, every imputation finite and
@@ -519,6 +526,14 @@ def runs_iw1(cfg) -> bool:
             and cfg.compute_dtype == "float32")
 
 
+def runs_f1(cfg) -> bool:
+    """Whether `cfg`'s evaluation, serving and AL launch F1: a flow type
+    without ActNorm computing in float32, as nn/flow chooses it; once a
+    `flow_forward` without gradients."""
+    return ("flow" in cfg.vae_type and not cfg.flow_actnorm
+            and cfg.compute_dtype == "float32")
+
+
 def runs_iw2(cfg) -> bool:
     """Whether `cfg`'s evaluation launches IW2: a notMIWAE type computing in
     float32 under the default missingness process, as models/notmiwae
@@ -626,6 +641,13 @@ def iw_mnar_bound_ms(B, K, D, L):
                   + L * 128 + 128 * 128 + 128 * 2 * D + 256 + 2 * D
                   + D * 128 + 128 * 128 + 128 * 2 * L + 256 + 2 * L + 2 * D)
     return _bound(nbytes, ops)
+
+
+def flow_spline_bound_ms(N, L, nb):
+    """F1: reads eps and each cell's tables (nb pdf and nb + 1 cdf floats)
+    and writes z and log_prob once; about 60 operations a cell (20 a spline
+    layer, counting the logarithm and the floor as one)."""
+    return _bound(4 * N * L * (2 * nb + 4), 60 * N * L)
 
 
 def fused_posterior_replicas_bound_ms(R, B, L, shared_eps=True):
@@ -875,6 +897,7 @@ def main() -> int:
     from vae_posterior_consistency_tpu_torch.ops import fused_posterior as fp
     from vae_posterior_consistency_tpu_torch.ops import fused_iw as fiw
     from vae_posterior_consistency_tpu_torch.ops import fused_iw_mnar as fim
+    from vae_posterior_consistency_tpu_torch.ops import fused_flow as ffl
 
     reset_counts = _kernel.launches.clear
 
@@ -1613,6 +1636,23 @@ def main() -> int:
             print(f"{label} [{stage}] card: {', '.join(diffs)}", flush=True)
         return got, launched
 
+    def eval_launches(dataset, cfg):
+        """The host's launches of a kernel that runs once a batch over an
+        eval_vae call of cfg.M reps: a split of at least _GRAPH_MIN_STEPS
+        batches replays one captured graph of its batch shape, which the
+        splits share, so the host launches the kernel twice for each shape
+        (the warm-up batch and the capture) and the graph once in each
+        other batch; a shorter split launches it once a batch."""
+        launches, captured = 0, set()
+        for sp in (dataset.train, dataset.test):
+            steps = cfg.M * -(-sp.n // min(cfg.batch_size, sp.n))
+            if not evaluate._use_graph(torch.device("cuda"), steps):
+                launches += steps
+            elif min(cfg.batch_size, sp.n) not in captured:
+                captured.add(min(cfg.batch_size, sp.n))
+                launches += 2
+        return launches
+
     def split_seconds(dataset, cfg, card_params):
         """Median host-clock seconds of eval_vae over each split alone, a
         sync at each end (eval_vae reads its metrics back: the other)."""
@@ -1635,19 +1675,7 @@ def main() -> int:
                "M=1"):
         n_batches = eval_cfg.M * sum(-(-sp.n // 64)
                                      for sp in (mnist.train, mnist.test))
-        # a split of at least _GRAPH_MIN_STEPS batches replays one captured
-        # graph of its batch shape, which the splits share: the host
-        # launches B2f twice for each shape (the warm-up batch and the
-        # capture) and the graph once in each other batch; a shorter split
-        # launches B2f once a batch
-        want_b2f, captured = 0, set()
-        for sp in (mnist.train, mnist.test):
-            steps = eval_cfg.M * -(-sp.n // 64)
-            if not evaluate._use_graph(torch.device("cuda"), steps):
-                want_b2f += steps
-            elif min(64, sp.n) not in captured:
-                captured.add(min(64, sp.n))
-                want_b2f += 2
+        want_b2f = eval_launches(mnist, eval_cfg)
         cpu_ref = checkpoint.load_reference(path, eval_cfg, 784, device="cpu")
         mnist_eval, mnist_eval_counts = eval_card_vs_cpu(
             "MNIST reg_EDDI1 eval", mnist, eval_cfg, params, cpu_ref,
@@ -1706,9 +1734,12 @@ def main() -> int:
                f"M={FLOW_EVAL_M}"):
         cpu_flow = {k: v.cpu() for k, v in
                     checkpoint.flatten(flow_params).items()}
+        # F1 once a batch, through the graph as B2f in (a)
+        f1_launches = eval_launches(flow_data, flow_eval_cfg)
         eval_card_vs_cpu(f"{flow_cfg.vae_type} eval", flow_data,
                          flow_eval_cfg, flow_params,
-                         checkpoint.unflatten(cpu_flow), no_kernel)
+                         checkpoint.unflatten(cpu_flow),
+                         {**no_kernel, "flow_spline": f1_launches})
         secs = split_seconds(flow_data, flow_eval_cfg, flow_params)
         steps = {sp.stage: -(-sp.n // min(64, sp.n))
                  for sp in (flow_data.train, flow_data.test)}
@@ -2055,6 +2086,69 @@ def main() -> int:
                 if n_step != 2:
                     raise AssertionError(f"a notMIWAE eval_step is {n_step} "
                                          "device operations, not 2")
+        # F1 at the flow's evaluation batches [64, 10] and [17, 10] and at
+        # the AL episode's largest call (M (D-1) 17 rows), on the tables of
+        # seeded bin logits, against its plain version: no element apart.
+        # Then the device operations of one flow evaluation batch (record
+        # 10's model from seeded parameters, the evaluator's `_batch_stats`)
+        # with F1 and with the eager stack, the same bits from both
+        from vae_posterior_consistency_tpu_torch.nn import flow as flowlib
+
+        f1_apart = {}
+        for rows in (64, 17, AL_M * (WINE_D - 1) * AL_ROWS):
+            ef = 1.5 * torch.randn(rows, LATENT, device="cuda", generator=gen)
+            pdf, cdf = flowlib._normalize_pdf(3.0 * torch.randn(
+                rows, LATENT, LATENT, device="cuda", generator=gen))
+            with torch.no_grad():
+                got = ffl.flow_spline(ef, pdf, cdf, "clamp")
+                want = ffl.flow_spline_reference(ef, pdf, cdf, "clamp")
+                f1_apart[rows] = sum(int((g != w).sum())
+                                     for g, w in zip(got, want))
+                print(f"F1 flow_spline [{rows}, {LATENT}] against its plain "
+                      f"version: {f1_apart[rows]} elements apart",
+                      flush=True)
+                if f1_apart[rows]:
+                    raise AssertionError(f"F1 [{rows}]: {f1_apart[rows]} "
+                                         "elements apart")
+                times[f"flow_spline_{rows}"] = timed(
+                    f"F1 flow_spline [{rows}, {LATENT}], {LATENT} bins",
+                    lambda: ffl.flow_spline(ef, pdf, cdf, "clamp"),
+                    lambda: ffl.flow_spline_reference(ef, pdf, cdf, "clamp"),
+                    flow_spline_bound_ms(rows, LATENT, LATENT))
+            if times[f"flow_spline_{rows}"][4] != 1:
+                raise AssertionError(f"F1 [{rows}]: "
+                                     f"{times[f'flow_spline_{rows}'][4]} "
+                                     "device operations a call, not 1")
+        f1_cfg = RunConfig(vae_type="reg_flow1", missing_rate=30)
+        f1_p = get_model(f1_cfg).init(
+            torch.Generator(device="cuda").manual_seed(SEED), f1_cfg,
+            WINE_D, device="cuda")
+        fx = flow_data.train.x[:64]
+        fm = flow_data.train.mask[:64]
+        fe = torch.randn(64, LATENT, device="cuda", generator=gen)
+        fw = torch.ones(64, device="cuda")
+        real_fused = flowlib._fused
+        flow_batch = {}
+        try:
+            for path in ("F1", "eager"):
+                if path == "eager":
+                    flowlib._fused = lambda eps, pdf_logits: False
+                with torch.no_grad():
+                    out = evaluate._batch_stats(get_model(f1_cfg), f1_cfg,
+                                                f1_p, fx, fm, None, fe, fw)
+                    n_batch = device_ops(lambda: lambda: evaluate._batch_stats(
+                        get_model(f1_cfg), f1_cfg, f1_p, fx, fm, None, fe,
+                        fw))
+                flow_batch[path] = (out, n_batch)
+        finally:
+            flowlib._fused = real_fused
+        print(f"reg_flow1 evaluation batch [64, {WINE_D}] (_batch_stats): "
+              f"{flow_batch['F1'][1]} device operations with F1, "
+              f"{flow_batch['eager'][1]} with the eager stack", flush=True)
+        if not torch.equal(flow_batch["F1"][0], flow_batch["eager"][0]):
+            raise AssertionError("a flow evaluation batch moved with F1: "
+                                 f"{flow_batch['F1'][0].tolist()} against "
+                                 f"{flow_batch['eager'][0].tolist()}")
         # one eval_vae call of miwae_wine's shape (record 4, both splits,
         # 3 + 1 batches): its device operations, from a trace of the call
         evaluate.eval_vae(miwae_data, iw_cfg, params=miwae_params,
@@ -2391,8 +2485,12 @@ def main() -> int:
             # empty-mask predictive MSE's, then each step's imputations and
             # predictive MSE after the reveal, M (1 + 2 (D-1))
             want_iw = acfg.M * (1 + 2 * (D - 1)) if runs_iw1(acfg) else 0
+            # F1 once a flow_forward: B2f's count of an EDDI episode, the
+            # four reward encodings in place of the two candidate ones and
+            # the two candidate-invariant ones
+            want_f1 = 1 + 6 * (D - 1) if runs_f1(acfg) else 0
             if launched != {**no_kernel, "embed_pool_fwd": want_b2f,
-                            "iw_fused": want_iw}:
+                            "iw_fused": want_iw, "flow_spline": want_f1}:
                 raise AssertionError(f"the {acfg.vae_type} episode launched "
                                      f"{launched}")
 
@@ -2484,10 +2582,13 @@ def main() -> int:
                 # predictive MSE after the reveal: 1 + 6 (D-1)
                 eddi = "EDDI" in acfg.vae_type
                 # IW1, a MIWAE episode: M (1 + 2 (D-1)), as in (a)
+                # F1, a flow episode: 1 + 6 (D-1), as in (a)
                 want = {**no_kernel,
                         "embed_pool_fwd": 1 + 6 * (D - 1) if eddi else 0,
                         "iw_fused": acfg.M * (1 + 2 * (D - 1))
-                        if runs_iw1(acfg) else 0}
+                        if runs_iw1(acfg) else 0,
+                        "flow_spline": 1 + 6 * (D - 1)
+                        if runs_f1(acfg) else 0}
                 if r["counts"] != want:
                     raise AssertionError(f"the {acfg.vae_type} episode "
                                          f"launched {r['counts']}, want "
@@ -3095,6 +3196,25 @@ def main() -> int:
             "bound_by": b_by, "library_ms": None,
             "ais_launches": ais_counts["iw_mnar"],
             "bf16_launches": bf16_launches["iw_mnar"]})
+    # F1 replaces no Pallas kernel (the JAX package computes the flow in
+    # jnp): its elements apart from its plain version and its times at the
+    # flow's evaluation batches and the AL episode's largest call, its
+    # launches on the flow evaluation (d) and the AL grid (b), and the
+    # device operations of a flow evaluation batch with it and without
+    for rows in (64, 17, AL_M * (WINE_D - 1) * AL_ROWS):
+        k_ms, p_ms, b_ms, b_by, n_ops = times[f"flow_spline_{rows}"]
+        kernels.append({
+            "name": "flow_spline", "route": "cuda",
+            "source": csrc + "flow_spline.cu", "replaces": None,
+            "shape": [rows, LATENT, LATENT],
+            "launches_per_call": n_ops, "elements_apart": f1_apart[rows],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "eval_launches": f1_launches,
+            "al_launches": al_counts["flow_spline"],
+            "ais_launches": ais_counts["flow_spline"],
+            "eval_batch_ops": flow_batch["F1"][1],
+            "eval_batch_ops_eager": flow_batch["eager"][1]})
     # the replica forms (ensembles): one launch for R replicas
     for k in ens_kernels:
         source, replaces = where[k["base"]]
@@ -4900,6 +5020,8 @@ def completeness_phase(env) -> dict:
                 want_l["iw_fused"] = len(rows)
             if runs_iw2(cfg):  # IW2 once a request
                 want_l["iw_mnar"] = len(rows)
+            if runs_f1(cfg):  # F1 once a request
+                want_l["flow_spline"] = len(rows)
             if launched != want_l:
                 raise AssertionError(f"{label}: serving launched {launched},"
                                      f" want {want_l}")

@@ -11,6 +11,7 @@ import torch
 
 from vae_posterior_consistency_tpu_torch.config import RunConfig
 from vae_posterior_consistency_tpu_torch.models import notmiwae
+from vae_posterior_consistency_tpu_torch.nn import flow
 from vae_posterior_consistency_tpu_torch.ops import _kernel
 from vae_posterior_consistency_tpu_torch.ops import fused_embed_pool as fep
 from vae_posterior_consistency_tpu_torch.ops import fused_iw, fused_iw_mnar
@@ -72,6 +73,12 @@ def _iw_mnar():
                               params, cfg)
 
 
+def _flow_spline():
+    """F1 through `flow_forward` without gradients, at B=3, L=4, 4 bins."""
+    with torch.no_grad():
+        flow.flow_forward(_randn(3, 4, seed=1), _randn(3, 16, seed=2), 4)
+
+
 #: a CPU call of each kernel's public wrapper, by its name in `launches`
 CALLS = {
     "fused_posterior_fwd": lambda: _posterior(False),
@@ -80,6 +87,7 @@ CALLS = {
     "embed_pool_bwd": lambda: _embed_pool(True),
     "iw_fused": _iw,
     "iw_mnar": _iw_mnar,
+    "flow_spline": _flow_spline,
 }
 
 

@@ -16,9 +16,19 @@ normal base noise `eps` itself. Bins are read with `torch.gather`. The
 clips that carry a gradient are `core.hardtanh`, whose gradient at a bound
 is 0.5 as `jnp.clip`'s is (`torch.clamp` gives 1).
 
+Without gradients, with float32 products (`ops/fused_iw.fused_eval`, the
+rule of the importance-weighted kernels) and without ActNorm,
+`flow_forward` normalises the bin logits once and runs the three layers as
+one call of F1 (`ops/fused_flow.flow_spline`: the kernel on the card, its
+plain version on the CPU), which gives the eager stack's bits; where a
+functorch transform wraps its inputs (a vmapped ensemble) it keeps the
+eager stack. Training, bf16, ActNorm and `flow_log_prob` run the eager
+stack.
+
 Under a torch profiler `flow_forward` and `flow_log_prob` record the span
 `flow.spline` around the whole stack and count `flow_rows`, the rows
-(leading elements of `eps` or `z`) pushed through it (`utils/tracing`).
+(leading elements of `eps` or `z`) pushed through it, and `flow_forward`
+counts those F1 takes in `flow_fused_rows` (`utils/tracing`).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import math
 import torch
 
 from vae_posterior_consistency_tpu_torch.nn import core
+from vae_posterior_consistency_tpu_torch.ops import fused_flow, fused_iw
 from vae_posterior_consistency_tpu_torch.ops.math import std_normal_logpdf
 from vae_posterior_consistency_tpu_torch.utils import tracing
 
@@ -169,6 +180,18 @@ def _traced_stack(fn):
     return traced
 
 
+def _fused(eps, pdf_logits) -> bool:
+    """Whether `flow_forward` (without ActNorm) runs F1: without gradients
+    and with float32 products (`fused_iw.fused_eval`), on float32 tensors
+    whose cells match (pdf_logits [..., dim, num_bins] over eps [..., dim]),
+    which no functorch transform wraps (F1 reads their storage)."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return (fused_iw.fused_eval() and eps.dtype == torch.float32
+            and pdf_logits.dtype == torch.float32
+            and pdf_logits.shape[:-1] == eps.shape
+            and not wrapped(eps) and not wrapped(pdf_logits))
+
+
 @_traced_stack
 def flow_forward(eps, context, dim, num_bins=None, tails="clamp",
                  actnorm=None):
@@ -179,6 +202,10 @@ def flow_forward(eps, context, dim, num_bins=None, tails="clamp",
     (reference: src/models/VAE.py:1829-1841)."""
     num_bins = num_bins or dim
     pdf_logits = context_to_pdf(context, dim, num_bins)
+    if actnorm is None and _fused(eps, pdf_logits):
+        tracing.count("flow_fused_rows", eps.numel() // dim)
+        return fused_flow.flow_spline(eps, *_normalize_pdf(pdf_logits),
+                                      tails)
     z = eps
     log_prob = std_normal_logpdf(z)
     if actnorm is not None:
