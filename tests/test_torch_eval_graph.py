@@ -247,6 +247,43 @@ def test_a_patched_batch_stats_is_what_the_graph_replays(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["reg_EDDI1_784", "reg_flow1"])
+def test_the_fixed_phases_of_the_graph_path(cuda, monkeypatch, name):
+    """Two calls of two batch shapes each (train: batches of 64; test: one
+    of 17 rows): in each call, each shape's first batch records one
+    `eval.warmup` and then one `eval.capture`, siblings inside that
+    `eval.batch`; the call records one `eval.release`, the last span under
+    its root."""
+    cfg, ds = _case(name, M=4, n_train=130, n_test=17)
+    params = _params(cfg, ds.obs_dim, cuda)
+    monkeypatch.setattr(evaluate, "_GRAPH_MIN_STEPS", 1)
+    tracing.take()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(2):
+            evaluate.eval_vae(ds, cfg, params=params, save=False,
+                              noise=Draws(1, cuda), device=cuda)
+    recs = [r for r in tracing.take() if isinstance(r, tracing.Span)]
+    roots = [s for s in recs if s.name == "eval_vae"]
+    assert len(roots) == 2
+    for root in roots:
+        mine = [s for s in recs if s.root == root.id]
+        batches = {s.id for s in mine if s.name == "eval.batch"}
+        warm = sorted((s for s in mine if s.name == "eval.warmup"),
+                      key=lambda s: s.start_ns)
+        capture = sorted((s for s in mine if s.name == "eval.capture"),
+                         key=lambda s: s.start_ns)
+        assert len(warm) == len(capture) == 2
+        for w, c in zip(warm, capture):
+            assert w.parent == c.parent and w.parent in batches
+            assert w.end_ns <= c.start_ns
+        (release,) = [s for s in mine if s.name == "eval.release"]
+        assert release.parent == root.id
+        assert max(s.end_ns for s in mine if s is not root) == (
+            release.end_ns) <= root.end_ns
+
+
+@pytest.mark.cuda
 def test_no_memory_outlives_the_call(cuda, monkeypatch):
     cfg, ds = _case("reg_EDDI1_784")
     params = _params(cfg, ds.obs_dim, cuda)

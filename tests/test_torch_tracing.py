@@ -282,6 +282,73 @@ def test_eval_vae_spans_and_host_reads(wine):
     assert all(c.root == call.id for c in reads)
 
 
+def _inside(span, root):
+    return root.start_ns <= span.start_ns and span.end_ns <= root.end_ns
+
+
+def _probe(monkeypatch, module, name):
+    """Wrap `module.name` to note a `probe` counter event, with the name,
+    each time it runs: its parent is the span open around the call."""
+    real = getattr(module, name)
+
+    def probed(*args, **kw):
+        tracing.count("probe." + name)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(module, name, probed)
+
+
+def test_eval_vae_fixed_phases(wine, monkeypatch):
+    """One `eval.setup` of scope "call" under the root, around the model
+    lookup and the parameters' way onto the device; one of scope "split" in
+    each `eval.split`; one `eval.prepare` a split and rep, with its rep. On
+    the CPU no graph is captured: no `eval.warmup`, `eval.capture` or
+    `eval.release`."""
+    cfg, ds, params = wine
+    _probe(monkeypatch, evaluate, "get_model")
+    _probe(monkeypatch, checkpoint, "on_device")
+    with profiler():
+        evaluate.eval_vae(ds, cfg, params=params, save=False, device="cpu")
+    recs = tracing.take()
+    spans = by_name(recs)
+    (call,) = spans["eval_vae"]
+    scopes = collections.defaultdict(list)
+    for s in spans["eval.setup"]:
+        scopes[s.attrs["scope"]].append(s)
+    assert sorted(scopes) == ["call", "split"]
+    (setup,) = scopes["call"]
+    assert setup.parent == call.id
+    counts = by_name(recs, tracing.Count)
+    for name in ("probe.get_model", "probe.on_device"):
+        (probe,) = counts[name]
+        assert probe.parent == setup.id, name
+    splits = {s.id for s in spans["eval.split"]}
+    assert len(splits) == 2
+    assert sorted(s.parent for s in scopes["split"]) == sorted(splits)
+    prepare = spans["eval.prepare"]
+    assert len(prepare) == 2 * cfg.M
+    assert {s.parent for s in prepare} == splits
+    for split in splits:
+        assert sorted(s.attrs["rep"] for s in prepare
+                      if s.parent == split) == list(range(cfg.M))
+    for name in ("eval.warmup", "eval.capture", "eval.release"):
+        assert name not in spans, name
+
+
+def test_nothing_of_an_eval_vae_call_lies_outside_its_root(wine):
+    """Every span and counter event of a call carries the root's id, and
+    every span lies inside the root's time."""
+    cfg, ds, params = wine
+    with profiler():
+        evaluate.eval_vae(ds, cfg, params=params, save=False, device="cpu")
+    recs = tracing.take()
+    (call,) = by_name(recs)["eval_vae"]
+    assert recs and all(r.root == call.id for r in recs)
+    assert all(_inside(r, call) for r in recs if isinstance(r, tracing.Span))
+    assert all(call.start_ns <= r.t_ns <= call.end_ns for r in recs
+               if isinstance(r, tracing.Count))
+
+
 def test_eval_vae_is_the_same_with_the_profiler_on(wine):
     cfg, ds, params = wine
     off = evaluate.eval_vae(ds, cfg, params=params, save=False, device="cpu")
@@ -310,7 +377,8 @@ def _eval(cfg, ds, params):
 
 
 PATHS = {
-    "eval": (_eval, {"eval_vae": 1, "eval.split": 2}, 2),
+    "eval": (_eval, {"eval_vae": 1, "eval.split": 2, "eval.setup": 3,
+                     "eval.prepare": 4}, 2),
     "impute": (_impute, {"serve.impute": 1, "serve.draw": 1,
                          "serve.copy_in": 1, "model.eval_step": 1,
                          "serve.copy_out": 1, "ops.embed_pool": 1}, 1),
@@ -388,8 +456,9 @@ def test_miwae_spans_nest_in_the_model_step(vae_type, branches, path,
     """A profiled `eval_vae` of a MIWAE type records the model's spans
     inside each `model.eval_step` and `iw_samples` = rows x K decoded (both
     branches of a regularized type): on IW1's path (`_fused`, which
-    `eval_vae` takes) the one call under `miwae.decode` and `iw_fused_rows`
-    = the stream's rows; on the eager path all four spans. Unprofiled it
+    `eval_vae` takes) the one call under `miwae.decode` and
+    `iw_fused_samples` the same samples; on the eager path all four spans.
+    No `iw_fused_rows` is recorded on either. Unprofiled it
     records nothing, and the results are bit-equal to those of the model
     without its spans."""
     if path == "eager":
@@ -422,10 +491,12 @@ def test_miwae_spans_nest_in_the_model_step(vae_type, branches, path,
     assert {c.parent for c in samples} == model
     assert sum(c.n for c in samples) == branches * sum(steps) * cfg.valid_k
     if path == "fused":
-        assert sum(c.n for c in counts["iw_fused_rows"]) == (
-            branches * sum(steps))
+        assert sum(c.n for c in counts["iw_fused_samples"]) == (
+            branches * sum(steps) * cfg.valid_k)
     else:
-        assert "iw_fused_rows" not in counts
+        assert "iw_fused_samples" not in counts
+    # the rows are iw_fused_samples / K: no counter of their own
+    assert "iw_fused_rows" not in counts
     monkeypatch.setattr(miwae, "tracing", _NoTracing)
     plain = evaluate.eval_vae(ds, cfg, params=params, save=False,
                               device="cpu")
@@ -519,6 +590,43 @@ def test_mnar_ensemble_evaluation_has_the_root_span():
     assert {s.root for r in spans.values() for s in r} == {root.id}
     assert len(spans["notmiwae.decode"]) == 1
     assert sum(c.n for c in by_name(recs, tracing.Count)["host_reads"]) == 1
+
+
+@pytest.mark.parametrize("evaluator", ["serial", "ensemble"])
+def test_mnar_setup_is_inside_the_root(evaluator, monkeypatch):
+    """`eval_vae_mnar` and `eval_vae_mnar_ensemble` record one
+    `eval.setup` of scope "call" under their root, around the model lookup
+    and the parameters' way onto the device, and nothing outside the root;
+    nothing without a profiler."""
+    cfg, split, params = _mnar(2)
+    if evaluator == "serial":
+        call = lambda: evaluate.eval_vae_mnar(  # noqa: E731
+            split.x, split.mask, cfg, params=params, save=False,
+            device="cpu")
+    else:
+        ens = checkpoint.unflatten({k: torch.stack([v, v]) for k, v in
+                                    checkpoint.flatten(params).items()})
+        call = lambda: evaluate.eval_vae_mnar_ensemble(  # noqa: E731
+            split.x, split.mask, cfg, ens, save=False, device="cpu")
+    _probe(monkeypatch, evaluate, "get_model")
+    _probe(monkeypatch, checkpoint, "on_device")
+    call()
+    assert tracing.spans() == []
+    with profiler():
+        call()
+    recs = tracing.take()
+    spans = by_name(recs)
+    (root,) = spans["eval_vae_mnar"]
+    (setup,) = spans["eval.setup"]
+    assert setup.parent == root.id and setup.attrs == {"scope": "call"}
+    counts = by_name(recs, tracing.Count)
+    for name in ("probe.get_model", "probe.on_device"):
+        (probe,) = counts[name]
+        assert probe.parent == setup.id, name
+    assert all(r.root == root.id for r in recs)
+    assert all(_inside(r, root) for r in recs if isinstance(r, tracing.Span))
+    for name in ("eval.prepare", "eval.warmup", "eval.release"):
+        assert name not in spans, name
 
 
 def test_profile_flag_of_the_mnar_entry_point_writes_the_spans(tmp_path,

@@ -27,15 +27,23 @@ released when `eval_vae` returns. Every batch computes what it computes
 eagerly, with the same kernels in the same order.
 
 The sharded evaluator comes with the multi-device slice. Under a torch
-profiler a call records the spans `eval_vae` (its root), `eval.split`,
-`eval.batch`, `eval.draw`, `model.eval_step` (a replay's copies in and
-the replay, with `graph=1`), `eval.stats` (a replay's copy out),
-`eval.capture` and `eval.readback`, one `host_reads` a split, and the
-counters `eval_eager_batches`, `eval_graph_captures` and
-`eval_graph_replays` (`utils/tracing`). An MNAR call (either evaluator
-below) records its root span `eval_vae_mnar`, `eval.draw` and
-`model.eval_step` a rep, and `eval.readback` around its one host read,
-with one `host_reads`.
+profiler a call records the spans `eval_vae` (its root, around all of the
+call's host work), `eval.split`, `eval.batch`, `eval.draw`,
+`model.eval_step` (a replay's copies in and the replay, with `graph=1`),
+`eval.stats` (a replay's copy out) and `eval.readback`, one `host_reads`
+a split, and the counters `eval_eager_batches`, `eval_graph_captures` and
+`eval_graph_replays` (`utils/tracing`). Its fixed phases, which do not
+scale with the batches: `eval.setup` (`scope="call"`: the model and the
+parameters on the device; `scope="split"`: the split's rows on the
+device, its weights, statistics buffer and default noise source),
+`eval.prepare` (`rep=m`: a rep's permutation, wrap-pad and gathers),
+`eval.warmup` and `eval.capture` (the eager batch before a capture and the
+capture, inside that batch's `eval.batch`) and `eval.release` (the end of
+call sync and the release of the graphs, where the call captured one). An
+MNAR call (either evaluator below) records its root span `eval_vae_mnar`,
+`eval.setup` (`scope="call"`: the matrix and the parameters on the
+device), `eval.draw` and `model.eval_step` a rep, and `eval.readback`
+around its one host read, with one `host_reads`.
 
 It serves every family. Those whose `eval_kind` is 'miwae' (MIWAE and
 notMIWAE) evaluate with cfg.valid_k importance samples a row and save only
@@ -190,10 +198,11 @@ class _BatchGraph:
         self.graph = torch.cuda.CUDAGraph()
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            # looked up at each call: a `_batch_stats` patched on the module
-            # is the one run and captured
-            into.copy_(_batch_stats(model, cfg, params, *inputs))
-            tracing.count("eval_eager_batches")
+            with tracing.span("eval.warmup"):
+                # looked up at each call: a `_batch_stats` patched on the
+                # module is the one run and captured
+                into.copy_(_batch_stats(model, cfg, params, *inputs))
+                tracing.count("eval_eager_batches")
             with tracing.span("eval.capture"):
                 self.graph.capture_begin()
                 try:
@@ -220,23 +229,30 @@ def _shapes(inputs) -> tuple:
                  for t in inputs)
 
 
-def _split_metrics(model, cfg: RunConfig, params, x, mask, noise,
-                   graphs: dict) -> dict:
-    """One split over cfg.M reps -> {metric: float}; one host sync.
-    `graphs` ({input shapes: `_BatchGraph`}) holds the call's captured
-    batches, which the other split shares."""
-    device = x.device
-    n = x.shape[0]
-    bsz = min(cfg.batch_size, n)
-    steps, pad = _pad_batches(n, bsz)
-    valid = (torch.arange(steps * bsz, device=device) < n).to(torch.float32)
-    stats = torch.empty((cfg.M * steps, len(METRICS)), device=device)
-    graphed = _use_graph(device, cfg.M * steps)
+def _split_metrics(model, cfg: RunConfig, params, split: Split, noise,
+                   graphs: dict, device: torch.device) -> dict:
+    """One split over cfg.M reps -> {metric: float}; one host sync. `noise`
+    None draws from `GeneratorNoise(cfg.seed + 1)`. `graphs` ({input
+    shapes: `_BatchGraph`}) holds the call's captured batches, which the
+    other split shares."""
+    with tracing.span("eval.setup", scope="split"):
+        if noise is None:
+            noise = GeneratorNoise(cfg.seed + 1, device)
+        x = split.x.to(device=device, dtype=torch.float32)
+        mask = split.mask.to(device=device, dtype=torch.float32)
+        n = x.shape[0]
+        bsz = min(cfg.batch_size, n)
+        steps, pad = _pad_batches(n, bsz)
+        valid = (torch.arange(steps * bsz, device=device) < n).to(
+            torch.float32)
+        stats = torch.empty((cfg.M * steps, len(METRICS)), device=device)
+        graphed = _use_graph(device, cfg.M * steps)
     for m in range(cfg.M):
-        perm = noise("perm", m, 0, (n,)).to(device)
-        if pad:
-            perm = torch.cat([perm, perm[:pad]])
-        x_rep, m_rep = x[perm], mask[perm]
+        with tracing.span("eval.prepare", rep=m):
+            perm = noise("perm", m, 0, (n,)).to(device)
+            if pad:
+                perm = torch.cat([perm, perm[:pad]])
+            x_rep, m_rep = x[perm], mask[perm]
         for s in range(steps):
             with tracing.span("eval.batch", rows=bsz):
                 rows = slice(s * bsz, (s + 1) * bsz)
@@ -286,35 +302,32 @@ def eval_vae(dataset: Dataset, cfg: RunConfig, params: Optional[dict] = None,
     evaluate.py:136-297). `params=None` loads the trained checkpoint
     (`train.load_trained`). Returns {stage: {rmse, loss, negl, negl_imp}}."""
     device = check_device(device)
-    model = get_model(cfg)
-    if params is None:
-        params = load_trained(dataset, cfg, experiments_root, device=device)
-    params = checkpoint.on_device(params, device)
-
-    results = {}
-    graphs = {}  # the splits' captured batches, shared where shapes agree
-    try:
-        with torch.no_grad(), tracing.span("eval_vae"):
+    with torch.no_grad(), tracing.span("eval_vae"):
+        with tracing.span("eval.setup", scope="call"):
+            model = get_model(cfg)
+            if params is None:
+                params = load_trained(dataset, cfg, experiments_root,
+                                      device=device)
+            params = checkpoint.on_device(params, device)
+        results = {}
+        graphs = {}  # the splits' captured batches, shared where shapes agree
+        try:
             for split in (dataset.train, dataset.test):
                 if split is None:
                     continue
                 with tracing.span("eval.split"):
-                    src = (GeneratorNoise(cfg.seed + 1, device)
-                           if noise is None else noise)
-                    agg = _split_metrics(
-                        model, cfg, params,
-                        split.x.to(device=device, dtype=torch.float32),
-                        split.mask.to(device=device, dtype=torch.float32),
-                        src, graphs)
+                    agg = _split_metrics(model, cfg, params, split, noise,
+                                         graphs, device)
                     results[split.stage] = agg
                     if save:
                         _save_eval_artifacts(cfg, model, split.stage, agg,
                                              experiments_root)
-    finally:
-        if graphs:
-            # replays may still be queued where a split raised
-            torch.cuda.current_stream(device).synchronize()
-            graphs.clear()  # the graphs, their pools and static buffers
+        finally:
+            if graphs:
+                with tracing.span("eval.release"):
+                    # replays may still be queued where a split raised
+                    torch.cuda.current_stream(device).synchronize()
+                    graphs.clear()  # the graphs, their pools and buffers
     return results
 
 
@@ -350,26 +363,31 @@ def eval_vae_mnar(data, mask, cfg: RunConfig, params: Optional[dict] = None,
     (`artifacts.eval_mnar_paths`) and an "rmse_mnar" metric at stage
     "test". `params=None` loads the trained checkpoint."""
     device = check_device(device)
-    model = get_model(cfg)
-    x = torch.as_tensor(data).to(device=device, dtype=torch.float32)
-    mask = torch.as_tensor(mask).to(device=device, dtype=torch.float32)
-    if params is None:
-        dataset = Dataset(train=Split(x, mask, "train"), test=None,
-                          obs_dim=x.shape[1])
-        params = load_trained(dataset, cfg, experiments_root, device=device)
-    params = checkpoint.on_device(params, device)
-    noise = GeneratorNoise(cfg.seed + 2, device) if noise is None else noise
     with torch.no_grad(), tracing.span("eval_vae_mnar"):
+        with tracing.span("eval.setup", scope="call"):
+            model = get_model(cfg)
+            x = torch.as_tensor(data).to(device=device, dtype=torch.float32)
+            mask = torch.as_tensor(mask).to(device=device,
+                                            dtype=torch.float32)
+            if params is None:
+                dataset = Dataset(train=Split(x, mask, "train"), test=None,
+                                  obs_dim=x.shape[1])
+                params = load_trained(dataset, cfg, experiments_root,
+                                      device=device)
+            params = checkpoint.on_device(params, device)
+            if noise is None:
+                noise = GeneratorNoise(cfg.seed + 2, device)
         # one rep at a time, as the JAX package maps over them
         reps = [_mnar_rep(model, cfg, params, x, mask, noise, m)
                 for m in range(cfg.M)]
         with tracing.span("eval.readback"):
             rmse = torch.stack(reps).mean().item()  # the one host sync
             tracing.count("host_reads")
-    if save:
-        paths = artifacts.eval_mnar_paths(cfg, experiments_root)
-        artifacts.save_tensor(rmse, paths["rmse"])
-        artifacts.log_metric(cfg, "rmse_mnar", rmse, "test", experiments_root)
+        if save:
+            paths = artifacts.eval_mnar_paths(cfg, experiments_root)
+            artifacts.save_tensor(rmse, paths["rmse"])
+            artifacts.log_metric(cfg, "rmse_mnar", rmse, "test",
+                                 experiments_root)
     return rmse
 
 
@@ -512,14 +530,17 @@ def eval_vae_mnar_ensemble(data, mask, cfg: RunConfig, params_ens,
     2)). With `save`, the seed-0 replica's RMSE goes to the reference
     artifact path and metrics.jsonl. Returns the [S] RMSEs (numpy)."""
     device = check_device(device)
-    model = get_model(cfg)
-    x = torch.as_tensor(data).to(device=device, dtype=torch.float32)
-    mask = torch.as_tensor(mask).to(device=device, dtype=torch.float32)
-    params_ens = checkpoint.on_device(params_ens, device)
-    S = next(iter(checkpoint.flatten(params_ens).values())).shape[0]
-    noise = GeneratorNoise(cfg.seed + 2, device) if noise is None else noise
-    chunk = _replica_chunk(model, cfg, x.shape[0])
     with torch.no_grad(), tracing.span("eval_vae_mnar"):
+        with tracing.span("eval.setup", scope="call"):
+            model = get_model(cfg)
+            x = torch.as_tensor(data).to(device=device, dtype=torch.float32)
+            mask = torch.as_tensor(mask).to(device=device,
+                                            dtype=torch.float32)
+            params_ens = checkpoint.on_device(params_ens, device)
+            S = next(iter(checkpoint.flatten(params_ens).values())).shape[0]
+            if noise is None:
+                noise = GeneratorNoise(cfg.seed + 2, device)
+            chunk = _replica_chunk(model, cfg, x.shape[0])
         reps = []
         for m in range(cfg.M):
             # the replicas share the data, the mask and the draws
@@ -530,9 +551,9 @@ def eval_vae_mnar_ensemble(data, mask, cfg: RunConfig, params_ens,
         with tracing.span("eval.readback"):
             rmses = torch.stack(reps).mean(dim=0).cpu().numpy()
             tracing.count("host_reads")
-    if save:
-        paths = artifacts.eval_mnar_paths(cfg, experiments_root)
-        artifacts.save_tensor(float(rmses[0]), paths["rmse"])
-        artifacts.log_metric(cfg, "rmse_mnar", float(rmses[0]), "test",
-                             experiments_root)
+        if save:
+            paths = artifacts.eval_mnar_paths(cfg, experiments_root)
+            artifacts.save_tensor(float(rmses[0]), paths["rmse"])
+            artifacts.log_metric(cfg, "rmse_mnar", float(rmses[0]), "test",
+                                 experiments_root)
     return rmses

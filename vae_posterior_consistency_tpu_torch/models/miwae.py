@@ -39,9 +39,8 @@ its masked sums, log p(z) and log q) and `miwae.weights` (the logsumexp
 over K, the softmax and the imputation); IW1's path records only
 `miwae.decode`, around the one call, which holds all of that work. The
 counters (`utils/tracing`): `iw_samples` (rows x K decoded, once a
-`forward` or an IW1 call), `iw_fused_samples` (the same, once an IW1 call)
-and `iw_fused_rows` (the stream's rows, whose reductions over K the call
-made, once an IW1 call).
+`forward` or an IW1 call) and `iw_fused_samples` (the same, once an IW1
+call).
 """
 
 from __future__ import annotations
@@ -195,7 +194,6 @@ def _fused_rows(params, x, mask, extra, eps):
     samples = eps.shape[0] * eps.shape[1]
     tracing.count("iw_samples", samples)
     tracing.count("iw_fused_samples", samples)
-    tracing.count("iw_fused_rows", x.shape[0])
     return out
 
 
